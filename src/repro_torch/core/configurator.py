@@ -86,13 +86,14 @@ class Configurator:
             raise NotImplementedError(
                 "the safety shield is not ported yet (ROADMAP queue 1, "
                 "item 4: the shield carry of the episode runner)")
-        from repro_torch.engine.fleet_torch import resolve_device
+        from repro_torch.utils import resolve_device
 
         self.env = env
         self.fleet = is_fleet_env(env)
         self.device_loop = device_loop
         self.device = resolve_device(
-            device if device is not None else getattr(env, "device", None))
+            device if device is not None else getattr(env, "device", None),
+            "Configurator")
         self._runner = None            # lazy DeviceEpisodeRunner (§10)
         self.levers = [l for l in ranked_levers if l in {s.name for s in env.lever_specs}]
         assert self.levers, "no ranked lever matches the environment's lever set"

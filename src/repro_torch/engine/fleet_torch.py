@@ -56,18 +56,6 @@ def _bucket(n: int, ladder: tuple = _SHAPE_BUCKETS) -> int:
     return -256 * (-n // 256)
 
 
-def resolve_device(device=None) -> torch.device:
-    """The fleet's device: ``cuda`` unless the caller asks for another one.
-    Without a card, ``device=None`` raises — the CPU runs only on request."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "backend='torch' runs on a CUDA card and none is available; "
-                "pass device='cpu' to run the kernels' plain versions")
-        device = "cuda"
-    return torch.device(device)
-
-
 # --------------------------------------------------------------------------
 # device-side helpers
 # --------------------------------------------------------------------------

@@ -328,10 +328,10 @@ class FleetCore:
         emc = _emission_constants()
         self._emit_factor = self.node_speed[:, :, None] * emc["scale"][None, None, :]
         self._emit_factor[:, :, emc["is_driver"]] = emc["scale"][emc["is_driver"]]
-        from repro_torch.engine.fleet_torch import (DeviceFleetEngine,
-                                                    resolve_device)
+        from repro_torch.engine.fleet_torch import DeviceFleetEngine
+        from repro_torch.utils import resolve_device
 
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, "backend='torch'")
         self._dev = DeviceFleetEngine(self, device=self.device)
 
     # ------------------------------------------------------------- config

@@ -24,20 +24,17 @@ a private column of shared memory (see the source's header); it runs far
 above the bound, which is recorded in PERF.md.
 
 The library is compiled with ``nvcc`` into ``build/kernels/`` at first use
-(one file with a plain C interface, loaded with ``ctypes``), never at import.
+(one file with a plain C interface, loaded with ``ctypes`` through
+``kernels/build.py``), never at import.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
 from repro_torch.engine.simcluster import PEAK_FLOPS, TOKENS_PER_MB
+from repro_torch.kernels import build as kbuild
 
 #: coefficient rows the kernel reads: the order of ``pack_tick_consts`` and
 #: of the kernel's ``C_*`` enum, whose ``C_USED`` must equal it (checked when
@@ -49,17 +46,12 @@ CONSTS_ROWS = 16
 
 #: kernel launches (the main path's proof that it ran on the kernel)
 LAUNCHES = 0
-#: nvcc builds of the kernel library in this process
-BUILDS = 0
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "fleet_tick.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+SOURCE = "fleet_tick.cu"
+#: -fmad=false: nvcc contracts no multiply-add the plain version does not
+NVCC_FLAGS = (*kbuild.ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LIB = None
-#: nvcc's output of the last build (ptxas registers / shared memory / spills)
-BUILD_LOG = ""
 
 
 def head_budget(S: int, p99_k: int) -> int:
@@ -240,45 +232,10 @@ def fleet_tick_window_ref(state, consts, rate, size, z, u_strag, u_raw,
 # the CUDA kernel
 # --------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME): the fleet_tick "
-                           "kernel is built from csrc/fleet_tick.cu at first use")
-    return found
-
-
-def build(force: bool = False) -> Path:
-    """Compile ``csrc/fleet_tick.cu`` into ``build/kernels/`` (the file name
-    carries a hash of the source and flags, so an edit rebuilds) and return
-    the library's path. ``force`` rebuilds even when the library exists;
-    nvcc's output, ptxas's register/shared-memory/spill report included, is
-    kept in ``BUILD_LOG``."""
-    global BUILDS, BUILD_LOG
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = _BUILD_DIR / f"libfleet_tick-{tag}.so"
-    if out.exists() and not force:
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                          capture_output=True, text=True)
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed building {_SRC.name}:\n{BUILD_LOG}")
-    os.replace(tmp, out)
-    BUILDS += 1
-    return out
-
-
 def _library():
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = kbuild.load(SOURCE, NVCC_FLAGS)
         used = lib.fleet_tick_consts_used()
         if used != CONSTS_USED:
             raise RuntimeError(f"fleet_tick: the kernel reads {used} "

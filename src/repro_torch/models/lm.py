@@ -1,0 +1,251 @@
+"""Model assembly of the port: the dense family of ``repro.models.lm``.
+
+* ``init_params``      — the parameter tree (dense family), drawn on a device
+                         from an explicit ``torch.Generator``
+* ``forward_prefill``  — full-sequence forward returning last-position
+                         logits and a primed ``DecodeState``
+* ``load_reference_params`` — the reference's parameter pytree (numpy
+                         arrays) as the port's tree
+
+The port keeps the reference's parameter layout: the same nested keys, and
+each linear weight (d_in, d_out) applied as ``x @ W``, so the converter only
+moves arrays into tensors. A layer stack is stacked along a leading L axis
+when ``cfg.scan_layers`` (as in the full configs) and a list otherwise (the
+reduced ones); ``_backbone`` walks either in a Python loop. No remat:
+the port runs inference only so far.
+
+Other families (MoE, SSM, hybrid, VLM, audio) raise ``NotImplementedError``
+naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.utils import resolve_device
+
+PyTree = Any
+
+#: ROADMAP items of the families this slice does not port
+_FAMILY_ITEMS = {
+    "ssm": "ROADMAP 1.8 step 3 (RWKV6 with kernel 2.3)",
+    "hybrid": "ROADMAP 1.8 step 4 (Mamba2 with kernel 2.4)",
+    "moe": "ROADMAP 1.8 step 5 (MoE and the other families)",
+    "vlm": "ROADMAP 1.8 step 5 (MoE and the other families)",
+    "audio": "ROADMAP 1.8 step 5 (MoE and the other families)",
+}
+
+
+def _dense_only(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
+            f"{_FAMILY_ITEMS.get(cfg.family, 'ROADMAP 1.8')}")
+
+
+class DecodeState(NamedTuple):
+    """All sequence state needed to emit the next token."""
+
+    pos: torch.Tensor  # scalar int32: #tokens already in the state
+    kv_k: Optional[torch.Tensor] = None  # (L, B, Smax, nkv, hd)
+    kv_v: Optional[torch.Tensor] = None
+    ssm: Optional[PyTree] = None
+    cross_k: Optional[torch.Tensor] = None
+    cross_v: Optional[torch.Tensor] = None
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def _stack(trees: list) -> PyTree:
+    """Stack a list of equal trees leaf-wise along a new leading axis. Each
+    leaf's per-layer tensors are released as soon as they are stacked, so
+    the peak is the tree plus one stacked leaf, not twice the tree."""
+    first = trees[0]
+    if isinstance(first, dict):
+        out = {}
+        for key in list(first):
+            out[key] = _stack([t[key] for t in trees])
+            for t in trees:
+                del t[key]
+        return out
+    return torch.stack(trees)
+
+
+def _layer(tree: PyTree, i: int) -> PyTree:
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _init_dense_layer(gen, cfg: ModelConfig, device) -> dict:
+    dt = L._dtype(cfg)
+    return {
+        "norm1": L.init_rmsnorm(cfg.d_model, dt, device),
+        "attn": L.init_attention(gen, cfg, device),
+        "norm2": L.init_rmsnorm(cfg.d_model, dt, device),
+        "mlp": L.init_mlp(gen, cfg, device),
+    }
+
+
+def init_params(cfg: ModelConfig, gen: Optional[torch.Generator], *,
+                device=None) -> PyTree:
+    """The parameter tree of a dense model, drawn from ``gen`` on its device
+    (``device`` overrides it; on ``meta`` nothing is drawn and ``gen`` may be
+    None). The reference's ``max_seq`` argument sizes the audio family's
+    learned positions; a dense model has none."""
+    _dense_only(cfg)
+    device = torch.device(device if device is not None else gen.device)
+    dt = L._dtype(cfg)
+    emb_scale = 1.0 / np.sqrt(cfg.d_model)
+    params: dict = {
+        "embed": L._init(gen, (cfg.vocab_size, cfg.d_model), emb_scale, dt,
+                         device),
+        "final_norm": L.init_rmsnorm(cfg.d_model, dt, device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L._init(gen, (cfg.d_model, cfg.vocab_size),
+                                    emb_scale, dt, device)
+    blocks = [_init_dense_layer(gen, cfg, device)
+              for _ in range(cfg.num_layers)]
+    params["layers"] = _stack(blocks) if cfg.scan_layers else blocks
+    return params
+
+
+def _to_tensor(a, device) -> torch.Tensor:
+    a = np.array(a)  # a writable copy
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: same bits
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def load_reference_params(tree: PyTree, cfg: ModelConfig, device=None) -> PyTree:
+    """The reference's ``init_params`` tree (leaves as numpy arrays or
+    anything ``np.asarray`` takes) as the port's tree on ``device`` (``cuda``
+    unless another device is named). The layouts are the same — x @ W
+    weights, the same keys — so leaves keep their shapes and dtypes. The
+    layer stack may be stacked (``scan_layers=True``, a dict of (L, ...)
+    arrays) or a list of per-layer dicts; it must be the one ``cfg``
+    names."""
+    _dense_only(cfg)
+    device = resolve_device(device, "load_reference_params")
+    stacked = isinstance(tree["layers"], dict)
+    if stacked != cfg.scan_layers:
+        raise ValueError(f"reference layers are {'stacked' if stacked else 'a list'}"
+                         f" but cfg.scan_layers={cfg.scan_layers}")
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [conv(v) for v in x]
+        return _to_tensor(x, device)
+
+    return conv(tree)
+
+
+# ---------------------------------------------------------------------------
+# Blocks and the full-sequence forward
+# ---------------------------------------------------------------------------
+
+
+def _dense_block(p, cfg, x):
+    x = x + L.attention_apply(p["attn"], cfg,
+                              L.rmsnorm(p["norm1"], x, cfg.norm_eps))
+    return x + L.mlp_apply(p["mlp"], cfg, L.rmsnorm(p["norm2"], x, cfg.norm_eps))
+
+
+def _layers(params, cfg: ModelConfig):
+    """The per-layer trees, from either layout."""
+    if cfg.scan_layers:
+        n = next(iter(params["attn"].values())).shape[0]
+        return (_layer(params, i) for i in range(n))
+    return iter(params)
+
+
+def _backbone(params, cfg: ModelConfig, x):
+    """(B,S,d) -> (B,S,d) through the dense blocks, in order."""
+    _dense_only(cfg)
+    for p in _layers(params["layers"], cfg):
+        x = _dense_block(p, cfg, x)
+    return x
+
+
+def _logits(params, cfg: ModelConfig, x):
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = x @ w
+    vt = cfg.vocab_true or cfg.vocab_size
+    if vt != cfg.vocab_size:  # mask padded vocab slots
+        mask = torch.arange(cfg.vocab_size, device=logits.device) < vt
+        logits = torch.where(mask[None, None, :], logits,
+                             torch.tensor(-1e9, dtype=logits.dtype,
+                                          device=logits.device))
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# Prefill
+# ---------------------------------------------------------------------------
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
+                      device=None) -> DecodeState:
+    """Empty state sized for `max_seq` total positions."""
+    _dense_only(cfg)
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    hd = cfg.resolved_head_dim
+    kv_k = torch.zeros((cfg.num_layers, batch, max_seq, cfg.num_kv_heads, hd),
+                       dtype=dt, device=device)
+    return DecodeState(pos=torch.zeros((), dtype=torch.int32, device=device),
+                       kv_k=kv_k, kv_v=torch.zeros_like(kv_k))
+
+
+def forward_prefill(params: PyTree, cfg: ModelConfig, batch: dict,
+                    max_seq: int) -> tuple[torch.Tensor, DecodeState]:
+    """Run the full prompt, return last-position logits (B, 1, V) + a primed
+    DecodeState.
+
+    As in the reference, the K/V caches are recomputed per layer from the
+    layer's input (the norm, the K/V projections, RoPE on K) beside the
+    block, and written into a fresh ``init_decode_state``."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = params["embed"][tokens]
+    state = init_decode_state(cfg, B, max_seq, device=x.device)
+    hd = cfg.resolved_head_dim
+    pos = torch.arange(x.shape[1], device=x.device)
+
+    def kv_of(p, h):
+        src = L.rmsnorm(p["norm1"], h, cfg.norm_eps)
+        k = (src @ p["attn"]["wk"]).reshape(B, -1, cfg.num_kv_heads, hd)
+        v = (src @ p["attn"]["wv"]).reshape(B, -1, cfg.num_kv_heads, hd)
+        if "bk" in p["attn"]:
+            k = k + p["attn"]["bk"].reshape(1, 1, cfg.num_kv_heads, hd)
+            v = v + p["attn"]["bv"].reshape(1, 1, cfg.num_kv_heads, hd)
+        k = L.apply_rope(k, pos, cfg.rope_theta)
+        return k, v
+
+    for i, p in enumerate(_layers(params["layers"], cfg)):
+        k, v = kv_of(p, x)
+        x = _dense_block(p, cfg, x)
+        state.kv_k[i, :, :S] = k.to(state.kv_k.dtype)
+        state.kv_v[i, :, :S] = v.to(state.kv_v.dtype)
+    state = state._replace(pos=torch.tensor(S, dtype=torch.int32,
+                                            device=x.device))
+    return _logits(params, cfg, x[:, -1:]), state
+
+
+def score_last(params: PyTree, cfg: ModelConfig, tokens) -> torch.Tensor:
+    """Last-position logits (B, 1, V) of ``forward_prefill`` without its
+    decode state: embed, backbone, final norm and head on the last
+    position. This is what the reference's jitted serve step keeps of
+    ``forward_prefill`` once XLA drops the unused K/V recompute and cache."""
+    x = _backbone(params, cfg, params["embed"][tokens])
+    return _logits(params, cfg, x[:, -1:])

@@ -263,8 +263,8 @@ def retrace_counts() -> int:
     once per process, so this total going up cycle-over-cycle means a
     kernel library is being rebuilt — the port's analogue of the
     reference's retrace counter, exposed as the same ``retraces`` gauge."""
-    from repro_torch.kernels import fleet_tick
-    return int(fleet_tick.BUILDS)
+    from repro_torch.kernels import build
+    return int(build.BUILDS)
 
 
 def _prometheus_text(prefix: str, values: dict, counter_keys) -> str:

@@ -8,6 +8,10 @@ accept Python scalars; ``torch.maximum`` wants two tensors. ``txp`` routes a
 scalar bound through ``torch.clamp`` (the scalar rides in the kernel launch,
 so no host-to-device copy and no sync on the hot loop) and keeps torch's
 tensor-tensor ops otherwise — one formula, no fork.
+
+``round_up`` is the reference's integer helper (``repro.utils``), copied.
+``resolve_device`` is the port's rule for every entry point: ``cuda`` unless
+the caller names another device, and no silent fall back to the CPU.
 """
 from __future__ import annotations
 
@@ -49,3 +53,19 @@ txp = types.SimpleNamespace(
     stack=torch.stack,
     float32=torch.float32,
 )
+
+
+def round_up(x: int, to: int) -> int:
+    return ((x + to - 1) // to) * to
+
+
+def resolve_device(device=None, what: str = "the port") -> torch.device:
+    """``cuda`` unless the caller asks for another device. Without a card,
+    ``device=None`` raises — the CPU runs only on request."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{what} runs on a CUDA card and none is available; pass "
+                "device='cpu' to run the kernels' plain versions")
+        device = "cuda"
+    return torch.device(device)
