@@ -5,7 +5,7 @@
 Phases (each prints its own lines; any failure raises and exits non-zero):
 
 1. facts    the card's name and power limit (nvidia-smi), torch and CUDA
-2. build    nvcc builds every kernel of both paths from the checkout's
+2. build    nvcc builds every kernel of every path from the checkout's
             sources into build/kernels/ (one nvcc per source, all started
             together) and prints ptxas's report
 3. kernels  fleet_tick against its plain PyTorch version on the card at the
@@ -33,12 +33,34 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
             of 5 events; the attention kernel's launches must be 28 per
             forward pass. Then forward_prefill on the same weights and
             tokens with the kernel and with naive attention must agree
+8. wkv      the RWKV-6 wkv kernel against its plain versions at the
+            rwkv6-7b train shape (B=4, H=64, S=4096, hd=64; bf16 r/k/v with
+            f32 logw/u, and all-f32; chunks 32 and 64), a ragged S, S <
+            chunk and logw at both clip ends, with the stated tolerances;
+            CUDA-event times of kernel and plain chunked version beside the
+            bound
+9. rwkv     the RWKV-6 path at full rwkv6-7b width (32 layers, bf16,
+            random weights from a seed): forward_train on a 4x4096
+            make_batch (the reference's route, the plain chunked wkv), then
+            the same 32 layers walked as _rwkv_block composes them but with
+            rwkv6_time_mix(impl="pallas"), exactly 32 kernel launches a
+            pass, each layer's time mix against the chunked one, loss and
+            logits against forward_train's, logits on an f32 copy of the
+            weights, forward_prefill (no kernel launch) against score_last
+10. ssd     the Mamba2 SSD kernel through ops.mamba2_ssd at zamba2-2.7b's
+            mixer shape (B=4, nh=80, S=4096, hd=64, ns=64, chunk 128; f32
+            and bf16), a ragged S and S < chunk, against the plain chunked
+            and sequential versions; times beside the bound
 
-The last two lines are the kernels JSON and the contract JSON. The script
-imports neither jax nor the JAX package; it needs one card.
+Each path's kernel launches are counted from 0 just before the path runs
+and read just after. The last two lines are the kernels JSON and the
+contract JSON. The script imports neither jax nor the JAX package; it
+needs one card.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -80,6 +102,24 @@ F32_DEPTH_TOL = 1e-3
 #: naive) on the same weights and tokens, the floor that bf16 rounding of
 #: each layer's attention output sets at depth
 BF16_DEPTH_FLOOR_X = 1.5
+#: wkv kernel vs its plain versions, max |difference| over the plain
+#: output's scale max(1, max |plain|) (printed beside it: at S=4096 with
+#: slow decays the state sums thousands of k vT products, and o reaches
+#: hundreds). f32: tests/test_kernels.py's 1e-3 (the Pallas kernel against
+#: the sequential oracle; the kernel runs the recurrence token by token, the
+#: chunked plain version sums in another order). bf16 r/k/v: o is rounded to
+#: bf16 on both sides, one bf16 ulp is 2^-8 of the value: the bf16 3e-2 of
+#: tests/test_kernels.py. S_fin is f32 in both cases: 1e-3
+WKV_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
+#: SSD kernel vs its plain versions, on the same scale: tests/test_kernels.py's
+#: f32 2e-4 (chunked vs sequential) and bf16 3e-2
+SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+#: the RWKV-6 loss in bf16, kernel route vs forward_train's chunked route:
+#: the loss is the f32 mean over 16384 positions of CE on bf16 logits; the
+#: two routes' logits differ by single bf16 ulps (2^-8 relative) of both
+#: signs, so the mean moves far less than one ulp; 1e-3 of the loss would
+#: take a systematic quarter-ulp shift of every logit
+RWKV_LOSS_RTOL = 1e-3
 
 
 def _gpu_facts() -> str:
@@ -87,6 +127,14 @@ def _gpu_facts() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def _bound(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the bytes at
+    HBM_BYTES_S and the operations at ``peak``, and which of the two."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
+        "operations"
 
 
 def _time_ms(fn, reps: int = 100, warmup: int = 5) -> float:
@@ -185,8 +233,7 @@ def phase_kernels(dev) -> dict:
             lambda: ft.fleet_tick_window_ref(*args, **kw, p99_k=p99_k),
             reps=100, warmup=2)
         nbytes, nops = ft.window_cost(T, S, K, N, fmult=True)
-        bound_ms = max(nbytes / HBM_BYTES_S, nops / F32_OPS_S) * 1e3
-        by = "bytes" if nbytes / HBM_BYTES_S >= nops / F32_OPS_S else "operations"
+        bound_ms, by = _bound(nbytes, nops, F32_OPS_S)
         print(f"  N={N} T={T} S={S}: kernel {ms * 1e3:.1f} us, plain "
               f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us by "
               f"{by} ({nbytes / 1e6:.2f} MB, {nops / 1e6:.1f} Mop)")
@@ -211,7 +258,7 @@ def phase_main(dev, facts: str) -> dict:
     w0 = {k: v.detach().clone() for k, v in cfgr.agent.params.items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ft.LAUNCHES = 0
+    _zero_counts()
     t0 = time.perf_counter()
     per_update = []
     for _ in range(updates):
@@ -376,10 +423,8 @@ def phase_attention(dev, facts: str) -> dict:
         plain_ms = _time_ms(lambda: fa.flash_attention_bhsd_ref(q, k, v, **kw))
         nbytes, flops = fa.attention_cost(B, Hq, Hkv, Sq, Skv, hd, causal=causal,
                                           q_offset=off, itemsize=q.element_size())
-        peak = BF16_OPS_S if dt == bf16 else F32_OPS_S
-        t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / peak
-        bound_ms = max(t_bytes, t_ops) * 1e3
-        by = "bytes" if t_bytes >= t_ops else "operations"
+        bound_ms, by = _bound(nbytes, flops,
+                              BF16_OPS_S if dt == bf16 else F32_OPS_S)
         print(f"    kernel {ms * 1e3:.3f} us, plain {plain_ms * 1e3:.3f} us, "
               f"bound {bound_ms * 1e3:.3f} us by {by} ({nbytes / 1e6:.2f} MB, "
               f"{flops / 1e9:.4f} GFLOP) [{facts}]")
@@ -449,8 +494,7 @@ def phase_serve(dev, facts: str) -> dict:
     evs = _serve_events(645, seed=0)
     backlog, short = evs[:640], evs[640:]
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = 0
-    ft.LAUNCHES = 0
+    _zero_counts()
     passes0 = eng.forward_passes
     t_start = time.perf_counter()
     eng.buffer.put(backlog)
@@ -620,6 +664,440 @@ def _prefill_agreement(eng, cfg, toks, engine_tok) -> None:
                              "tolerance")
 
 
+KERNEL_MODULES = ("fleet_tick", "flash_attention", "rwkv6_wkv", "mamba2_ssd")
+
+
+def _kernel_mods():
+    import importlib
+
+    return {n: importlib.import_module(f"repro_torch.kernels.{n}")
+            for n in KERNEL_MODULES}
+
+
+def _zero_counts() -> None:
+    for mod in _kernel_mods().values():
+        mod.LAUNCHES = 0
+
+
+def _counts() -> dict:
+    return {n: mod.LAUNCHES for n, mod in _kernel_mods().items()}
+
+
+def _scaled_err(got, want) -> tuple[float, float]:
+    """(max |got - want|, the scale max(1, max |want|)), in f32."""
+    a, b = got.float(), want.float()
+    if not torch.isfinite(a).all():
+        raise AssertionError("non-finite kernel output")
+    return float((a - b).abs().max()), max(1.0, float(b.abs().max()))
+
+
+def _wkv_inputs(B, H, S, hd, dtype, dev, seed, logw="clip"):
+    """Model-layout (B, S, H, hd) operands: r, k, v ~ N(0, 1) in ``dtype``;
+    logw f32 log-uniform over the model's whole clip range [-8, -1e-6]
+    (layers.py clamps it there) with both ends present, or all at one end
+    (``logw`` = -8.0 or -1e-6); u ~ N(0, 1) f32."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    r, k, v = (mk(B, S, H, hd).to(dtype) for _ in range(3))
+    if logw == "clip":
+        lo, hi = np.log(1e-6), np.log(8.0)
+        lw = -torch.exp(lo + (hi - lo) * torch.rand(
+            (B, S, H, hd), generator=g, device=dev))
+        lw.view(-1)[0], lw.view(-1)[-1] = -8.0, -1e-6
+    else:
+        lw = torch.full((B, S, H, hd), float(logw), device=dev)
+    return r, k, v, lw, mk(H, hd)
+
+
+def phase_wkv(dev, facts: str) -> dict:
+    """The wkv kernel against the plain chunked wkv6_chunked (every shape)
+    and the sequential rwkv6_wkv_ref (shorter S), on the same tensors, in
+    the model layout the path gives it (strided (B,H,S,hd) views); then
+    CUDA-event times at the main shape beside the bound."""
+    from repro_torch.kernels import rwkv6_wkv as wkv
+    from repro_torch.models.layers import wkv6_chunked
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    bhsd = lambda *a: [x.transpose(1, 2) for x in a]
+    # (label, B, H, S, hd, chunk, dtype, logw, sequential oracle too)
+    shapes = [
+        ("rwkv6-7b-train", 4, 64, 4096, 64, 32, bf16, "clip", False),
+        ("rwkv6-7b-train", 4, 64, 4096, 64, 64, bf16, "clip", False),
+        ("rwkv6-7b-train", 4, 64, 4096, 64, 32, f32, "clip", False),
+        ("rwkv6-7b-train", 4, 64, 4096, 64, 64, f32, "clip", False),
+        ("ragged", 2, 8, 1000, 64, 32, bf16, "clip", True),
+        ("ragged", 2, 8, 1000, 64, 64, f32, "clip", True),
+        ("S<chunk", 3, 4, 20, 64, 64, f32, "clip", True),
+        ("logw=-8", 1, 8, 512, 64, 32, f32, -8.0, True),
+        ("logw=-1e-6", 1, 8, 512, 64, 32, f32, -1e-6, True),
+        ("reduced-hd32", 2, 4, 300, 32, 32, f32, "clip", True),
+    ]
+    main = None
+    for i, (label, B, H, S, hd, ch, dt, lwr, seq) in enumerate(shapes):
+        r, k, v, lw, u = _wkv_inputs(B, H, S, hd, dt, dev, seed=i, logw=lwr)
+        o, sfin = wkv.rwkv6_wkv(*bhsd(r, k, v, lw), u, chunk=ch)
+        oc, sc = wkv6_chunked(r, k, v, lw, u, chunk=ch)
+        torch.cuda.synchronize()
+        checks = [("chunked", o, oc.transpose(1, 2).to(dt), sfin, sc)]
+        if seq:
+            oq, sq = wkv.rwkv6_wkv_ref(*bhsd(r, k, v, lw), u)
+            checks.append(("sequential", o, oq, sfin, sq))
+        for name, a, b, sa, sb in checks:
+            err, scale = _scaled_err(a, b)
+            serr, sscale = _scaled_err(sa, sb)
+            tol = WKV_TOL[dt]
+            print(f"  {label} B={B} H={H} S={S} hd={hd} chunk={ch} "
+                  f"{str(dt).removeprefix('torch.')} vs {name}: o max_abs "
+                  f"{err:.3e} (scale {scale:.2f}, scaled {err / scale:.3e}, "
+                  f"tol {tol}); S_fin max_abs {serr:.3e} (scale {sscale:.2f},"
+                  f" scaled {serr / sscale:.3e}, tol {WKV_TOL[f32]})")
+            if err / scale > tol or serr / sscale > WKV_TOL[f32]:
+                raise AssertionError(f"wkv kernel vs {name} out of tolerance "
+                                     f"at {label} chunk {ch} {dt}")
+        if label != "rwkv6-7b-train":
+            continue
+        ms = _time_ms(lambda: wkv.rwkv6_wkv(*bhsd(r, k, v, lw), u, chunk=ch),
+                      reps=20, warmup=2)
+        plain_ms = _time_ms(lambda: wkv6_chunked(r, k, v, lw, u, chunk=ch),
+                            reps=3, warmup=1)
+        nbytes, flops = wkv.wkv_cost(B, H, S, hd, itemsize=r.element_size())
+        bound_ms, by = _bound(nbytes, flops, F32_OPS_S)
+        print(f"    kernel {ms:.4f} ms, plain wkv6_chunked {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms by {by} ({nbytes / 1e9:.4f} GB, "
+              f"{flops / 1e9:.3f} GFLOP f32) [{facts}]")
+        if main is None:
+            n = B * H * S
+            print(f"    exp count: the kernel {n * hd} (one per token and key "
+                  f"channel); the chunked form at chunk {ch} "
+                  f"{n // ch * (ch * (ch - 1) // 2 + 3 * ch) * hd} (the "
+                  f"C(C-1)/2 x hd intra-chunk decays and 3 C x hd more per "
+                  f"chunk); no PyTorch call computes this function "
+                  f"(library: none)")
+            main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+        del r, k, v, lw, o, oc, sfin, sc
+    return main
+
+
+def _rwkv_walk(params, cfg, tokens, impl: str, check: bool = False):
+    """The backbone walked as lm._rwkv_block composes its layers, with
+    rwkv6_time_mix(..., impl=impl); with ``check``, each layer's time mix
+    is also run with impl="chunked" on the same input and the scaled
+    distance kept. Returns (final hidden states, per-layer distances)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.lm import _layers
+
+    x = params["embed"][tokens]
+    dists = []
+    for p in _layers(params["layers"], cfg):
+        hn = L.rmsnorm(p["tm_norm"], x, cfg.norm_eps)
+        h, _ = L.rwkv6_time_mix(p, cfg, hn, impl=impl)
+        if check:
+            h_ref, _ = L.rwkv6_time_mix(p, cfg, hn, impl="chunked")
+            err, scale = _scaled_err(h, h_ref)
+            dists.append(err / scale)
+            del h_ref
+        x = x + h
+        h, _ = L.rwkv6_channel_mix(p, cfg, L.rmsnorm(p["cm_norm"], x,
+                                                     cfg.norm_eps))
+        x = x + h
+    return x, dists
+
+
+def _masked_loss(logits, batch):
+    from repro_torch.utils import softmax_cross_entropy
+
+    ce = softmax_cross_entropy(logits, batch["labels"])
+    return float((ce * batch["mask"]).sum() / batch["mask"].sum())
+
+
+def _profile_pass(fn) -> None:
+    """One call under torch.profiler: wall, device busy share, launches,
+    and the device time by group and by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.device_time_total for e in rows)
+    groups = {"wkv kernel": 0.0, "matmul (cuBLAS)": 0.0, "other": 0.0}
+    for e in rows:
+        key = e.key.lower()
+        if "wkv_kernel" in key:
+            groups["wkv kernel"] += e.device_time_total
+        elif any(w in key for w in ("gemm", "nvjet", "cutlass", "xmma")):
+            groups["matmul (cuBLAS)"] += e.device_time_total
+        else:
+            groups["other"] += e.device_time_total
+    print(f"  profiled pass: wall {wall:.3f} s (profiler on), device busy "
+          f"{busy_us / 1e6:.3f} s ({100 * busy_us / 1e6 / wall:.1f} %), "
+          f"{sum(e.count for e in rows)} device launches; by group: " +
+          ", ".join(f"{k} {v / 1e3:.3f} ms ({100 * v / max(busy_us, 1e-9):.1f}"
+                    f" %)" for k, v in groups.items()))
+    for e in sorted(rows, key=lambda e: e.device_time_total,
+                    reverse=True)[:10]:
+        print(f"    {e.device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+              f"{e.key[:70]}")
+
+
+def phase_rwkv(dev, facts: str) -> dict:
+    """The RWKV-6 path at full rwkv6-7b width (see the module docstring)."""
+    from repro_torch.configs import rwkv6_7b
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.engine.engine import _cast_floats
+    from repro_torch.models import lm
+
+    cfg = rwkv6_7b.CONFIG
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.ssm_head_dim,
+            cfg.d_ff, cfg.vocab_size, cfg.dtype, cfg.wkv_chunk) == (
+        32, 4096, 64, 64, 14336, 65536, "bfloat16", 32)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  before the model: {torch.cuda.memory_allocated() / 2**30:.3f} "
+          f"GiB allocated")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"  {cfg.name}: {cfg.num_layers} layers, bf16, {n_params} parameters "
+          f"drawn on the card in {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    B, S = 4, 4096
+    batch = make_batch(cfg, B, S, seed=0, device=dev)
+    toks = batch["tokens"]
+    with torch.inference_mode():
+        # forward_train, the reference's route: the plain chunked wkv
+        walls = []
+        for _ in range(2):  # the first call carries one-time set-up
+            _zero_counts()
+            t0 = time.perf_counter()
+            loss_c, _ = lm.forward_train(params, cfg, batch)
+            loss_c = float(loss_c)
+            walls.append(time.perf_counter() - t0)
+            train_counts = _counts()
+        print(f"  forward_train (chunked wkv) loss {loss_c:.6f}; wall "
+              f"{walls[1]:.3f} s ({walls[0]:.3f} s first), "
+              f"{B * S / walls[1]:.1f} tokens/s; kernel launches "
+              f"{train_counts}")
+        if any(train_counts.values()):
+            raise AssertionError("forward_train launched a kernel")
+        _profile_pass(lambda: lm.forward_train(params, cfg, batch))
+        # the kernel route: counts read around exactly this pass
+        _zero_counts()
+        x_k, dists = _rwkv_walk(params, cfg, toks, "pallas", check=True)
+        torch.cuda.synchronize()
+        counts = _counts()
+        print(f"  kernel walk (rwkv6_time_mix impl=pallas): launches {counts} "
+              f"(expected {cfg.num_layers} rwkv6_wkv); time mix vs chunked "
+              f"per layer, scaled max_abs: max {max(dists):.3e} (layer "
+              f"{int(np.argmax(dists))}), mean {np.mean(dists):.3e} (tol "
+              f"{WKV_TOL[torch.bfloat16]})")
+        if counts != {**{n: 0 for n in KERNEL_MODULES},
+                      "rwkv6_wkv": cfg.num_layers}:
+            raise AssertionError(f"kernel walk launches {counts}")
+        if max(dists) > WKV_TOL[torch.bfloat16]:
+            raise AssertionError("a layer's time mix: kernel vs chunked out "
+                                 "of tolerance")
+        logits_k = lm._logits(params, cfg, x_k)
+        del x_k
+        loss_k = _masked_loss(logits_k, batch)
+        logits_c = lm._logits(params, cfg, lm._backbone(
+            params, cfg, params["embed"][toks]))
+        loss_cc = _masked_loss(logits_c, batch)
+        cfg64 = dataclasses.replace(cfg, wkv_chunk=64)
+        logits_64 = lm._logits(params, cfg64, lm._backbone(
+            params, cfg64, params["embed"][toks]))
+        loss_64 = _masked_loss(logits_64, batch)
+        dist = lambda a, b: float((a.float() - b.float()).abs().max())
+        d_k, floor = dist(logits_k, logits_c), dist(logits_64, logits_c)
+        top2 = logits_c.float().topk(2, dim=-1).values
+        robust = (top2[..., 0] - top2[..., 1]) > 2 * floor
+        agree = lambda a, b: float((a.argmax(-1) == b.argmax(-1))
+                                   .float().mean())
+        same_robust = bool(torch.equal(logits_k.argmax(-1)[robust],
+                                       logits_c.argmax(-1)[robust]))
+        print(f"  bf16 logits (scale {float(logits_c.float().abs().max()):.3f}"
+              f", {B * S} positions): kernel route vs forward_train's chunked "
+              f"route max_abs {d_k:.4e}; chunk 64 vs chunk 32 {floor:.4e} (the "
+              f"plain floor; ratio {d_k / max(floor, 1e-30):.3f}, limit "
+              f"{BF16_DEPTH_FLOOR_X}); argmax agreement "
+              f"{agree(logits_k, logits_c):.4f} (chunk 64 vs 32: "
+              f"{agree(logits_64, logits_c):.4f}), equal on "
+              f"all {int(robust.sum())} rows with a top-2 margin above twice "
+              f"the floor: {same_robust}")
+        print(f"  bf16 loss: kernel route {loss_k:.6f}, forward_train "
+              f"{loss_c:.6f} (recomputed from the chunked route's logits: "
+              f"{loss_cc:.6f}), chunk 64 {loss_64:.6f}; relative difference "
+              f"{abs(loss_k - loss_c) / loss_c:.3e} (tol {RWKV_LOSS_RTOL})")
+        del logits_k, logits_c, logits_64, top2, robust
+        if d_k > BF16_DEPTH_FLOOR_X * floor or not same_robust:
+            raise AssertionError("bf16 rwkv logits: the kernel route is "
+                                 "farther from the chunked route than the "
+                                 "plain floor allows")
+        if abs(loss_k - loss_c) > RWKV_LOSS_RTOL * abs(loss_c) or \
+                abs(loss_cc - loss_c) > 1e-6 * abs(loss_c):
+            raise AssertionError("bf16 rwkv loss out of tolerance")
+        # the path's speed: one timed pass and one profiled pass
+        _zero_counts()
+        t0 = time.perf_counter()
+        x_k, _ = _rwkv_walk(params, cfg, toks, "pallas")
+        loss_t = _masked_loss(lm._logits(params, cfg, x_k), batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if _counts()["rwkv6_wkv"] != cfg.num_layers:
+            raise AssertionError("timed kernel pass: launches != 32")
+        del x_k
+        print(f"  kernel route forward + loss: wall {wall:.3f} s, "
+              f"{B * S / wall:.1f} tokens/s (loss {loss_t:.6f}); peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+              f"[{facts}]")
+        _profile_pass(lambda: _masked_loss(lm._logits(
+            params, cfg, _rwkv_walk(params, cfg, toks, "pallas")[0]), batch))
+        # forward_prefill's ssm branch: a state, so wkv6_chunked, no kernel
+        _zero_counts()
+        lp, st = lm.forward_prefill(params, cfg, {"tokens": toks},
+                                    max_seq=S)
+        torch.cuda.synchronize()
+        pre_counts = _counts()
+        ls = lm.score_last(params, cfg, toks)
+        err, scale = _scaled_err(lp, ls)
+        print(f"  forward_prefill (ssm branch): last-position logits vs "
+              f"score_last (chunked backbone) max_abs {err:.3e} (scale "
+              f"{scale:.2f}, tol {WKV_TOL[torch.bfloat16]}), bitwise "
+              f"{bool(torch.equal(lp, ls))}; kernel launches {pre_counts} "
+              f"(with a state the route falls back to wkv6_chunked, as in the "
+              f"reference); state pos {int(st.pos)}, wkv state "
+              f"{tuple(st.ssm['wkv'].shape)} finite "
+              f"{bool(torch.isfinite(st.ssm['wkv']).all())}")
+        if any(pre_counts.values()) or err / scale > WKV_TOL[torch.bfloat16] \
+                or not torch.isfinite(st.ssm["wkv"]).all():
+            raise AssertionError("forward_prefill (ssm) check failed")
+        del lp, st, ls
+    mem_bf16 = torch.cuda.max_memory_allocated()
+    # the whole model in f32 on a copy of the same weights, at 2 x 2048
+    params32 = _cast_floats(params, torch.float32)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    b32 = make_batch(cfg32, 2, 2048, seed=1, device=dev)
+    with torch.inference_mode():
+        _zero_counts()
+        x_k, _ = _rwkv_walk(params32, cfg32, b32["tokens"], "pallas")
+        n32 = _counts()["rwkv6_wkv"]
+        a = lm._logits(params32, cfg32, x_k)
+        del x_k
+        loss32_c, _ = lm.forward_train(params32, cfg32, b32)
+        b = lm._logits(params32, cfg32, lm._backbone(
+            params32, cfg32, params32["embed"][b32["tokens"]]))
+        ok = bool(((a - b).abs() <= F32_DEPTH_TOL * (1 + b.abs())).all())
+        loss32_k = _masked_loss(a, b32)
+        print(f"  f32 copy, 2 x 2048: logits kernel route vs chunked max_abs "
+              f"{dist(a, b):.4e} (scale {float(b.abs().max()):.3f}, rtol=atol "
+              f"{F32_DEPTH_TOL}); loss {loss32_k:.6f} vs forward_train "
+              f"{float(loss32_c):.6f}; rwkv6_wkv launches {n32}")
+        if not ok or n32 != cfg.num_layers or \
+                abs(loss32_k - float(loss32_c)) > 1e-4 * float(loss32_c):
+            raise AssertionError("f32 rwkv logits or loss out of tolerance")
+    del params32, a, b
+    print(f"  peak device memory: {mem_bf16 / 2**30:.3f} GiB (bf16 model "
+          f"and checks), {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+          f"overall with the f32 copy")
+    return {"launches": counts["rwkv6_wkv"]}
+
+
+def _ssd_inputs(B, nh, S, hd, ns, dtype, dev, seed):
+    """Operands as mamba2_mix feeds its scan: dt = softplus(N(0, 1)) per
+    (token, head), A = -exp(U(0, log 16)) per head (Mamba2's A in [1, 16]),
+    x = N(0, 1) dt (the Δ-scaled input), loga = dt A (f32), B and C
+    ~ N(0, 1); x, B and C in ``dtype``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    dt = torch.nn.functional.softplus(mk(B, nh, S))
+    A = -torch.exp(np.log(16.0) * torch.rand((nh,), generator=g, device=dev))
+    x = (mk(B, nh, S, hd) * dt[..., None]).to(dtype)
+    return (x, mk(B, S, ns).to(dtype), mk(B, S, ns).to(dtype),
+            dt * A[None, :, None])
+
+
+def phase_ssd(dev, facts: str) -> dict:
+    """The SSD kernel through ops.mamba2_ssd (its path, counted around the
+    main-shape call), then against the plain chunked and sequential
+    versions on the same tensors, and CUDA-event times beside the bound."""
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.kernels import ops
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, nh, S, hd, ns, ch = 4, 80, 4096, 64, 64, 128
+    x, bm, cm, la = _ssd_inputs(B, nh, S, hd, ns, f32, dev, seed=0)
+    torch.cuda.synchronize()
+    _zero_counts()
+    y = ops.mamba2_ssd(x, bm, cm, la, chunk=ch)
+    torch.cuda.synchronize()
+    counts = _counts()
+    print(f"  ops.mamba2_ssd at zamba2-2.7b's mixer shape: launches {counts} "
+          f"(expected 1 mamba2_ssd); y {tuple(y.shape)} finite "
+          f"{bool(torch.isfinite(y).all())}")
+    if counts != {**{n: 0 for n in KERNEL_MODULES}, "mamba2_ssd": 1}:
+        raise AssertionError(f"ssd path launches {counts}")
+    del x, bm, cm, la, y
+    # (label, B, nh, S, hd, ns, chunk, dtype, sequential oracle too)
+    shapes = [
+        ("zamba2-mixer", 4, 80, 4096, 64, 64, 128, f32, False),
+        ("zamba2-mixer", 4, 80, 4096, 64, 64, 64, f32, False),
+        ("zamba2-mixer", 4, 80, 4096, 64, 64, 128, bf16, False),
+        ("ragged", 2, 8, 1000, 64, 64, 128, f32, True),
+        ("ragged", 2, 8, 1000, 64, 64, 128, bf16, True),
+        ("S<chunk", 3, 4, 100, 64, 64, 128, f32, True),
+        ("ns128", 1, 4, 300, 64, 128, 64, f32, True),
+    ]
+    main = None
+    for i, (label, B, nh, S, hd, ns, ch, dt, seq) in enumerate(shapes):
+        x, bm, cm, la = _ssd_inputs(B, nh, S, hd, ns, dt, dev, seed=i + 1)
+        y = ssd.mamba2_ssd(x, bm, cm, la, chunk=ch)
+        yc = ssd.mamba2_ssd_chunked(x, bm, cm, la, chunk=ch)
+        torch.cuda.synchronize()
+        checks = [("chunked", yc)]
+        if seq:
+            checks.append(("sequential", ssd.mamba2_ssd_ref(x, bm, cm, la)))
+        for name, want in checks:
+            err, scale = _scaled_err(y, want)
+            print(f"  {label} B={B} nh={nh} S={S} hd={hd} ns={ns} chunk={ch} "
+                  f"{str(dt).removeprefix('torch.')} vs {name}: max_abs "
+                  f"{err:.3e} (scale {scale:.2f}, scaled {err / scale:.3e}, "
+                  f"tol {SSD_TOL[dt]})")
+            if err / scale > SSD_TOL[dt]:
+                raise AssertionError(f"ssd kernel vs {name} out of tolerance "
+                                     f"at {label} chunk {ch} {dt}")
+        if label != "zamba2-mixer":
+            continue
+        ms = _time_ms(lambda: ssd.mamba2_ssd(x, bm, cm, la, chunk=ch),
+                      reps=20, warmup=2)
+        plain_ms = _time_ms(lambda: ssd.mamba2_ssd_chunked(x, bm, cm, la,
+                                                           chunk=ch),
+                            reps=5, warmup=1)
+        nbytes, flops = ssd.ssd_cost(B, nh, S, hd, ns,
+                                     itemsize=x.element_size())
+        bound_ms, by = _bound(nbytes, flops, F32_OPS_S)
+        print(f"    kernel {ms:.4f} ms, plain chunked {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms by {by} ({nbytes / 1e9:.4f} GB, "
+              f"{flops / 1e9:.3f} GFLOP f32) [{facts}]")
+        if main is None:
+            print(f"    exp count: the kernel {B * nh * S} (one per token and "
+                  f"head); no PyTorch call computes this function (library: "
+                  f"none)")
+            main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+        del x, bm, cm, la, y, yc
+    return {"launches": counts["mamba2_ssd"], **main}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -637,11 +1115,9 @@ def _build_all() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import build as kbuild
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import fleet_tick as ft
 
     root = Path(__file__).resolve().parent
-    flags = {ft.SOURCE: ft.NVCC_FLAGS, fa.SOURCE: fa.NVCC_FLAGS}
+    flags = {m.SOURCE: m.NVCC_FLAGS for m in _kernel_mods().values()}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(flags)) as ex:
         libs = list(ex.map(lambda s: kbuild.build(s, flags[s], force=True),
@@ -679,6 +1155,12 @@ def main() -> int:
     attn_row = phase_attention(dev, facts)
     print("[7] serve path")
     serve_row = phase_serve(dev, facts)
+    print("[8] wkv kernel against plain")
+    wkv_row = phase_wkv(dev, facts)
+    print("[9] RWKV-6 path")
+    rwkv_row = phase_rwkv(dev, facts)
+    print("[10] SSD kernel through ops.mamba2_ssd, against plain")
+    ssd_row = phase_ssd(dev, facts)
     kernels = [
         {"name": "fleet_tick_window", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fleet_tick.cu",
@@ -688,6 +1170,13 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:88",
          "launches": serve_row["launches"], **attn_row},
+        {"name": "rwkv6_wkv", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
+         "replaces": "src/repro/kernels/rwkv6_wkv.py:81",
+         "launches": rwkv_row["launches"], **wkv_row},
+        {"name": "mamba2_ssd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/mamba2_ssd.cu",
+         "replaces": "src/repro/kernels/mamba2_ssd.py:72", **ssd_row},
     ]
     print(facts)
     print(json.dumps({"kernels": kernels}))

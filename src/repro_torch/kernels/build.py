@@ -16,10 +16,20 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 #: the target every kernel is built for: Hopper, with its ``a`` features
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+#: the flags of every kernel but ``fleet_tick`` (which adds -fmad=false):
+#: a shared library with a plain C interface, and ptxas's report
+FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+         "-Xptxas", "-v")
+#: dynamic shared memory one block may take on an H100 (227 KB)
+MAX_SMEM = 232_448
+#: the element-type codes the kernels' C interfaces take
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: nvcc builds in this process, over all kernels
 BUILDS = 0
 #: nvcc's output of the last build of each source (ptxas's registers,

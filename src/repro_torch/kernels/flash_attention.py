@@ -39,11 +39,9 @@ from repro_torch.kernels import build as kbuild
 LAUNCHES = 0
 
 SOURCE = "flash_attention.cu"
-NVCC_FLAGS = (*kbuild.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+NVCC_FLAGS = kbuild.FLAGS
 #: head widths the kernel is instantiated for
 HEAD_DIMS = (32, 64, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = None
 
 
@@ -110,7 +108,8 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True,
         raise ValueError(f"flash_attention: {Hq} q heads over {Hkv} kv heads")
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in kbuild.DTYPE_CODES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
                         f"{v.dtype}; the kernel takes float32 or bfloat16")
     if k.device != q.device or v.device != q.device:
@@ -126,7 +125,7 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            _DTYPES[q.dtype], B, Hq, Hkv, Sq, Skv, hd,
+            kbuild.DTYPE_CODES[q.dtype], B, Hq, Hkv, Sq, Skv, hd,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             int(causal), q_offset, 1.0 / math.sqrt(hd), stream)
     if rc != 0:

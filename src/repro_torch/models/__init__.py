@@ -1,7 +1,9 @@
-"""The LM of the port (dense family so far), mirroring ``repro.models``."""
+"""The LM of the port (dense and ssm families so far), mirroring
+``repro.models``."""
 from repro_torch.models.lm import (
     DecodeState,
     forward_prefill,
+    forward_train,
     init_decode_state,
     init_params,
     load_reference_params,
@@ -10,6 +12,7 @@ from repro_torch.models.lm import (
 __all__ = [
     "DecodeState",
     "forward_prefill",
+    "forward_train",
     "init_decode_state",
     "init_params",
     "load_reference_params",

@@ -1,4 +1,5 @@
-"""Model layers of the port: the dense subset of ``repro.models.layers``.
+"""Model layers of the port: the dense and RWKV-6 subsets of
+``repro.models.layers``.
 
 Conventions
 -----------
@@ -17,8 +18,13 @@ Conventions
   ``naive`` are plain torch, as they are plain jnp in the reference;
   ``pallas`` (the config value keeps the reference's name) selects the
   hand-written CUDA kernel ``kernels/csrc/flash_attention.cu``.
+* ``rwkv6_time_mix`` has the reference's two impls. ``chunked`` (the
+  default, and what ``lm._rwkv_block`` runs) is the plain torch
+  ``wkv6_chunked``; ``pallas`` goes through ``kernels/ops.py::rwkv6_wkv``
+  to the hand-written CUDA kernel ``kernels/csrc/rwkv6_wkv.cu`` when no
+  state is given, and falls back to ``wkv6_chunked`` with one.
 
-MoE, Mamba2, RWKV6 and ``attention_decode`` come with later slices.
+MoE, Mamba2 and ``attention_decode`` come with later slices.
 """
 from __future__ import annotations
 
@@ -233,3 +239,154 @@ def _act(name: str):
 def mlp_apply(p: dict, cfg: ModelConfig, x) -> torch.Tensor:
     h = _act(cfg.act)(x @ p["wg"]) * (x @ p["wu"])
     return h @ p["wd"]
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 (Finch) — chunked wkv with data-dependent per-channel decay
+# ---------------------------------------------------------------------------
+
+
+def init_rwkv6(gen, cfg: ModelConfig, device) -> dict:
+    d = cfg.d_model
+    dt = _dtype(cfg)
+    s = 1.0 / np.sqrt(d)
+    lora = 64
+    f = cfg.d_ff
+    full = lambda shape, value, dtype: torch.full(shape, value, dtype=dtype,
+                                                   device=device)
+    return {
+        "tm_norm": init_rmsnorm(d, dt, device),
+        "mix_rkvwg": full((5, d), 0.5, dt),  # token-shift mixes for r,k,v,w,g
+        "wr": _init(gen, (d, d), s, dt, device),
+        "wk": _init(gen, (d, d), s, dt, device),
+        "wv": _init(gen, (d, d), s, dt, device),
+        "wg": _init(gen, (d, d), s, dt, device),
+        "w_lora_a": _init(gen, (d, lora), s, dt, device),
+        "w_lora_b": _init(gen, (lora, d), 0.1 / np.sqrt(lora), dt, device),
+        "w_bias": full((d,), -6.0, torch.float32),
+        "u_bonus": full((d,), 0.0, torch.float32),
+        "wo": _init(gen, (d, d), s / np.sqrt(2 * cfg.num_layers), dt, device),
+        "ln_x": init_rmsnorm(d, dt, device),
+        "cm_norm": init_rmsnorm(d, dt, device),
+        "mix_cm": full((2, d), 0.5, dt),
+        "cm_k": _init(gen, (d, f), s, dt, device),
+        "cm_v": _init(gen, (f, d), 1.0 / np.sqrt(f) / np.sqrt(2 * cfg.num_layers),
+                      dt, device),
+        "cm_r": _init(gen, (d, d), s, dt, device),
+    }
+
+
+def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]):
+    """Shifted sequence (x_{t-1}); prev (B,1,d) carries across decode steps."""
+    if prev is None:
+        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    return torch.cat([prev.to(x.dtype), x], dim=1)[:, :-1]
+
+
+def wkv6_chunked(r, k, v, logw, u, state: Optional[torch.Tensor] = None,
+                 chunk: int = 32):
+    """Chunked RWKV6 recurrence, plain torch.
+
+    r,k,v (B,S,H,hd); logw (B,S,H,hd) per-channel log decay (<=0);
+    u (H,hd) bonus. Returns (o (B,S,H,hd) f32, final state (B,H,hd,hd)).
+      S_t = diag(w_t) S_{t-1} + k_t^T v_t ;  o_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
+    All exponents are differences of cumulative sums with s<=t, hence <=0;
+    the masked (s>=t) exponents are set to -1e30 before ``exp``.
+    """
+    B, S, H, hd = r.shape
+    nch = -(-S // chunk)
+    pad = nch * chunk - S
+
+    def padc(a):  # zero-padded steps: decay 1, no input
+        return F.pad(a.float(), (0, 0, 0, 0, 0, pad))
+
+    rc, kc, vc, lw = padc(r), padc(k), padc(v), padc(logw)
+    uf = u.float()
+    mask = torch.ones((chunk, chunk), dtype=torch.bool,
+                      device=r.device).tril(-1)[None, :, :, None, None]
+    Sst = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+           if state is None else state.float())
+    outs = []
+    for c in range(nch):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        rb, kb, vb, lwb = rc[:, sl], kc[:, sl], vc[:, sl], lw[:, sl]
+        cum = lwb.cumsum(dim=1)  # inclusive cumsum of log w
+        cum_excl = cum - lwb     # exclusive: sum_{s<t}
+        # inter: o_t += (r_t * exp(cum_excl_t)) @ S_in
+        o_inter = torch.einsum("bchk,bhkv->bchv", rb * cum_excl.exp(), Sst)
+        # intra (s < t): D[t,s,:] = exp(cum_excl_t - cum_s)
+        Dm = (cum_excl[:, :, None] - cum[:, None, :]).masked_fill(
+            ~mask, -1e30).exp()  # (B,C,C,H,hd)
+        att = (rb[:, :, None] * Dm * kb[:, None]).sum(-1)  # (B,C,C,H)
+        o_intra = torch.einsum("bcsh,bshv->bchv", att, vb)
+        # current-token bonus
+        o_bonus = (rb * kb * uf).sum(-1, keepdim=True) * vb
+        # state update: S_out = diag(exp(cum_C)) S_in + sum_s diag(exp(cum_C-cum_s)) k_s^T v_s
+        tot = cum[:, -1]  # (B,H,hd)
+        k_dec = kb * (tot[:, None] - cum).exp()
+        Sst = Sst * tot.exp()[..., None] + torch.einsum("bshk,bshv->bhkv",
+                                                         k_dec, vb)
+        outs.append(o_inter + o_intra + o_bonus)
+    return torch.cat(outs, dim=1)[:, :S], Sst
+
+
+def rwkv6_time_mix(p: dict, cfg: ModelConfig, x, *, state: Optional[dict] = None,
+                   impl: str = "chunked"):
+    B, S, d = x.shape
+    H, hd = cfg.num_heads, cfg.ssm_head_dim
+    prev = None if state is None else state["shift_tm"]
+    xs = _token_shift(x, prev)
+    mixes = p["mix_rkvwg"]
+
+    def mixed(i):
+        return x + (xs - x) * mixes[i]
+
+    r = (mixed(0) @ p["wr"]).reshape(B, S, H, hd)
+    k = (mixed(1) @ p["wk"]).reshape(B, S, H, hd)
+    v = (mixed(2) @ p["wv"]).reshape(B, S, H, hd)
+    w_in = mixed(3)
+    g = F.silu(mixed(4) @ p["wg"])
+    # data-dependent decay via LoRA; logw <= ~0, clamped for fp32 safety
+    w_raw = p["w_bias"] + ((w_in @ p["w_lora_a"]) @ p["w_lora_b"]).float()
+    logw = -torch.exp(torch.clamp(w_raw, -20.0, 1.0))  # (B,S,d) in (-e, 0)
+    logw = torch.clamp(logw, -8.0, -1e-6).reshape(B, S, H, hd)
+    u = p["u_bonus"].reshape(H, hd)
+
+    wkv_state = None if state is None else state["wkv"]
+    if impl == "pallas":
+        from repro_torch.kernels import ops as kops
+
+        o, S_fin = kops.rwkv6_wkv(r, k, v, logw, u, chunk=cfg.wkv_chunk,
+                                  state=wkv_state)
+    else:
+        o, S_fin = wkv6_chunked(r, k, v, logw, u, chunk=cfg.wkv_chunk,
+                                state=wkv_state)
+    o = rmsnorm(p["ln_x"], o.reshape(B, S, d).to(x.dtype), cfg.norm_eps)
+    o = o * g.to(o.dtype)
+    out = o @ p["wo"]
+    new_state = None
+    if state is not None:
+        new_state = {**state, "shift_tm": x[:, -1:], "wkv": S_fin}
+    return out, new_state
+
+
+def rwkv6_channel_mix(p: dict, cfg: ModelConfig, x, *,
+                      state: Optional[dict] = None):
+    prev = None if state is None else state["shift_cm"]
+    xs = _token_shift(x, prev)
+    xk = x + (xs - x) * p["mix_cm"][0]
+    xr = x + (xs - x) * p["mix_cm"][1]
+    kk = torch.square(F.relu(xk @ p["cm_k"]))
+    out = torch.sigmoid(xr @ p["cm_r"]) * (kk @ p["cm_v"])
+    new_state = None if state is None else {**state, "shift_cm": x[:, -1:]}
+    return out, new_state
+
+
+def init_rwkv6_state(cfg: ModelConfig, batch: int, device) -> dict:
+    H, hd = cfg.num_heads, cfg.ssm_head_dim
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "shift_tm": torch.zeros((batch, 1, cfg.d_model), **f32),
+        "shift_cm": torch.zeros((batch, 1, cfg.d_model), **f32),
+        "wkv": torch.zeros((batch, H, hd, hd), **f32),
+    }

@@ -1,7 +1,9 @@
-"""Model assembly of the port: the dense family of ``repro.models.lm``.
+"""Model assembly of the port: the dense and ssm (RWKV-6) families of
+``repro.models.lm``.
 
-* ``init_params``      — the parameter tree (dense family), drawn on a device
-                         from an explicit ``torch.Generator``
+* ``init_params``      — the parameter tree, drawn on a device from an
+                         explicit ``torch.Generator``
+* ``forward_train``    — full-sequence forward + CE loss
 * ``forward_prefill``  — full-sequence forward returning last-position
                          logits and a primed ``DecodeState``
 * ``load_reference_params`` — the reference's parameter pytree (numpy
@@ -12,10 +14,13 @@ each linear weight (d_in, d_out) applied as ``x @ W``, so the converter only
 moves arrays into tensors. A layer stack is stacked along a leading L axis
 when ``cfg.scan_layers`` (as in the full configs) and a list otherwise (the
 reduced ones); ``_backbone`` walks either in a Python loop. No remat:
-the port runs inference only so far.
+the port runs forward passes only so far.
 
-Other families (MoE, SSM, hybrid, VLM, audio) raise ``NotImplementedError``
-naming their ROADMAP item.
+The ssm blocks run the time mix as the reference's ``_rwkv_block`` does,
+with ``rwkv6_time_mix``'s default impl (the plain ``wkv6_chunked``); the
+wkv kernel is reached through ``rwkv6_time_mix(..., impl="pallas")``, as in
+the reference. Other families (MoE, hybrid, VLM, audio) raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -26,22 +31,23 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.utils import resolve_device
+from repro_torch.utils import resolve_device, softmax_cross_entropy
 
 PyTree = Any
 
-#: ROADMAP items of the families this slice does not port
+#: the families the port runs
+PORTED = ("dense", "ssm")
+#: ROADMAP items of the families it does not port yet
 _FAMILY_ITEMS = {
-    "ssm": "ROADMAP 1.8 step 3 (RWKV6 with kernel 2.3)",
-    "hybrid": "ROADMAP 1.8 step 4 (Mamba2 with kernel 2.4)",
+    "hybrid": "ROADMAP 1.8 step 4 (the hybrid family, mamba2_mix)",
     "moe": "ROADMAP 1.8 step 5 (MoE and the other families)",
     "vlm": "ROADMAP 1.8 step 5 (MoE and the other families)",
     "audio": "ROADMAP 1.8 step 5 (MoE and the other families)",
 }
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _ported(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
             f"{_FAMILY_ITEMS.get(cfg.family, 'ROADMAP 1.8')}")
@@ -96,11 +102,11 @@ def _init_dense_layer(gen, cfg: ModelConfig, device) -> dict:
 
 def init_params(cfg: ModelConfig, gen: Optional[torch.Generator], *,
                 device=None) -> PyTree:
-    """The parameter tree of a dense model, drawn from ``gen`` on its device
-    (``device`` overrides it; on ``meta`` nothing is drawn and ``gen`` may be
-    None). The reference's ``max_seq`` argument sizes the audio family's
-    learned positions; a dense model has none."""
-    _dense_only(cfg)
+    """The parameter tree of a dense or ssm model, drawn from ``gen`` on its
+    device (``device`` overrides it; on ``meta`` nothing is drawn and
+    ``gen`` may be None). The reference's ``max_seq`` argument sizes the
+    audio family's learned positions; these families have none."""
+    _ported(cfg)
     device = torch.device(device if device is not None else gen.device)
     dt = L._dtype(cfg)
     emb_scale = 1.0 / np.sqrt(cfg.d_model)
@@ -112,8 +118,9 @@ def init_params(cfg: ModelConfig, gen: Optional[torch.Generator], *,
     if not cfg.tie_embeddings:
         params["lm_head"] = L._init(gen, (cfg.d_model, cfg.vocab_size),
                                     emb_scale, dt, device)
-    blocks = [_init_dense_layer(gen, cfg, device)
-              for _ in range(cfg.num_layers)]
+    init_layer = (L.init_rwkv6 if cfg.family == "ssm"
+                  else _init_dense_layer)
+    blocks = [init_layer(gen, cfg, device) for _ in range(cfg.num_layers)]
     params["layers"] = _stack(blocks) if cfg.scan_layers else blocks
     return params
 
@@ -133,7 +140,7 @@ def load_reference_params(tree: PyTree, cfg: ModelConfig, device=None) -> PyTree
     layer stack may be stacked (``scan_layers=True``, a dict of (L, ...)
     arrays) or a list of per-layer dicts; it must be the one ``cfg``
     names."""
-    _dense_only(cfg)
+    _ported(cfg)
     device = resolve_device(device, "load_reference_params")
     stacked = isinstance(tree["layers"], dict)
     if stacked != cfg.scan_layers:
@@ -161,19 +168,32 @@ def _dense_block(p, cfg, x):
     return x + L.mlp_apply(p["mlp"], cfg, L.rmsnorm(p["norm2"], x, cfg.norm_eps))
 
 
+def _rwkv_block(p, cfg, x):
+    h, _ = L.rwkv6_time_mix(p, cfg, L.rmsnorm(p["tm_norm"], x, cfg.norm_eps))
+    x = x + h
+    h, _ = L.rwkv6_channel_mix(p, cfg, L.rmsnorm(p["cm_norm"], x, cfg.norm_eps))
+    return x + h
+
+
+def _first_leaf(tree):
+    return _first_leaf(next(iter(tree.values()))) if isinstance(tree, dict) \
+        else tree
+
+
 def _layers(params, cfg: ModelConfig):
     """The per-layer trees, from either layout."""
     if cfg.scan_layers:
-        n = next(iter(params["attn"].values())).shape[0]
+        n = _first_leaf(params).shape[0]
         return (_layer(params, i) for i in range(n))
     return iter(params)
 
 
 def _backbone(params, cfg: ModelConfig, x):
-    """(B,S,d) -> (B,S,d) through the dense blocks, in order."""
-    _dense_only(cfg)
+    """(B,S,d) -> (B,S,d) through the family's blocks, in order."""
+    _ported(cfg)
+    block = _rwkv_block if cfg.family == "ssm" else _dense_block
     for p in _layers(params["layers"], cfg):
-        x = _dense_block(p, cfg, x)
+        x = block(p, cfg, x)
     return x
 
 
@@ -190,6 +210,20 @@ def _logits(params, cfg: ModelConfig, x):
     return logits
 
 
+def forward_train(params: PyTree, cfg: ModelConfig,
+                  batch: dict) -> tuple[torch.Tensor, dict]:
+    """CE loss over the batch. batch: tokens, labels, [mask]."""
+    _ported(cfg)
+    x = _backbone(params, cfg, params["embed"][batch["tokens"]])
+    ce = softmax_cross_entropy(_logits(params, cfg, x), batch["labels"])
+    mask = batch.get("mask")
+    if mask is not None:
+        loss = (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    else:
+        loss = ce.mean()
+    return loss, {"ce_loss": loss}
+
+
 # ---------------------------------------------------------------------------
 # Prefill
 # ---------------------------------------------------------------------------
@@ -197,14 +231,20 @@ def _logits(params, cfg: ModelConfig, x):
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       device=None) -> DecodeState:
-    """Empty state sized for `max_seq` total positions."""
-    _dense_only(cfg)
+    """Empty state sized for `max_seq` total positions, on ``device``
+    (``cuda`` unless another device is named)."""
+    _ported(cfg)
+    device = resolve_device(device, "init_decode_state")
+    pos = torch.zeros((), dtype=torch.int32, device=device)
+    if cfg.family == "ssm":
+        return DecodeState(pos=pos, ssm=_stack(
+            [L.init_rwkv6_state(cfg, batch, device)
+             for _ in range(cfg.num_layers)]))
     dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     hd = cfg.resolved_head_dim
     kv_k = torch.zeros((cfg.num_layers, batch, max_seq, cfg.num_kv_heads, hd),
                        dtype=dt, device=device)
-    return DecodeState(pos=torch.zeros((), dtype=torch.int32, device=device),
-                       kv_k=kv_k, kv_v=torch.zeros_like(kv_k))
+    return DecodeState(pos=pos, kv_k=kv_k, kv_v=torch.zeros_like(kv_k))
 
 
 def forward_prefill(params: PyTree, cfg: ModelConfig, batch: dict,
@@ -212,13 +252,16 @@ def forward_prefill(params: PyTree, cfg: ModelConfig, batch: dict,
     """Run the full prompt, return last-position logits (B, 1, V) + a primed
     DecodeState.
 
-    As in the reference, the K/V caches are recomputed per layer from the
-    layer's input (the norm, the K/V projections, RoPE on K) beside the
-    block, and written into a fresh ``init_decode_state``."""
+    As in the reference, a dense model's K/V caches are recomputed per
+    layer from the layer's input (the norm, the K/V projections, RoPE on K)
+    beside the block, and written into a fresh ``init_decode_state``; an
+    ssm model keeps each layer's final recurrent state (``_prefill_ssm``)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = params["embed"][tokens]
     state = init_decode_state(cfg, B, max_seq, device=x.device)
+    if cfg.family == "ssm":
+        return _prefill_ssm(params, cfg, x, state)
     hd = cfg.resolved_head_dim
     pos = torch.arange(x.shape[1], device=x.device)
 
@@ -239,6 +282,27 @@ def forward_prefill(params: PyTree, cfg: ModelConfig, batch: dict,
         state.kv_v[i, :, :S] = v.to(state.kv_v.dtype)
     state = state._replace(pos=torch.tensor(S, dtype=torch.int32,
                                             device=x.device))
+    return _logits(params, cfg, x[:, -1:]), state
+
+
+def _prefill_ssm(params, cfg: ModelConfig, x, state: DecodeState):
+    """The ssm branch: every layer's time mix and channel mix run from a
+    fresh zero state, so the wkv recurrence takes the state path
+    (``wkv6_chunked``) and its final state is kept per layer."""
+    B, S = x.shape[:2]
+    sts = []
+    for p in _layers(params["layers"], cfg):
+        st0 = L.init_rwkv6_state(cfg, B, x.device)
+        o, st = L.rwkv6_time_mix(p, cfg, L.rmsnorm(p["tm_norm"], x,
+                                                   cfg.norm_eps), state=st0)
+        x = x + o
+        o, st = L.rwkv6_channel_mix(p, cfg, L.rmsnorm(p["cm_norm"], x,
+                                                      cfg.norm_eps),
+                                    state={**st, "shift_cm": st0["shift_cm"]})
+        x = x + o
+        sts.append(st)
+    state = state._replace(pos=torch.tensor(S, dtype=torch.int32,
+                                            device=x.device), ssm=_stack(sts))
     return _logits(params, cfg, x[:, -1:]), state
 
 

@@ -9,7 +9,8 @@ scalar bound through ``torch.clamp`` (the scalar rides in the kernel launch,
 so no host-to-device copy and no sync on the hot loop) and keeps torch's
 tensor-tensor ops otherwise — one formula, no fork.
 
-``round_up`` is the reference's integer helper (``repro.utils``), copied.
+``round_up`` is the reference's integer helper (``repro.utils``), copied;
+``softmax_cross_entropy`` is its CE in torch.
 ``resolve_device`` is the port's rule for every entry point: ``cuda`` unless
 the caller names another device, and no silent fall back to the CPU.
 """
@@ -69,3 +70,12 @@ def resolve_device(device=None, what: str = "the port") -> torch.device:
                 "device='cpu' to run the kernels' plain versions")
         device = "cuda"
     return torch.device(device)
+
+
+def softmax_cross_entropy(logits: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+    """Numerically-stable CE. logits (..., V) f32-accumulated, labels (...) int."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return lse - gold
