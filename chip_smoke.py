@@ -21,11 +21,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 5. check    a 16-cluster greedy episode batch on the card, once through the
             kernel and once through its plain version, must agree
 6. attn     the flash-attention kernel against its plain version at the
-            serve shape (bf16 and f32), SmolLM's heads with a ragged tail,
-            a q_offset case and a full (non-causal) case, with the stated
-            tolerances; CUDA-event times of kernel, plain version and
-            scaled_dot_product_attention (the library yardstick, never on a
-            path) beside the bound
+            serve shape, SmolLM's heads with a ragged tail, a q_offset case,
+            full (non-causal) cases, group 1 and group 8, group 7 with a
+            ragged Sq, Sq=1 decode at q_offset 511, causal S=2048 (several
+            key tiles), each in bf16 and f32 with the stated tolerances;
+            the kernel's device time (a CUDA graph of 100 launches) and
+            host-loop time, the plain version's time, and at the serve shape
+            scaled_dot_product_attention's device and host-loop times (the
+            library yardstick, never on a path), beside the bound
 7. serve    the serving path through its entry points: StreamEngine over
             the full Qwen2-7B config (28 layers, bf16, random weights from a
             seed, attn_impl="pallas"), a 640-event backlog of LocalEngine's
@@ -388,59 +391,117 @@ def _attn_inputs(B, Hq, Hkv, Sq, Skv, hd, dtype, dev, seed):
 
 def phase_attention(dev, facts: str) -> dict:
     """The flash-attention kernel against its plain version on the same
-    tensors, then CUDA-event times at each shape beside the bound."""
-    from repro_torch.kernels import flash_attention as fa
-
+    tensors at the serve shape and the edge cases, then its times beside the
+    bound: device time from a CUDA graph of captured launches, and the
+    host-loop CUDA-event time (which includes the wrapper's host cost)."""
     bf16, f32 = torch.bfloat16, torch.float32
-    # (label, B, Hq, Hkv, Sq, Skv, hd, causal, q_offset, dtype)
+    # (label, B, Hq, Hkv, Sq, Skv, hd, causal, q_offset, dtypes)
     shapes = [
-        ("qwen2-serve", 32, 28, 4, 64, 64, 128, True, 0, bf16),
-        ("qwen2-serve", 32, 28, 4, 64, 64, 128, True, 0, f32),
-        ("smollm-ragged", 8, 9, 3, 40, 40, 64, True, 0, f32),
-        ("qwen2-offset", 2, 28, 4, 16, 80, 128, True, 64, bf16),
-        ("full", 4, 8, 2, 50, 72, 32, False, 0, f32),
+        ("qwen2-serve", 32, 28, 4, 64, 64, 128, True, 0, (bf16, f32)),
+        ("smollm-ragged", 8, 9, 3, 40, 40, 64, True, 0, (f32, bf16)),
+        ("qwen2-offset", 2, 28, 4, 16, 80, 128, True, 64, (bf16, f32)),
+        ("full", 4, 8, 2, 50, 72, 32, False, 0, (f32, bf16)),
+        ("group1-mha", 4, 8, 8, 64, 64, 128, True, 0, (bf16, f32)),
+        ("group8", 4, 32, 4, 64, 64, 64, True, 0, (bf16, f32)),
+        ("group7-ragged", 3, 28, 4, 40, 40, 128, True, 0, (bf16, f32)),
+        ("decode", 4, 28, 4, 1, 512, 128, True, 511, (bf16, f32)),
+        ("long-causal", 1, 28, 4, 2048, 2048, 128, True, 0, (bf16, f32)),
+        ("full-bf16", 2, 28, 4, 100, 300, 128, False, 0, (bf16, f32)),
     ]
     main = None
-    for i, (label, B, Hq, Hkv, Sq, Skv, hd, causal, off, dt) in enumerate(shapes):
-        q, k, v = _attn_inputs(B, Hq, Hkv, Sq, Skv, hd, dt, dev, seed=i)
-        kw = dict(causal=causal, q_offset=off)
-        got = fa.flash_attention_bhsd(q, k, v, **kw)
-        want = fa.flash_attention_bhsd_ref(q, k, v, **kw)
-        torch.cuda.synchronize()
-        a, b = got.float(), want.float()
-        if not torch.isfinite(a).all():
-            raise AssertionError(f"flash_attention: non-finite output at {label}")
-        err = float((a - b).abs().max())
-        tol = ATTN_TOL[dt]
-        ok = bool(((a - b).abs() <= tol + tol * b.abs()).all())
-        shape = f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} hd={hd}"
-        print(f"  {label} {shape} causal={causal} q_offset={off} "
-              f"{str(dt).removeprefix('torch.')}: max_abs={err:.3e} "
-              f"(rtol=atol={tol})")
-        if not ok:
-            raise AssertionError(f"flash_attention out of tolerance at {label}")
-        ms = _time_ms(lambda: fa.flash_attention_bhsd(q, k, v, **kw))
-        plain_ms = _time_ms(lambda: fa.flash_attention_bhsd_ref(q, k, v, **kw))
-        nbytes, flops = fa.attention_cost(B, Hq, Hkv, Sq, Skv, hd, causal=causal,
-                                          q_offset=off, itemsize=q.element_size())
-        bound_ms, by = _bound(nbytes, flops,
-                              BF16_OPS_S if dt == bf16 else F32_OPS_S)
-        print(f"    kernel {ms * 1e3:.3f} us, plain {plain_ms * 1e3:.3f} us, "
-              f"bound {bound_ms * 1e3:.3f} us by {by} ({nbytes / 1e6:.2f} MB, "
-              f"{flops / 1e9:.4f} GFLOP) [{facts}]")
-        if main is None:
-            main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": by,
-                    "library_ms": _sdpa_ms(q, k, v, Hq // Hkv)}
-            print(f"    scaled_dot_product_attention(is_causal=True, "
-                  f"enable_gqa=True): {main['library_ms'] * 1e3:.3f} us "
-                  f"(yardstick only, never on a path)")
+    seed = 0
+    for label, B, Hq, Hkv, Sq, Skv, hd, causal, off, dts in shapes:
+        for dt in dts:
+            q, k, v = _attn_inputs(B, Hq, Hkv, Sq, Skv, hd, dt, dev, seed=seed)
+            seed += 1
+            row = _attention_case(label, q, k, v, causal, off, facts)
+            if main is None:
+                sdpa_ms, sdpa_host_ms = _sdpa_ms(q, k, v, Hq // Hkv)
+                main = {**row, "library_ms": sdpa_ms,
+                        "library_ms_host_loop": sdpa_host_ms}
+                print(f"    scaled_dot_product_attention(is_causal=True, "
+                      f"enable_gqa=True): device {sdpa_ms * 1e3:.3f} us, host "
+                      f"loop {sdpa_host_ms * 1e3:.3f} us (yardstick only, never "
+                      f"on a path); the kernel's device time is "
+                      f"{row['ms'] / sdpa_ms:.3f}x SDPA's [{facts}]")
+            del q, k, v
     return main
 
 
-def _sdpa_ms(q, k, v, group: int) -> float:
-    """One PyTorch call computing the same function: causal GQA attention,
-    the library's yardstick for the table."""
+def _attention_case(label, q, k, v, causal, off, facts) -> dict:
+    """One shape: the kernel against its plain version, then the kernel's
+    device and host-loop times and the plain version's beside the bound."""
+    from repro_torch.kernels import flash_attention as fa
+
+    B, Hq, Sq, hd = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    dt = q.dtype
+    kw = dict(causal=causal, q_offset=off)
+    got = fa.flash_attention_bhsd(q, k, v, **kw)
+    want = fa.flash_attention_bhsd_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    a, b = got.float(), want.float()
+    if not torch.isfinite(a).all():
+        raise AssertionError(f"flash_attention: non-finite output at {label}")
+    err = float((a - b).abs().max())
+    tol = ATTN_TOL[dt]
+    ok = bool(((a - b).abs() <= tol + tol * b.abs()).all())
+    shape = f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} hd={hd}"
+    print(f"  {label} {shape} causal={causal} q_offset={off} "
+          f"{str(dt).removeprefix('torch.')}: max_abs={err:.3e} "
+          f"(rtol=atol={tol})")
+    if not ok:
+        raise AssertionError(f"flash_attention out of tolerance at {label} "
+                             f"{dt}")
+    ms = _graph_ms(lambda: fa.flash_attention_bhsd(q, k, v, **kw))
+    host_ms = _time_ms(lambda: fa.flash_attention_bhsd(q, k, v, **kw))
+    plain_ms = _time_ms(lambda: fa.flash_attention_bhsd_ref(q, k, v, **kw),
+                        reps=20, warmup=2)
+    nbytes, flops = fa.attention_cost(B, Hq, Hkv, Sq, Skv, hd, causal=causal,
+                                      q_offset=off, itemsize=q.element_size())
+    bound_ms, by = _bound(nbytes, flops,
+                          BF16_OPS_S if dt == torch.bfloat16 else F32_OPS_S)
+    print(f"    kernel device {ms * 1e3:.3f} us (host loop {host_ms * 1e3:.3f}"
+          f" us), plain {plain_ms * 1e3:.3f} us, bound {bound_ms * 1e3:.3f} us "
+          f"by {by} ({nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP), "
+          f"{bound_ms / ms:.3f} of the bound [{facts}]")
+    return {"max_abs_err": err, "ms": ms, "ms_host_loop": host_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by}
+
+
+def _graph_ms(fn, reps: int = 100, replays: int = 5) -> float:
+    """Device time of one call: ``reps`` calls captured in one CUDA graph,
+    the graph replayed ``replays`` times under CUDA events; the median
+    replay over ``reps``. The host's launch cost is out of the figure."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):  # warm-up off the capture (one-time set-up)
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return float(np.median(times))
+
+
+def _sdpa_ms(q, k, v, group: int) -> tuple[float, float]:
+    """One PyTorch call computing the same function, causal GQA attention,
+    the library's yardstick for the table: (device ms, host-loop ms)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = sdpa(q, k, v, is_causal=True, enable_gqa=True)
     want = sdpa(q, k.repeat_interleave(group, 1), v.repeat_interleave(group, 1),
@@ -448,7 +509,8 @@ def _sdpa_ms(q, k, v, group: int) -> float:
     torch.cuda.synchronize()
     assert out.shape == q.shape and torch.isfinite(out.float()).all()
     assert float((out.float() - want.float()).abs().max()) <= 3e-2
-    return _time_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+    fn = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
+    return _graph_ms(fn), _time_ms(fn)
 
 
 def _serve_events(n: int, seed: int):
@@ -1178,6 +1240,8 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/mamba2_ssd.cu",
          "replaces": "src/repro/kernels/mamba2_ssd.py:72", **ssd_row},
     ]
+    for row in kernels:
+        row["bound_frac"] = row["bound_ms"] / row["ms"]
     print(facts)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -27,7 +27,9 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
     The transposes are views: the kernel reads the strided (B,H,S,hd) view
     and writes a contiguous (B,Hq,S,hd) output, returned transposed back.
     The reference's ``block_q``/``block_k`` are TPU tiling knobs; the CUDA
-    kernel's tiles are fixed in its source."""
+    kernel's tiles are fixed in its source: in bf16, 64 packed (position,
+    q head) rows of one kv head against 64-key tiles; in f32, 16 query rows
+    of one q head against 32-key tiles."""
     o = _fa.flash_attention_bhsd(q.transpose(1, 2), k.transpose(1, 2),
                                  v.transpose(1, 2), causal=causal,
                                  q_offset=q_offset)

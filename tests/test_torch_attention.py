@@ -167,21 +167,99 @@ def test_import_builds_nothing_and_cpu_tensors_take_the_plain_version():
     assert build.BUILDS == before and fa.LAUNCHES == launches
 
 
+def _model_layout(B, S, Hq, Hkv, hd, dtype, d_model=64, seed=10):
+    """q, k, v as the model hands them to the kernel: ``_project_qkv``'s
+    (B, S, H, hd) tensors seen as (B, H, S, hd) views (``ops.flash_attention``
+    transposes them without a copy)."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(seed)
+    w = lambda n: torch.from_numpy(rng.standard_normal((d_model, n))
+                                   .astype(np.float32)).to(dtype)
+    p = {"wq": w(Hq * hd), "wk": w(Hkv * hd), "wv": w(Hkv * hd)}
+    cfg = SimpleNamespace(resolved_head_dim=hd, num_heads=Hq,
+                          num_kv_heads=Hkv)
+    x = torch.from_numpy(rng.standard_normal((B, S, d_model))
+                         .astype(np.float32)).to(dtype)
+    q, k, v = L._project_qkv(p, cfg, x, x)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd,dtype", [
+    (2, 16, 28, 4, 128, torch.bfloat16),   # Qwen2-7B's heads
+    (2, 1, 28, 4, 128, torch.bfloat16),    # one position (decode)
+    (3, 9, 9, 3, 64, torch.float32),       # SmolLM's heads
+    (1, 5, 8, 8, 32, torch.bfloat16),      # group 1
+])
+def test_launch_layout_takes_the_model_layout_views(B, S, Hq, Hkv, hd, dtype):
+    q, k, v = _model_layout(B, S, Hq, Hkv, hd, dtype)
+    assert q.stride() == (S * Hq * hd, hd, Hq * hd, 1)  # the model layout
+    passed = lambda *xs: tuple(s if n > 1 else 0 for x in xs
+                               for n, s in zip(x.shape[:3], x.stride()[:3]))
+    # the (b, h, s) strides of each view; a size-1 axis is passed as 0
+    assert fa._launch_layout(q, k, v, 0) == passed(q, k, v)
+    # contiguous (B, H, S, hd) tensors are taken as they are
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    assert fa._launch_layout(qc, kc, vc, 3) == passed(qc, kc, vc)
+
+
+def _bad_layouts():
+    bf = torch.bfloat16
+    z = lambda *shape, dtype=bf: torch.zeros(shape, dtype=dtype)
+    q, k, v = z(2, 8, 16, 64), z(2, 2, 16, 64), z(2, 2, 16, 64)
+    unaligned = torch.zeros(2 * 8 * 16 * 64 + 1, dtype=bf)[1:].view(2, 8, 16,
+                                                                      64)
+    return {
+        "3-D": ((q[0], k, v, 0), ValueError, "4-D"),
+        "shapes": ((q, k, z(2, 2, 17, 64), 0), ValueError, "do not agree"),
+        "heads": ((z(2, 7, 16, 64), k, v, 0), ValueError, "kv heads"),
+        "hd not instantiated": ((z(2, 8, 16, 96), z(2, 2, 16, 96),
+                                 z(2, 2, 16, 96), 0), ValueError, "head_dim"),
+        "float16": ((q.half(), k.half(), v.half(), 0), TypeError, "dtypes"),
+        "mixed dtypes": ((q, k.float(), v, 0), TypeError, "dtypes"),
+        "devices": ((q, k.to("meta"), v, 0), ValueError, "devices"),
+        "q_offset": ((q, k, v, -1), ValueError, "q_offset"),
+        "hd strided": ((z(2, 8, 64, 16).transpose(2, 3), k, v, 0), ValueError,
+                       "contiguous axis"),
+        "row stride": ((z(2, 16, 8, 68)[..., :64].transpose(1, 2), k, v, 0),
+                       ValueError, "multiples of 8"),
+        "base pointer": ((unaligned, k, v, 0), ValueError, "16-byte"),
+    }
+
+
+@pytest.mark.parametrize("case", list(_bad_layouts()))
+def test_launch_layout_refuses_what_the_kernel_cannot_take(case):
+    args, exc, words = _bad_layouts()[case]
+    with pytest.raises(exc, match=words):
+        fa._launch_layout(*args)
+
+
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_version_on_the_card():
-    """Every case above, plus strided (model-layout) views and the serve
-    shape, through the kernel on the card against the plain version on the
-    same tensors."""
+    """Every case above, plus the serve shape and the bf16 path's edge cases
+    (group 1 and 8, packed tiles that straddle positions, Sq=1 decode, many
+    key tiles, full attention), each also as strided (model-layout) views,
+    through the kernel on the card against the plain version on the same
+    tensors."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    cases = [c[:7] for c in ATTN_CASES] + [(4, 28, 4, 64, 64, 128, True)]
-    for B, Hq, Hkv, Sq, Skv, hd, causal in cases:
+    cases = [(*c[:7], max(c[4] - c[3], 0)) for c in ATTN_CASES]
+    cases += [
+        # (B, Hq, Hkv, Sq, Skv, hd, causal, q_offset)
+        (4, 28, 4, 64, 64, 128, True, 0),      # the serve shape
+        (2, 8, 8, 64, 64, 128, True, 0),       # group 1 (MHA)
+        (2, 32, 4, 48, 48, 64, True, 0),       # group 8
+        (2, 28, 4, 40, 40, 128, True, 0),      # group 7, tiles straddle pos
+        (3, 28, 4, 1, 512, 128, True, 511),    # Sq=1 decode
+        (1, 28, 4, 2048, 2048, 128, True, 0),  # many key tiles, two buffers
+        (2, 28, 4, 100, 300, 128, False, 0),   # full attention, ragged tiles
+    ]
+    for B, Hq, Hkv, Sq, Skv, hd, causal, off in cases:
         for dtype in ("float32", "bfloat16"):
             dt = getattr(torch, dtype)
             q = torch.from_numpy(_np((B, Hq, Sq, hd), 0)).to("cuda", dt)
             k = torch.from_numpy(_np((B, Hkv, Skv, hd), 1)).to("cuda", dt)
             v = torch.from_numpy(_np((B, Hkv, Skv, hd), 2)).to("cuda", dt)
-            off = Skv - Sq if Sq < Skv else 0
             before = fa.LAUNCHES
             got = fa.flash_attention_bhsd(q, k, v, causal=causal, q_offset=off)
             want = fa.flash_attention_bhsd_ref(q, k, v, causal=causal,
