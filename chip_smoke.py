@@ -7,10 +7,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 1. facts    the card's name and power limit (nvidia-smi), torch and CUDA
 2. build    nvcc builds every kernel of every path from the checkout's
             sources into build/kernels/ (one nvcc per source, all started
-            together) and prints ptxas's report
+            together) and prints ptxas's report, and a line per kernel of
+            its registers, spills and shared memory
 3. kernels  fleet_tick against its plain PyTorch version on the card at the
             tuning path's shapes (and ragged / K>S ones), with the stated
-            tolerance, then both timed with CUDA events beside the bound
+            tolerance, then the kernel's device time (a CUDA graph of 100
+            launches) and host-loop time and the plain version's time
+            beside the bound
 4. main     the tuning path through its entry points: FleetEnv of
             N=1024 clusters (10 nodes, 109 levers) + Configurator with the
             --quick metric/lever preset, 3 run_update outer iterations of 5
@@ -40,8 +43,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
             rwkv6-7b train shape (B=4, H=64, S=4096, hd=64; bf16 r/k/v with
             f32 logw/u, and all-f32; chunks 32 and 64), a ragged S, S <
             chunk and logw at both clip ends, with the stated tolerances;
-            CUDA-event times of kernel and plain chunked version beside the
-            bound
+            the kernel's device time (a CUDA graph of 20 launches) and
+            host-loop time and the plain chunked version's time beside the
+            bound (bf16 on the tensor cores' peak)
 9. rwkv     the RWKV-6 path at full rwkv6-7b width (32 layers, bf16,
             random weights from a seed): forward_train on a 4x4096
             make_batch (the reference's route, the plain chunked wkv), then
@@ -109,10 +113,11 @@ BF16_DEPTH_FLOOR_X = 1.5
 #: output's scale max(1, max |plain|) (printed beside it: at S=4096 with
 #: slow decays the state sums thousands of k vT products, and o reaches
 #: hundreds). f32: tests/test_kernels.py's 1e-3 (the Pallas kernel against
-#: the sequential oracle; the kernel runs the recurrence token by token, the
-#: chunked plain version sums in another order). bf16 r/k/v: o is rounded to
-#: bf16 on both sides, one bf16 ulp is 2^-8 of the value: the bf16 3e-2 of
-#: tests/test_kernels.py. S_fin is f32 in both cases: 1e-3
+#: the sequential oracle; the f32 kernel runs the recurrence token by token,
+#: the chunked plain version sums in another order). bf16 r/k/v: o is rounded
+#: to bf16 on both sides, one bf16 ulp is 2^-8 of the value: the bf16 3e-2 of
+#: tests/test_kernels.py (the bf16 kernel's chunked products keep ~2^-16 of
+#: each term before that rounding). S_fin is f32 in both cases: 1e-3
 WKV_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
 #: SSD kernel vs its plain versions, on the same scale: tests/test_kernels.py's
 #: f32 2e-4 (chunked vs sequential) and bf16 3e-2
@@ -193,16 +198,21 @@ def _kernel_inputs(N: int, T: int, S: int, seed: int, dev):
     return ops, kw
 
 
-def phase_kernels(dev) -> dict:
+def phase_kernels(dev, facts: str) -> dict:
     from repro_torch.engine.fleet_torch import p99_depth
     from repro_torch.kernels import fleet_tick as ft
 
-    # (N, T, S): the fused step's window, the observe window, a ragged long
-    # window, and a K > S head
-    shapes = [(1024, 48, 32), (1024, 24, 64), (1000, 192, 8), (777, 32, 16)]
+    # (N, T, S, p99_k): the fused step's window, the observe window, a
+    # ragged long window, a K > S head, a window of 768 ticks (16 merge
+    # values a lane), one of 3328 ticks (its head merged by rank in shared
+    # memory), and a head too long for shared memory (in global memory);
+    # None takes the port's own depth
+    shapes = [(1024, 48, 32, None), (1024, 24, 64, None),
+              (1000, 192, 8, None), (777, 32, 16, 40), (1024, 768, 8, None),
+              (1024, 3328, 8, None), (1000, 16, 8, 8000)]
     main = None
-    for N, T, S in shapes:
-        p99_k = 40 if (N, T, S) == (777, 32, 16) else p99_depth(T, S)
+    for N, T, S, p99_k in shapes:
+        p99_k = p99_depth(T, S) if p99_k is None else p99_k
         K = ft.head_budget(S, p99_k)
         ops, kw = _kernel_inputs(N, T, S, seed=N + T + S, dev=dev)
         args = list(ops.values())
@@ -231,18 +241,26 @@ def phase_kernels(dev) -> dict:
                   f"bitwise={exact} (rtol {RTOL}, atol {ATOL})")
             if not ok:
                 raise AssertionError(f"{name} out of tolerance at {N, T, S}")
-        ms = _time_ms(lambda: ft.fleet_tick_window(*args, **kw, p99_k=p99_k))
-        plain_ms = _time_ms(
+        run = lambda: ft.fleet_tick_window(*args, **kw, p99_k=p99_k)
+        geo = ft.launch_geometry(N, T, S, K)
+        reps = 100 if geo["head"] == "registers" else 5  # these take ms
+        ms, host_ms = _graph_ms(run, reps=reps), _time_ms(run, reps=reps)
+        plain_ms = _time_ms(   # ~1k torch ops a tick: fewer reps when long
             lambda: ft.fleet_tick_window_ref(*args, **kw, p99_k=p99_k),
-            reps=100, warmup=2)
+            reps=min(100, max(3, 4800 // T)), warmup=2)
         nbytes, nops = ft.window_cost(T, S, K, N, fmult=True)
         bound_ms, by = _bound(nbytes, nops, F32_OPS_S)
-        print(f"  N={N} T={T} S={S}: kernel {ms * 1e3:.1f} us, plain "
-              f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us by "
-              f"{by} ({nbytes / 1e6:.2f} MB, {nops / 1e6:.1f} Mop)")
+        print(f"  N={N} T={T} S={S}: kernel device {ms * 1e3:.3f} us (host "
+              f"loop {host_ms * 1e3:.3f} us), plain {plain_ms * 1e3:.1f} us, "
+              f"bound {bound_ms * 1e3:.3f} us by {by} ({nbytes / 1e6:.2f} MB, "
+              f"{nops / 1e6:.1f} Mop), {bound_ms / ms:.4f} of the bound; "
+              f"{geo['blocks']} blocks of {geo['threads']} threads, "
+              f"{geo['smem_bytes']} B shared, head in {geo['head']} "
+              f"[{facts}]")
         if main is None:
-            main = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": by}
+            main = {"max_abs_err": worst, "ms": ms, "ms_host_loop": host_ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": by}
     return main
 
 
@@ -816,27 +834,41 @@ def phase_wkv(dev, facts: str) -> dict:
             if err / scale > tol or serr / sscale > WKV_TOL[f32]:
                 raise AssertionError(f"wkv kernel vs {name} out of tolerance "
                                      f"at {label} chunk {ch} {dt}")
-        if label != "rwkv6-7b-train":
+        # chunk is the f32 kernel's staging tile; the bf16 kernel has its own
+        # (MMA_CHUNK), so it is timed once
+        if label != "rwkv6-7b-train" or (dt == bf16 and ch != 32):
             continue
-        ms = _time_ms(lambda: wkv.rwkv6_wkv(*bhsd(r, k, v, lw), u, chunk=ch),
-                      reps=20, warmup=2)
+        run = lambda: wkv.rwkv6_wkv(*bhsd(r, k, v, lw), u, chunk=ch)
+        ms, host_ms = _graph_ms(run, reps=20), _time_ms(run, reps=20,
+                                                         warmup=2)
         plain_ms = _time_ms(lambda: wkv6_chunked(r, k, v, lw, u, chunk=ch),
                             reps=3, warmup=1)
         nbytes, flops = wkv.wkv_cost(B, H, S, hd, itemsize=r.element_size())
-        bound_ms, by = _bound(nbytes, flops, F32_OPS_S)
-        print(f"    kernel {ms:.4f} ms, plain wkv6_chunked {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms by {by} ({nbytes / 1e9:.4f} GB, "
-              f"{flops / 1e9:.3f} GFLOP f32) [{facts}]")
+        peak = BF16_OPS_S if dt == bf16 else F32_OPS_S
+        bound_ms, by = _bound(nbytes, flops, peak)
+        print(f"    kernel device {ms:.4f} ms (host loop {host_ms:.4f} ms), "
+              f"plain wkv6_chunked {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"by {by} ({nbytes / 1e9:.4f} GB, {flops / 1e9:.3f} GFLOP at "
+              f"{peak / 1e12:.0f} TFLOP/s), {bound_ms / ms:.3f} of the bound "
+              f"[{facts}]")
         if main is None:
             n = B * H * S
-            print(f"    exp count: the kernel {n * hd} (one per token and key "
-                  f"channel); the chunked form at chunk {ch} "
+            dv = min(hd, wkv.MMA_VALUE_COLUMNS)
+            splits = hd // dv
+            print(f"    bf16 kernel: {B * H * splits} blocks of {dv // 8} "
+                  f"warps, {wkv.mma_smem_bytes(hd, dv)} B of dynamic shared "
+                  f"memory a block (the launch refuses any other size)")
+            print(f"    exp count: the kernel {n * hd * splits} (one per token "
+                  f"and key channel in each of {splits} value-column "
+                  f"block(s); the decay factors are running products); the "
+                  f"chunked form at chunk {ch} "
                   f"{n // ch * (ch * (ch - 1) // 2 + 3 * ch) * hd} (the "
                   f"C(C-1)/2 x hd intra-chunk decays and 3 C x hd more per "
                   f"chunk); no PyTorch call computes this function "
                   f"(library: none)")
-            main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+            main = {"max_abs_err": err, "ms": ms, "ms_host_loop": host_ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": by, "library_ms": None}
         del r, k, v, lw, o, oc, sfin, sc
     return main
 
@@ -907,8 +939,9 @@ def _profile_pass(fn) -> None:
               f"{e.key[:70]}")
 
 
-def phase_rwkv(dev, facts: str) -> dict:
-    """The RWKV-6 path at full rwkv6-7b width (see the module docstring)."""
+def phase_rwkv(dev, facts: str, seed: int = 0) -> dict:
+    """The RWKV-6 path at full rwkv6-7b width (see the module docstring),
+    with weights and batch drawn from ``seed``."""
     from repro_torch.configs import rwkv6_7b
     from repro_torch.data.synthetic import make_batch
     from repro_torch.engine.engine import _cast_floats
@@ -924,14 +957,15 @@ def phase_rwkv(dev, facts: str) -> dict:
           f"GiB allocated")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    params = lm.init_params(cfg,
+                            torch.Generator(device=dev).manual_seed(seed))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     print(f"  {cfg.name}: {cfg.num_layers} layers, bf16, {n_params} parameters "
           f"drawn on the card in {time.perf_counter() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
     B, S = 4, 4096
-    batch = make_batch(cfg, B, S, seed=0, device=dev)
+    batch = make_batch(cfg, B, S, seed=seed, device=dev)
     toks = batch["tokens"]
     with torch.inference_mode():
         # forward_train, the reference's route: the plain chunked wkv
@@ -1189,6 +1223,34 @@ def _build_all() -> None:
         print(f"  {lib.relative_to(root)}")
         for line in kbuild.BUILD_LOGS[src].strip().splitlines():
             print(f"  | {line}")
+        for line in _ptxas_summary(kbuild.BUILD_LOGS[src]):
+            print(f"  {src}: {line}")
+
+
+def _ptxas_summary(log: str) -> list[str]:
+    """One line per compiled kernel from ptxas's -v report: registers,
+    spill stores/loads, stack frame and static shared memory (the dynamic
+    shared memory is the wrapper's, printed where each kernel is timed)."""
+    import re
+
+    out, name, frame = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            frame = (f"stack {m.group(1)} B, spills {m.group(2)} B stored / "
+                     f"{m.group(3)} B loaded")
+            continue
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, {frame}, "
+                       f"{m.group(2) or 0} B static smem")
+            name, frame = None, ""
+    return out
 
 
 def main() -> int:
@@ -1208,7 +1270,7 @@ def main() -> int:
     print("[2] build")
     _build_all()
     print("[3] kernel against plain")
-    row = phase_kernels(dev)
+    row = phase_kernels(dev, facts)
     print("[4] main path")
     main_row = phase_main(dev, facts)
     print("[5] small-input check")

@@ -18,10 +18,15 @@ inputs.
 
 Bound on an H100 at the main path's shape (N=1024, T=48, S=32, K=32): one
 launch moves ~16.9 MB (``window_cost``), ~5 us at 3.35 TB/s; its ~1k ops per
-(tick, cluster) are ~0.7 us at 67 TFLOP/s f32, so memory bounds it. The
-first design is one thread per cluster with the lanes and the top-K head in
-a private column of shared memory (see the source's header); it runs far
-above the bound, which is recorded in PERF.md.
+(tick, cluster) are ~0.8 us at 67 TFLOP/s f32, so memory bounds it. The
+kernel puts a cluster's S lanes across the lanes of a warp (several
+clusters a warp when S < 32): shuffle-tree lane sum, shuffle bitonic sort,
+the head merged in registers (by rank, in shared or global memory, once
+K + S passes 32 values a lane, as windows of ~3300 ticks make it), a block per tile of
+8 adjacent clusters whose (T, N) and (T, S, N) rows are staged through
+shared memory a few ticks ahead (the source's header has the details).
+``launch_geometry`` computes the launch from (N, T, S, K) and refuses what
+the kernel is not built for.
 
 The library is compiled with ``nvcc`` into ``build/kernels/`` at first use
 (one file with a plain C interface, loaded with ``ctypes`` through
@@ -48,6 +53,14 @@ CONSTS_ROWS = 16
 LAUNCHES = 0
 
 SOURCE = "fleet_tick.cu"
+#: clusters a block takes (a tile: one 32-byte sector of every row), ticks
+#: staged at once, and the (T, N) grids staged each tick
+TILE_CLUSTERS, STAGES, GRIDS = 8, 4, 9
+#: lanes per tick the kernel is built for (``window_lanes`` on CUDA gives
+#: 8 to 64), and the most head ++ lanes values one warp lane holds in
+#: registers (past it the head lives in memory, merged by rank)
+LANE_COUNTS = (8, 16, 32, 64)
+MAX_VALUES_PER_LANE = 32
 #: -fmad=false: nvcc contracts no multiply-add the plain version does not
 NVCC_FLAGS = (*kbuild.ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -101,6 +114,46 @@ def pack_tick_consts(cc: dict, mc: dict, spec, chips: int):
     zeros = xp.zeros_like(T_b)
     rows += [zeros] * (CONSTS_ROWS - len(rows))
     return xp.stack(rows).to(torch.float32)
+
+
+def launch_geometry(N: int, T: int, S: int, K: int) -> dict:
+    """The kernel's launch for N clusters, T ticks, S lanes and a K-entry
+    head, or a ValueError for what it is not built for. A cluster takes
+    ``lanes`` = min(S, 32) warp lanes (``clusters_per_warp`` of them share a
+    warp), each holding ``lane_values`` = S / lanes lane values and
+    ``values_per_lane`` = (K + S) / lanes values of the head merge; a block
+    takes ``TILE_CLUSTERS`` clusters (``threads`` = 8 · lanes) and stages
+    ``STAGES`` ticks of their rows. Up to ``MAX_VALUES_PER_LANE`` the merge
+    runs in registers (``head`` "registers"); past it each cluster keeps
+    two K-float head buffers and its S sorted lanes, 2 (K + S) floats
+    (padded by ``lanes``), in shared memory ("shared") or, when the tile's
+    would take more than a block may have, in a global workspace of
+    ``workspace_floats`` ("global").
+    ``smem_bytes`` is the block's dynamic shared memory. S must be in
+    ``LANE_COUNTS`` and K + S a power of two."""
+    if S not in LANE_COUNTS:
+        raise ValueError(f"fleet_tick: S={S} lanes; the kernel takes "
+                         f"{LANE_COUNTS}")
+    P = K + S
+    if K < 1 or P & (P - 1):
+        raise ValueError(f"fleet_tick: K={K}: K + S={P} must be a power of "
+                         "two above S")
+    if N < 0 or T < 1:
+        raise ValueError(f"fleet_tick: N={N}, T={T}")
+    lanes = min(S, 32)
+    blocks = -(-N // TILE_CLUSTERS)
+    smem = STAGES * (GRIDS * TILE_CLUSTERS + 2 * S * (TILE_CLUSTERS + 1)) * 4
+    head, ws = "registers", 0
+    if P // lanes > MAX_VALUES_PER_LANE:
+        heads = TILE_CLUSTERS * (2 * P + lanes) * 4
+        if smem + heads <= kbuild.MAX_SMEM:
+            head, smem = "shared", smem + heads
+        else:
+            head, ws = "global", blocks * TILE_CLUSTERS * 2 * P
+    return dict(lanes=lanes, clusters_per_warp=32 // lanes,
+                lane_values=S // lanes, values_per_lane=P // lanes,
+                threads=TILE_CLUSTERS * lanes, blocks=blocks,
+                smem_bytes=smem, head=head, workspace_floats=ws)
 
 
 def window_cost(T: int, S: int, K: int, N: int, fmult: bool = True):
@@ -242,7 +295,7 @@ def _library():
                                f"coefficient rows, pack_tick_consts packs "
                                f"{CONSTS_USED}")
         fn = lib.fleet_tick_window_launch
-        fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 7
                        + [ctypes.c_float] * 5 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _LIB = lib
@@ -272,7 +325,8 @@ def fleet_tick_window(state, consts, rate, size, z, u_strag, u_raw, u_fail,
     (all-ones when None); ``wmask`` the (T, N) window mask gating which
     ticks' lanes feed the statistics (``active`` when None). ``p99_k`` is
     the caller's p99 interpolation depth; the head is sized by
-    ``head_budget``. S and K+S must be powers of two.
+    ``head_budget``. On a CUDA tensor S and K+S must be what
+    ``launch_geometry`` takes.
 
     Returns (state' (2, N), ys (7, T, N), stats (5, T, N), head (K, N)):
     ys rows = service, queue_delay, batch, processed, straggler, failure,
@@ -287,9 +341,7 @@ def fleet_tick_window(state, consts, rate, size, z, u_strag, u_raw, u_fail,
                                      fmult, wmask, p99_k=p99_k, **kw)
     T, S, N = u_wait.shape
     K = head_budget(S, p99_k)
-    if S & (S - 1) or (K + S) & (K + S - 1):
-        raise ValueError(f"fleet_tick: S={S} and K+S={K + S} must be powers "
-                         "of two")
+    geo = launch_geometry(N, T, S, K)
     dev = state.device
     _check("state", state, (2, N), dev)
     _check("consts", consts, (CONSTS_ROWS, N), dev)
@@ -305,6 +357,8 @@ def fleet_tick_window(state, consts, rate, size, z, u_strag, u_raw, u_fail,
     ys = torch.empty((7, T, N), dtype=torch.float32, device=dev)
     stats = torch.empty((5, T, N), dtype=torch.float32, device=dev)
     head = torch.empty((K, N), dtype=torch.float32, device=dev)
+    ws = torch.empty(geo["workspace_floats"], dtype=torch.float32,
+                     device=dev) if geo["workspace_floats"] else None
     ptr = lambda x: None if x is None else x.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -312,8 +366,9 @@ def fleet_tick_window(state, consts, rate, size, z, u_strag, u_raw, u_fail,
             ptr(state), ptr(consts), ptr(rate), ptr(size), ptr(z),
             ptr(u_strag), ptr(u_raw), ptr(u_fail), ptr(active), ptr(wmask),
             ptr(fmult), ptr(u_wait), ptr(z2a), ptr(state_out), ptr(ys),
-            ptr(stats), ptr(head), N, T, S, K, noise, retention_s,
-            straggler_prob, slo, shi - slo, stream)
+            ptr(stats), ptr(head), ptr(ws), N, T, geo["lanes"], geo["lane_values"],
+            geo["values_per_lane"], geo["blocks"], geo["smem_bytes"], noise,
+            retention_s, straggler_prob, slo, shi - slo, stream)
     if rc != 0:
         raise RuntimeError(f"fleet_tick kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

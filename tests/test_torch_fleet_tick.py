@@ -175,14 +175,144 @@ def test_helpers_and_shape_checks():
     assert ft.LAUNCHES == before
 
 
+@pytest.mark.parametrize("N,T,S,p99_k,geo", [
+    # chip_smoke.py's phase-3 shapes: the fused step, the observe window,
+    # a long ragged window, a K > S head on a ragged N, a window of 768
+    # ticks (16 head-merge values a lane), one of 3328 ticks (past 32
+    # values a lane: the head in shared memory), and a head too long for
+    # the tile's shared memory (in global memory)
+    (1024, 48, 32, 18, (32, 1, 1, 2, 256, 128, 10368, "registers", 0)),
+    (1024, 24, 64, 18, (32, 1, 2, 4, 256, 128, 19584, "registers", 0)),
+    (1000, 192, 8, 18, (8, 4, 1, 4, 64, 125, 3456, "registers", 0)),
+    (777, 32, 16, 40, (16, 2, 1, 4, 128, 98, 5760, "registers", 0)),
+    (1024, 768, 8, 64, (8, 4, 1, 16, 64, 128, 3456, "registers", 0)),
+    (1024, 3328, 8, 269, (8, 4, 1, 64, 64, 128, 36480, "shared", 0)),
+    (1000, 16, 8, 8000,
+     (8, 4, 1, 1024, 64, 125, 3456, "global", 125 * 8 * 2 * 8192)),
+], ids=["fused-step", "observe", "long-ragged", "k-above-s", "long-window",
+        "memory-head", "global-head"])
+def test_launch_geometry_at_the_chip_check_shapes(N, T, S, p99_k, geo):
+    """Lanes a cluster, clusters a warp, lane values and head-merge values
+    a lane, threads, blocks, shared-memory bytes, where the head lives and
+    the global workspace of the kernel's launch (``launch_geometry``), at
+    every (N, T, S, K) the chip check runs."""
+    from repro_torch.engine.fleet_torch import p99_depth
+
+    if p99_k < 1000:
+        assert p99_depth(T, S) == p99_k or (T, S) == (32, 16)
+    K = ft.head_budget(S, p99_k)
+    got = ft.launch_geometry(N, T, S, K)
+    keys = ("lanes", "clusters_per_warp", "lane_values", "values_per_lane",
+            "threads", "blocks", "smem_bytes", "head", "workspace_floats")
+    assert tuple(got[k] for k in keys) == geo
+    assert got["lanes"] * got["lane_values"] == S
+    assert got["lanes"] * got["values_per_lane"] == K + S
+    assert got["clusters_per_warp"] * got["lanes"] == 32
+    assert got["blocks"] * ft.TILE_CLUSTERS >= N > (got["blocks"] - 1) * 8
+    assert got["smem_bytes"] <= 48 * 1024   # no opt-in needed
+
+
+@pytest.mark.parametrize("S,K,match", [
+    (4, 4, "lanes"), (12, 4, "lanes"), (128, 128, "lanes"),
+    (32, 16, "power of two"), (8, 0, "power of two"),
+    (8, 100, "power of two"), (64, 0, "power of two"),
+])
+def test_launch_geometry_refuses_what_the_kernel_is_not_built_for(S, K,
+                                                                 match):
+    with pytest.raises(ValueError, match=match):
+        ft.launch_geometry(64, 8, S, K)
+
+
+@pytest.mark.parametrize("S,K,head", [
+    (8, 120, "registers"), (8, 248, "registers"), (32, 480, "registers"),
+    (64, 960, "registers"), (8, 504, "shared"), (16, 1008, "shared"),
+    (32, 2016, "shared"), (64, 1984, "shared"), (8, 2040, "shared"),
+    (8, 4088, "global"), (8, 8184, "global"), (64, 8128, "global"),
+])
+def test_launch_geometry_places_the_head_by_its_length(S, K, head):
+    """Up to ``MAX_VALUES_PER_LANE`` values a lane the head is merged in
+    registers; past it each cluster keeps two head buffers and its sorted
+    lanes, 2 (K + S) floats (padded by the lanes a cluster): in shared
+    memory while the tile's and the staging fit a block's limit, else in a
+    global workspace for every cluster of every block."""
+    from repro_torch.kernels import build as kbuild
+
+    N = 1000
+    geo = ft.launch_geometry(N, 8, S, K)
+    lanes, P = min(S, 32), K + S
+    staging = ft.STAGES * (ft.GRIDS * 8 + 2 * S * 9) * 4
+    assert geo["values_per_lane"] == P // lanes
+    assert geo["head"] == head
+    if head == "registers":
+        assert geo["values_per_lane"] <= ft.MAX_VALUES_PER_LANE
+        assert geo["smem_bytes"] == staging
+        assert geo["workspace_floats"] == 0
+        return
+    assert geo["values_per_lane"] > ft.MAX_VALUES_PER_LANE
+    if head == "shared":
+        assert geo["smem_bytes"] == staging + 8 * (2 * P + lanes) * 4
+        assert geo["smem_bytes"] <= kbuild.MAX_SMEM
+        assert geo["workspace_floats"] == 0
+    else:
+        assert staging + 8 * (2 * P + lanes) * 4 > kbuild.MAX_SMEM
+        assert geo["smem_bytes"] == staging
+        assert geo["workspace_floats"] == geo["blocks"] * 8 * 2 * P
+
+
+def test_launch_geometry_covers_the_lane_counts_the_port_uses():
+    """Every (S, K) the CUDA path can produce launches: lanes from
+    ``lane_budget``, the head from ``p99_depth``, over every window of 1 to
+    400 ticks and every ``_bucket`` length up to 65536 ticks (the fused
+    loop's and ``observe_fleet``'s padded windows). The register merge
+    takes windows up to 3072 ticks; from 3328 ticks the head is in shared
+    memory, and only past ~25k ticks in global memory."""
+    from repro_torch.engine.fleet_torch import _bucket, lane_budget, p99_depth
+    from repro_torch.kernels import build as kbuild
+
+    lengths = sorted(set(range(1, 401))
+                     | {_bucket(n) for n in range(1, 65537)})
+    assert 768 in lengths and 2048 in lengths and lengths[-1] == 65536
+    heads = {}
+    for T in lengths:
+        S = lane_budget(T)
+        K = ft.head_budget(S, p99_depth(T, S))
+        geo = ft.launch_geometry(1024, T, S, K)
+        assert geo["lanes"] * geo["values_per_lane"] == K + S
+        assert geo["smem_bytes"] <= kbuild.MAX_SMEM
+        assert (geo["head"] == "registers") == \
+            (geo["values_per_lane"] <= ft.MAX_VALUES_PER_LANE)
+        heads.setdefault(geo["head"], []).append(T)
+    assert max(heads["registers"]) == 3072
+    assert min(heads["shared"]) == 3328
+    assert min(heads["global"]) > 25_000
+
+
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_version_on_the_card():
     """Builds ``csrc/fleet_tick.cu`` with nvcc and holds the kernel against
     the plain version on CUDA tensors (ragged N, K > S, fault multiplier,
-    preroll); counts exactly one launch per call."""
+    preroll); counts exactly one launch per call; every output bitwise equal.
+    The warp layout's edges: two lane values a lane (S = 64), 8 to 32
+    head-merge values a lane, the smallest head (K = S = 8), one tick, fewer
+    clusters than a tile, a partial last tile, and the head merged by rank
+    in shared and in global memory."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    for T, N, S, p99_k in ((48, 1024, 32, 18), (24, 1000, 8, 40)):
+    for T, N, S, p99_k in ((48, 1024, 32, 18), (24, 1000, 8, 40),
+                           (1, 13, 64, 2), (5, 3, 16, 100), (7, 21, 8, 2),
+                           (9, 50, 32, 60), (40, 77, 64, 30),
+                           # 16 and 32 head-merge values a lane (a window
+                           # of 768 ticks among them)
+                           (768, 1024, 8, 64), (5, 3, 16, 300),
+                           (9, 50, 32, 480), (40, 77, 64, 200),
+                           (40, 77, 64, 900),
+                           # the head in shared memory at each (lanes, lane
+                           # values) instantiation, a window of 3328 ticks
+                           # among them, and in global memory
+                           (3328, 1024, 8, 269), (5, 3, 16, 1000),
+                           (9, 50, 32, 1000), (40, 77, 64, 1000),
+                           (16, 300, 8, 8000)):
+        geo = ft.launch_geometry(N, T, S, ft.head_budget(S, p99_k))
         ops, kw = _inputs(T, N, S, seed=7, fmult=True, preroll=True)
         args = [None if v is None else torch.from_numpy(v.copy()).cuda()
                 for v in ops.values()]
@@ -192,3 +322,7 @@ def test_cuda_kernel_matches_plain_version_on_the_card():
         assert ft.LAUNCHES == before + 1
         ref = ft.fleet_tick_window_ref(*args, **kw, p99_k=p99_k)
         _assert_close(got, ref, f"cuda T={T} N={N} S={S}")
+        for name, a, b in zip(NAMES, got, ref):  # the contract: bitwise
+            assert torch.equal(a.isnan(), b.isnan()), (name, T, N, S)
+            assert torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)), \
+                (name, T, N, S, geo["head"])

@@ -27,11 +27,8 @@ plain version (the loads-stores variant writes zeros and is not checked).
 """
 from __future__ import annotations
 
-import ctypes
 import re
-import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -40,6 +37,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
+import _probe  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -58,12 +56,10 @@ SHAPES = [("serve", 32, 28, 4, 64, 64, 128, 0),
 
 
 def _variants(src: str) -> dict:
-    a, b = src.find(COMPUTE_FROM), src.find(COMPUTE_TO)
     swaps = [("constexpr int KN = 32;", "constexpr int KN = 64;"),
              ("constexpr int MMA_MIN_BLOCKS = 4;",
               "constexpr int MMA_MIN_BLOCKS = 3;")]
-    if a < 0 or b < a or QK_TILE not in src or \
-            any(old not in src for old, _ in swaps):
+    if QK_TILE not in src or any(old not in src for old, _ in swaps):
         raise RuntimeError("flash_attention.cu no longer has the text this "
                            "probe edits; update the probe")
     whole = src
@@ -74,26 +70,8 @@ def _variants(src: str) -> dict:
             "else cp_async_wait<0>();\n    __syncthreads();\n")
     return {"kernel": src, "whole-tiles": whole,
             "qk-skips": src.replace(head, head + QK_SKIP),
-            "loads-stores": src[:a] + idle + src[b:]}
-
-
-def _build(name: str, text: str):
-    out_dir = kbuild.BUILD_DIR / "probe"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    cu, so = out_dir / f"{name}.cu", out_dir / f"lib{name}.so"
-    cu.write_text(text)
-    proc = subprocess.run([kbuild.nvcc(), *fa.NVCC_FLAGS, "-o", str(so),
-                           str(cu)], capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}:\n{log}")
-    fn = ctypes.CDLL(str(so)).flash_attention_launch
-    fn.argtypes = fa._launcher().argtypes
-    fn.restype = ctypes.c_int
-    # ptxas reports the bf16 kernels first, hd 128 before 64 and 32
-    regs = re.findall(r"Used (\d+) registers", log)[0]
-    spills = re.findall(r"(\d+) bytes spill stores", log)[0]
-    return name, fn, regs, spills
+            "loads-stores": _probe.cut(src, COMPUTE_FROM, COMPUTE_TO,
+                                       keep=idle)}
 
 
 def main() -> int:
@@ -102,14 +80,15 @@ def main() -> int:
         return 2
     facts = cs._gpu_facts()
     src = (kbuild.CSRC / fa.SOURCE).read_text()
-    fa._launcher()
-    variants = _variants(src)
-    with ThreadPoolExecutor(len(variants)) as ex:
-        built = {n: (fn, r, s) for n, fn, r, s in
-                 ex.map(lambda kv: _build(*kv), variants.items())}
+    built = _probe.build_variants(_variants(src), fa.NVCC_FLAGS,
+                                  "flash_attention_launch",
+                                  fa._launcher().argtypes, "attention")
     dev = torch.device("cuda")
     print(f"[{facts}]")
-    for name, (_, regs, spills) in built.items():
+    for name, (_, log) in built.items():
+        # ptxas reports the bf16 kernels first, hd 128 before 64 and 32
+        regs = re.findall(r"Used (\d+) registers", log)[0]
+        spills = re.findall(r"(\d+) bytes spill stores", log)[0]
         print(f"  {name}: hd 128 {regs} registers, {spills} bytes spilled")
     for label, B, Hq, Hkv, Sq, Skv, hd, off in SHAPES:
         q, k, v = cs._attn_inputs(B, Hq, Hkv, Sq, Skv, hd, torch.bfloat16,
@@ -132,14 +111,12 @@ def main() -> int:
                         .abs().max())
             if name != "loads-stores" and err > cs.ATTN_TOL[torch.bfloat16]:
                 raise AssertionError(f"{name} at {label}: max abs {err}")
-        times = {n: [] for n in names}
-        for name in (names + names[::-1]) * 2:
-            times[name].append(cs._graph_ms(lambda: call(built[name][0]))
-                               * 1e3)
+        times = _probe.alternate_ms(
+            {n: (lambda fn=built[n][0]: call(fn)) for n in names}, rounds=2)
         print(f"  {label}: B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} hd={hd} "
               f"q_offset={off}, bf16, causal; device us per launch:")
         for name, t in times.items():
-            print(f"    {name}: " + ", ".join(f"{x:.3f}" for x in t))
+            print(f"    {name}: " + ", ".join(f"{x * 1e3:.3f}" for x in t))
         if label != "serve":
             continue
         o, kv = torch.empty_like(q), torch.empty_like(k)
