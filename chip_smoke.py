@@ -56,8 +56,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
             weights, forward_prefill (no kernel launch) against score_last
 10. ssd     the Mamba2 SSD kernel through ops.mamba2_ssd at zamba2-2.7b's
             mixer shape (B=4, nh=80, S=4096, hd=64, ns=64, chunk 128; f32
-            and bf16), a ragged S and S < chunk, against the plain chunked
-            and sequential versions; times beside the bound
+            and bf16), a ragged S, S < chunk, ns=128 and loga at -80 a step
+            and at 0, against the plain chunked and sequential versions with
+            the stated tolerances; its launch (grid, warps, shared memory,
+            blocks an SM, ptxas registers and spills); the kernel's device
+            time (a CUDA graph of 20 launches) and host-loop time and the
+            plain chunked version's time beside the bound (on the TF32
+            tensor cores' peak, which the kernel's products use)
 
 Each path's kernel launches are counted from 0 just before the path runs
 and read just after. The last two lines are the kernels JSON and the
@@ -94,8 +99,10 @@ F32_OPS_S = 67e12
 #: the same adjacent-pair lane sum), so they should agree to the bit; rtol
 #: 1e-5 leaves room only for libm differences
 RTOL, ATOL = 1e-5, 1e-6
-#: published H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+#: published H100 SXM dense bf16 and TF32 tensor-core peaks (NVIDIA data
+#: sheet)
 BF16_OPS_S = 989e12
+TF32_OPS_S = 495e12
 #: flash attention vs its plain version: the tolerances of
 #: tests/test_kernels.py (online vs full softmax, f32 sums in other orders;
 #: bf16 outputs one rounding apart)
@@ -1108,24 +1115,52 @@ def phase_rwkv(dev, facts: str, seed: int = 0) -> dict:
     return {"launches": counts["rwkv6_wkv"]}
 
 
-def _ssd_inputs(B, nh, S, hd, ns, dtype, dev, seed):
+def _ssd_inputs(B, nh, S, hd, ns, dtype, dev, seed, loga=None):
     """Operands as mamba2_mix feeds its scan: dt = softplus(N(0, 1)) per
     (token, head), A = -exp(U(0, log 16)) per head (Mamba2's A in [1, 16]),
-    x = N(0, 1) dt (the Δ-scaled input), loga = dt A (f32), B and C
-    ~ N(0, 1); x, B and C in ``dtype``."""
+    x = N(0, 1) dt (the Δ-scaled input), loga = dt A (f32), or every step
+    at ``loga`` (0: no decay; -80: each step all but wipes the state), B
+    and C ~ N(0, 1); x, B and C in ``dtype``."""
     g = torch.Generator(device=dev).manual_seed(seed)
     mk = lambda *shape: torch.randn(shape, generator=g, device=dev)
     dt = torch.nn.functional.softplus(mk(B, nh, S))
     A = -torch.exp(np.log(16.0) * torch.rand((nh,), generator=g, device=dev))
     x = (mk(B, nh, S, hd) * dt[..., None]).to(dtype)
-    return (x, mk(B, S, ns).to(dtype), mk(B, S, ns).to(dtype),
-            dt * A[None, :, None])
+    la = dt * A[None, :, None] if loga is None else \
+        torch.full((B, nh, S), float(loga), device=dev)
+    return x, mk(B, S, ns).to(dtype), mk(B, S, ns).to(dtype), la
+
+
+def _ssd_launch(B, nh, hd, ns, dtype) -> None:
+    """The kernel's launch at one shape: the wrapper's geometry, the card's
+    occupancy and registers, and ptxas's line for the instantiation."""
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels import mamba2_ssd as ssd
+
+    geo = ssd.launch_geometry(B, nh, hd, ns, torch.empty((), dtype=dtype)
+                              .element_size())
+    card = ssd.card_geometry(dtype, hd, ns)
+    waves = geo["blocks"] / (torch.cuda.get_device_properties(0)
+                             .multi_processor_count * card["blocks_per_sm"])
+    name = str(dtype).removeprefix("torch.")
+    print(f"    {name} kernel: grid {geo['grid']} = {geo['blocks']} blocks of "
+          f"{geo['warps']} warps, {geo['smem']} B of dynamic shared memory a "
+          f"block, {card['blocks_per_sm']} blocks an SM on the card (at "
+          f"least {geo['min_blocks_per_sm']} by __launch_bounds__, "
+          f"{geo['smem_blocks_per_sm']} by shared memory): {waves:.3f} "
+          f"waves; {card['registers']} registers, {card['local_bytes']} B "
+          f"of local memory a thread")
+    tag = {"float32": "IfLi", "bfloat16": "I13__nv_bfloat16Li"}[name]
+    for line in _ptxas_summary(kbuild.BUILD_LOGS.get(ssd.SOURCE, "")):
+        if f"ssd_kernel{tag}{hd}ELi{ns}E" in line:
+            print(f"    ptxas: {line}")
 
 
 def phase_ssd(dev, facts: str) -> dict:
     """The SSD kernel through ops.mamba2_ssd (its path, counted around the
     main-shape call), then against the plain chunked and sequential
-    versions on the same tensors, and CUDA-event times beside the bound."""
+    versions on the same tensors, its launch, and device times (CUDA
+    graphs) beside the bound."""
     from repro_torch.kernels import mamba2_ssd as ssd
     from repro_torch.kernels import ops
 
@@ -1142,20 +1177,30 @@ def phase_ssd(dev, facts: str) -> dict:
           f"{bool(torch.isfinite(y).all())}")
     if counts != {**{n: 0 for n in KERNEL_MODULES}, "mamba2_ssd": 1}:
         raise AssertionError(f"ssd path launches {counts}")
+    # the tile is the kernel's own: chunk does not change the result
+    same = torch.equal(y, ssd.mamba2_ssd(x, bm, cm, la, chunk=5))
+    print(f"  chunk 128 and chunk 5 bitwise equal: {same}")
+    if not same:
+        raise AssertionError("ssd kernel output depends on chunk")
+    for dt in (f32, bf16):
+        _ssd_launch(B, nh, hd, ns, dt)
     del x, bm, cm, la, y
-    # (label, B, nh, S, hd, ns, chunk, dtype, sequential oracle too)
+    # (label, B, nh, S, hd, ns, chunk, dtype, loga, sequential oracle too)
     shapes = [
-        ("zamba2-mixer", 4, 80, 4096, 64, 64, 128, f32, False),
-        ("zamba2-mixer", 4, 80, 4096, 64, 64, 64, f32, False),
-        ("zamba2-mixer", 4, 80, 4096, 64, 64, 128, bf16, False),
-        ("ragged", 2, 8, 1000, 64, 64, 128, f32, True),
-        ("ragged", 2, 8, 1000, 64, 64, 128, bf16, True),
-        ("S<chunk", 3, 4, 100, 64, 64, 128, f32, True),
-        ("ns128", 1, 4, 300, 64, 128, 64, f32, True),
+        ("zamba2-mixer", 4, 80, 4096, 64, 64, 128, f32, None, False),
+        ("zamba2-mixer", 4, 80, 4096, 64, 64, 64, f32, None, False),
+        ("zamba2-mixer", 4, 80, 4096, 64, 64, 128, bf16, None, False),
+        ("ragged", 2, 8, 1000, 64, 64, 128, f32, None, True),
+        ("ragged", 2, 8, 1000, 64, 64, 128, bf16, None, True),
+        ("S<chunk", 3, 4, 100, 64, 64, 128, f32, None, True),
+        ("ns128", 1, 4, 300, 64, 128, 64, f32, None, True),
+        ("loga=-80", 2, 8, 1000, 64, 64, 128, f32, -80.0, True),
+        ("loga=0", 2, 8, 1000, 64, 64, 128, f32, 0.0, True),
     ]
     main = None
-    for i, (label, B, nh, S, hd, ns, ch, dt, seq) in enumerate(shapes):
-        x, bm, cm, la = _ssd_inputs(B, nh, S, hd, ns, dt, dev, seed=i + 1)
+    for i, (label, B, nh, S, hd, ns, ch, dt, lga, seq) in enumerate(shapes):
+        x, bm, cm, la = _ssd_inputs(B, nh, S, hd, ns, dt, dev, seed=i + 1,
+                                    loga=lga)
         y = ssd.mamba2_ssd(x, bm, cm, la, chunk=ch)
         yc = ssd.mamba2_ssd_chunked(x, bm, cm, la, chunk=ch)
         torch.cuda.synchronize()
@@ -1173,23 +1218,30 @@ def phase_ssd(dev, facts: str) -> dict:
                                      f"at {label} chunk {ch} {dt}")
         if label != "zamba2-mixer":
             continue
-        ms = _time_ms(lambda: ssd.mamba2_ssd(x, bm, cm, la, chunk=ch),
-                      reps=20, warmup=2)
+        run = lambda: ssd.mamba2_ssd(x, bm, cm, la, chunk=ch)
+        ms, host_ms = _graph_ms(run, reps=20), _time_ms(run, reps=20,
+                                                         warmup=2)
         plain_ms = _time_ms(lambda: ssd.mamba2_ssd_chunked(x, bm, cm, la,
                                                            chunk=ch),
                             reps=5, warmup=1)
         nbytes, flops = ssd.ssd_cost(B, nh, S, hd, ns,
                                      itemsize=x.element_size())
-        bound_ms, by = _bound(nbytes, flops, F32_OPS_S)
-        print(f"    kernel {ms:.4f} ms, plain chunked {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms by {by} ({nbytes / 1e9:.4f} GB, "
-              f"{flops / 1e9:.3f} GFLOP f32) [{facts}]")
+        bound_ms, by = _bound(nbytes, flops, TF32_OPS_S)
+        print(f"    kernel device {ms:.4f} ms (host loop {host_ms:.4f} ms), "
+              f"plain chunked {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+              f"{by} ({nbytes / 1e9:.4f} GB, {flops / 1e9:.3f} GFLOP at "
+              f"{TF32_OPS_S / 1e12:.0f} TFLOP/s TF32), {bound_ms / ms:.3f} "
+              f"of the bound [{facts}]")
         if main is None:
-            print(f"    exp count: the kernel {B * nh * S} (one per token and "
-                  f"head); no PyTorch call computes this function (library: "
-                  f"none)")
-            main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+            geo = ssd.launch_geometry(B, nh, hd, ns, x.element_size())
+            subs = -(-S // ssd.STAGED) * ssd.STAGED // ssd.SUB
+            exps = geo["blocks"] * subs * (ssd.SUB * ssd.SUB + 2 * ssd.SUB)
+            print(f"    exp count: the kernel {exps} (each block: the 16 x 16 "
+                  f"score decays and 2 per token of each sub-chunk); no "
+                  f"PyTorch call computes this function (library: none)")
+            main = {"max_abs_err": err, "ms": ms, "ms_host_loop": host_ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": by, "library_ms": None}
         del x, bm, cm, la, y, yc
     return {"launches": counts["mamba2_ssd"], **main}
 

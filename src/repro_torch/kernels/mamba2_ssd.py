@@ -5,14 +5,14 @@ Replaces the TPU kernel ``repro.kernels.mamba2_ssd.mamba2_ssd``
 hand for Hopper, ``csrc/mamba2_ssd.cu``, with the same contract: x
 (B, nh, S, hd) Δ-scaled inputs, bm/cm (B, S, ns) shared by all heads, loga
 (B, nh, S) per-step log decay (<= 0) -> y (B, nh, S, hd) in x's dtype,
-from a zero state, with no D term and no state returned; f32 math on f32
+from a zero state, with no D term and no state returned; f32 sums on f32
 or bf16 x/bm/cm, with loga in f32.
 
 * ``mamba2_ssd`` is the wrapper. On a CUDA tensor it checks dtypes,
-  shapes, devices and the innermost strides, allocates y with
-  ``torch.empty``, launches the kernel on the current stream and counts the
-  launch in ``LAUNCHES``; a failed build or launch raises. On a CPU tensor
-  it runs the plain version.
+  shapes, devices and the launch layout, allocates y with ``torch.empty``,
+  launches the kernel on the current stream and counts the launch in
+  ``LAUNCHES``; a failed build or launch raises. On a CPU tensor it runs
+  the plain version.
 * ``mamba2_ssd_ref`` is the plain PyTorch version: the sequential scan of
   the reference's oracle ``kernels/ref.py::mamba2_ssd_ref``.
 * ``mamba2_ssd_chunked`` is the plain chunked form that the TPU kernel
@@ -20,12 +20,21 @@ or bf16 x/bm/cm, with loga in f32.
   with loga = 0 and x = 0); the checks on the card hold the kernel against
   it and time it.
 
-The kernel runs the scan token by token (the source's header says why);
-``chunk`` is the number of tokens it stages in shared memory at a time, a
-speed lever that does not change the result. Bound on an H100 at
-zamba2-2.7b's mixer shape (B=4, nh=80, S=4096, hd=64, ns=64, f32): 0.69 GB,
-~0.20 ms at 3.35 TB/s, against 21.5 GFLOP, ~0.32 ms at the 67 TFLOP/s of
-f32 (``ssd_cost``).
+The kernel runs the chunked form on the tensor cores: 16-token sub-chunks
+on ``mma.sync`` TF32 tiles, every decay factor the exponent of a masked
+difference (so in [0, 1] for any loga <= 0), every f32 operand split into
+TF32 hi + lo (~2⁻²¹ a term; bf16 x/bm/cm are exact and not split), the
+state in f32 accumulators throughout. Its tile is fixed in the source
+(``STAGED`` tokens staged, ``SUB`` a sub-chunk): ``chunk`` does not reach
+it, so it does not change the result. The source's header says why. Bound
+on an H100 at zamba2-2.7b's mixer shape (B=4, nh=80, S=4096, hd=64, ns=64):
+0.685 GB in f32, 0.2044 ms at 3.35 TB/s (0.345 GB, 0.1030 ms in bf16),
+against 21.5 GFLOP, 0.043 ms at the 495 TFLOP/s of TF32 (``ssd_cost``).
+
+The kernel stages rows with 16-byte ``cp.async``, so every row start of x,
+bm and cm must be 16-byte aligned; ``_launch_layout`` checks that and
+raises. ``launch_geometry`` gives the launch (grid, warps, shared memory,
+blocks an SM).
 
 The library is compiled with ``nvcc`` into ``build/kernels/`` at first use
 (through ``kernels/build.py``), never at import.
@@ -48,6 +57,14 @@ NVCC_FLAGS = kbuild.FLAGS
 #: head widths and state widths the kernel is instantiated for
 HEAD_DIMS = (32, 64, 128)
 STATE_DIMS = (16, 32, 64, 128)
+#: tokens the kernel stages at a time, and a sub-chunk of them
+STAGED, SUB = 32, 16
+#: rows of h a block takes at most (min(hd, 64)); rows are independent,
+#: so hd 128 runs two blocks a (b, head)
+BLOCK_ROWS = 64
+#: SMs of an H100 and the shared memory one SM holds (228 KB, 1 KB of it
+#: reserved per block)
+SMS, SM_SMEM, BLOCK_RESERVED = 132, 233_472, 1024
 _LIB = None
 
 
@@ -113,10 +130,72 @@ def ssd_cost(B: int, nh: int, S: int, hd: int, ns: int, *, itemsize: int):
     return nbytes, 4 * hd * ns * B * nh * S
 
 
-def smem_bytes(chunk: int, hd: int, ns: int) -> int:
-    """Dynamic shared memory the kernel takes for a tile of ``chunk``
-    tokens: x, B and C as f32 and one decay per token."""
-    return 4 * (chunk * (2 * ns + hd) + chunk)
+def smem_bytes(hd: int, ns: int, itemsize: int) -> int:
+    """Dynamic shared memory of the kernel (``Geo::BYTES`` in the source)
+    for head width hd, state width ns and x/bm/cm of ``itemsize`` bytes:
+    two stages of ``STAGED`` tokens (x's rows of the block, padded by 16
+    bytes; bm and cm rows padded by 8 elements; loga in f32), then the
+    per-token cum, e^cum and e^(tot - cum) in f32, then the staged
+    sub-chunks' decayed scores as hi and lo f32 (rows of ``SUB`` padded by
+    8), then for f32 x/bm/cm the lo parts of the staged cm (its hi parts
+    in place). The wrapper passes it to the launch, which refuses a size
+    that is not the kernel's own."""
+    dv = min(hd, BLOCK_ROWS)
+    ldx, ldb = dv + 16 // itemsize, ns + 8
+    stage = STAGED * (ldx + 2 * ldb) * itemsize + 4 * STAGED
+    c_lo = STAGED * ldb * 4 if itemsize == 4 else 0
+    return 2 * stage + 3 * 4 * STAGED + 2 * STAGED * (SUB + 8) * 4 + c_lo
+
+
+def launch_geometry(B: int, nh: int, hd: int, ns: int, itemsize: int) -> dict:
+    """The kernel's launch for x of (B, nh, ·, hd), state width ns and
+    ``itemsize``-byte x/bm/cm: ``grid`` (hd / rows, nh, B), ``warps`` and
+    ``threads`` a block (16 rows of h a warp), ``smem`` (``smem_bytes``),
+    ``min_blocks_per_sm`` (the source's ``__launch_bounds__``: the
+    registers allow at least that many), ``smem_blocks_per_sm`` (what the
+    shared memory allows) and ``waves``: the blocks over what 132 SMs hold
+    at the smaller of the two. The card's own count comes from
+    ``mamba2_ssd_geometry``."""
+    dv = min(hd, BLOCK_ROWS)
+    warps = dv // 16
+    smem = smem_bytes(hd, ns, itemsize)
+    min_blocks = (3 if ns <= 64 else 2) * 4 // warps
+    smem_blocks = SM_SMEM // (smem + BLOCK_RESERVED)
+    grid = (hd // dv, nh, B)
+    blocks = grid[0] * grid[1] * grid[2]
+    return {"grid": grid, "blocks": blocks, "warps": warps,
+            "threads": 32 * warps, "smem": smem,
+            "min_blocks_per_sm": min_blocks,
+            "smem_blocks_per_sm": smem_blocks,
+            "waves": blocks / (SMS * min(min_blocks, smem_blocks))}
+
+
+def _launch_layout(x, bm, cm, loga) -> tuple:
+    """The ten element strides (x: b, h, s; bm, cm: b, s; loga: b, h, s)
+    that the kernel is launched with, or a ValueError naming what it
+    cannot take: a last axis of x, bm or cm that is not contiguous, or (16-
+    byte ``cp.async`` rows) one of their strides that is not a multiple of
+    16 bytes or a base pointer that is not 16-byte aligned. loga is read
+    4 bytes at a time, at any stride. The stride of a size-1 axis is never
+    used, so it is passed as 0. Runs on any device: it only reads
+    metadata."""
+    strides = ()
+    for name, a in (("x", x), ("bm", bm), ("cm", cm)):
+        if a.stride(-1) != 1:
+            raise ValueError(f"mamba2_ssd: {name}'s last axis is not "
+                             f"contiguous (strides {a.stride()})")
+        st = tuple(s if n > 1 else 0 for s, n in zip(a.stride()[:-1],
+                                                      a.shape[:-1]))
+        per16 = 16 // a.element_size()
+        if any(s % per16 for s in st):
+            raise ValueError(f"mamba2_ssd: {name}'s strides {a.stride()} "
+                             f"are not multiples of {per16} elements")
+        if a.data_ptr() % 16:
+            raise ValueError(f"mamba2_ssd: {name}'s data is not 16-byte "
+                             "aligned")
+        strides += st
+    return strides + tuple(s if n > 1 else 0 for s, n in zip(loga.stride(),
+                                                             loga.shape))
 
 
 def _library():
@@ -124,20 +203,40 @@ def _library():
     if _LIB is None:
         lib = kbuild.load(SOURCE, NVCC_FLAGS)
         fn = lib.mamba2_ssd_launch
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                       + [ctypes.c_longlong] * 10 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                       + [ctypes.c_longlong] * 10 + [ctypes.c_int]
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        geo = lib.mamba2_ssd_geometry
+        geo.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        geo.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def card_geometry(dtype, hd: int, ns: int) -> dict:
+    """The built kernel's launch on the current card, for x/bm/cm of
+    ``dtype``: threads and dynamic shared memory a block, the blocks an SM
+    holds (the occupancy calculator), registers and local memory a
+    thread. Needs the card; builds the library if needed."""
+    out = (ctypes.c_int * 5)()
+    rc = _library().mamba2_ssd_geometry(kbuild.DTYPE_CODES[dtype], hd, ns,
+                                        out)
+    if rc != 0:
+        raise RuntimeError(f"mamba2_ssd_geometry failed: CUDA error {rc}")
+    return dict(zip(("threads", "smem", "blocks_per_sm", "registers",
+                     "local_bytes"), out))
 
 
 def mamba2_ssd(x, bm, cm, loga, *, chunk: int = DEFAULT_CHUNK):
     """x (B,nh,S,hd), bm/cm (B,S,ns), loga (B,nh,S) -> y (B,nh,S,hd) in x's
     dtype (the D residual and the gating are the caller's).
 
-    The inputs may be strided (only the last axis of x, bm and cm must be
-    contiguous); y is contiguous. ``chunk`` is clipped to S, as in the
-    reference."""
+    The inputs may be strided views (the last axis of x, bm and cm
+    contiguous, their row starts 16-byte aligned: ``_launch_layout``); y is
+    contiguous. ``chunk`` must be positive, as in the reference; the
+    kernel's tile is its own (``STAGED``, ``SUB``), so it does not change
+    the result."""
     global LAUNCHES
     if not x.is_cuda:
         return mamba2_ssd_ref(x, bm, cm, loga)
@@ -162,16 +261,9 @@ def mamba2_ssd(x, bm, cm, loga, *, chunk: int = DEFAULT_CHUNK):
         raise TypeError(f"mamba2_ssd: loga {loga.dtype} must be float32")
     if any(a.device != x.device for a in (bm, cm, loga)):
         raise ValueError("mamba2_ssd: inputs on different devices")
-    if x.stride(3) != 1 or bm.stride(2) != 1 or cm.stride(2) != 1:
-        raise ValueError("mamba2_ssd: the last axis of x, bm and cm must be "
-                         "contiguous")
+    strides = _launch_layout(x, bm, cm, loga)
     if chunk <= 0:
         raise ValueError(f"mamba2_ssd: chunk {chunk} <= 0")
-    ch = max(min(int(chunk), S), 1)
-    if smem_bytes(ch, hd, ns) > kbuild.MAX_SMEM:
-        raise ValueError(f"mamba2_ssd: chunk {ch} at hd {hd}, ns {ns} needs "
-                         f"{smem_bytes(ch, hd, ns)} bytes of shared memory, "
-                         f"more than a block's {kbuild.MAX_SMEM}")
     lib = _library()
     y = torch.empty((B, nh, S, hd), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
@@ -179,9 +271,7 @@ def mamba2_ssd(x, bm, cm, loga, *, chunk: int = DEFAULT_CHUNK):
         rc = lib.mamba2_ssd_launch(
             x.data_ptr(), bm.data_ptr(), cm.data_ptr(), loga.data_ptr(),
             y.data_ptr(), kbuild.DTYPE_CODES[x.dtype], B, nh, S, hd, ns,
-            ch,
-            *x.stride()[:3], bm.stride(0), bm.stride(1), cm.stride(0),
-            cm.stride(1), *loga.stride(), stream)
+            *strides, smem_bytes(hd, ns, x.element_size()), stream)
     if rc != 0:
         raise RuntimeError(f"mamba2_ssd kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

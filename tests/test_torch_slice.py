@@ -63,20 +63,29 @@ def _reference_compiled_tier(monkeypatch):
     monkeypatch.delenv("REPRO_REQUIRE_COMPILED", raising=False)
 
 
-def _pair(n, *, seed=0, steps=3, window_s=240.0, mix=MIX):
+def _pair(n, *, seed=0, steps=3, window_s=240.0, mix=MIX, **over):
+    """Reference and port configurators on twin fleets; ``over`` replaces
+    their common keyword arguments (reward, gamma, bin adaptation)."""
     ref_env = RefFleetEnv.heterogeneous(n, seed=seed, mix=mix,
                                         backend="pallas")
     env = FleetEnv.heterogeneous(n, seed=seed, mix=mix, backend="torch",
                                  device="cpu")
     kw = dict(seed=seed, steps_per_episode=steps, window_s=window_s,
               device_loop="on", bin_kw=FROZEN)
+    kw.update(over)
     ref = RefConfigurator(ref_env, METRICS, LEVERS, mesh="off", **kw)
     port = Configurator(env, METRICS, LEVERS, **kw)
     return ref_env, ref, env, port
 
 
-def test_greedy_batch_matches_reference_exactly():
-    ref_env, ref, env, port = _pair(8)
+@pytest.mark.parametrize("over", [
+    {}, {"reward_mode": "slo"}, {"gamma": 0.9}, {"bin_kw": None}],
+    ids=["default", "slo-reward", "gamma-0.9", "live-bins"])
+def test_greedy_batch_matches_reference_exactly(over):
+    """The greedy episode batch with the reference's draws injected, at the
+    default reward, gamma 1 and frozen bins, and with the SLO reward,
+    gamma 0.9 and live bin adaptation (section 2.4.1) each in turn."""
+    ref_env, ref, env, port = _pair(8, **over)
     port.agent.load_reference_params(
         {k: np.asarray(v) for k, v in ref.agent.params.items()})
     env._dev.draws = JaxDraws(ref_env._dev._key)

@@ -11,8 +11,10 @@ launch count, 10 steady ones and a profiled one) with the keyword arguments
 ``JSON``, building its kernels from its own sources. Give the roots as
 A B B A so that a drift of the card or the host falls on both alike. It
 prints each run's lines, then, for ``phase_main``, one line per run with
-its steady windows/s and median seconds an update, and the card's name and
-power limit. Example: the RWKV-6 path on another seed,
+its steady windows/s and median seconds an update, for ``phase_ssd`` one
+line per run with the SSD kernel's time at each zamba2 shape (the device
+time where the checkout's phase measures one, else its host loop), and the
+card's name and power limit. Example: the RWKV-6 path on another seed,
 ``--phase phase_rwkv --kwargs '{"seed": 1}' .``
 """
 from __future__ import annotations
@@ -36,6 +38,11 @@ RUN = ("import json, sys, torch; sys.path.insert(0, 'src'); "
        "**json.loads(sys.argv[2]))")
 STEADY = re.compile(r"= ([\d.]+) windows/s; per update min [\d.]+, median "
                     r"([\d.]+)")
+#: phase_ssd's zamba2 lines: the check line (chunk, dtype), then the time
+#: line, "kernel 2.37 ms" (host loop) or "kernel device 0.83 ms (host loop
+#: 0.84 ms)"
+SSD = re.compile(r"zamba2-mixer .*? chunk=(\d+) (\w+) vs chunked.*\n\s+kernel "
+                 r"(device )?([\d.]+) ms(?: \(host loop ([\d.]+) ms\))?")
 
 
 def main(argv: list[str]) -> int:
@@ -46,7 +53,7 @@ def main(argv: list[str]) -> int:
     args = ap.parse_args(argv)
     json.loads(args.kwargs)
     facts = cs._gpu_facts()
-    rows = []
+    rows, ssd = [], []
     for i, root in enumerate(args.roots):
         path = Path(root).resolve()
         env = dict(os.environ, PYTHONPATH=str(path / "src"))
@@ -63,11 +70,19 @@ def main(argv: list[str]) -> int:
         m = STEADY.search(proc.stdout)
         if m is not None:
             rows.append((i + 1, root, float(m.group(1)), float(m.group(2))))
+        for m in SSD.finditer(proc.stdout):
+            dev, ms, host = m.group(3), m.group(4), m.group(5) or m.group(4)
+            ssd.append(f"  run {i + 1} {root}: {m.group(2)} chunk "
+                       f"{m.group(1)}: " + (f"device {ms} ms, " if dev else "")
+                       + f"host loop {host} ms")
     if rows:
         print(f"steady windows/s at N=1024 [{facts}]:")
         for i, root, rate, med in rows:
             print(f"  run {i} {root}: {rate} windows/s, median {med} s an "
                   f"update")
+    if ssd:
+        print(f"SSD kernel at zamba2-2.7b's mixer shape [{facts}]:")
+        print("\n".join(ssd))
     print(f"[{facts}]")
     return 0
 
