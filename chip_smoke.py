@@ -63,6 +63,21 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
             time (a CUDA graph of 20 launches) and host-loop time and the
             plain chunked version's time beside the bound (on the TF32
             tensor cores' peak, which the kernel's products use)
+11. tuner   the Lasso path's lasso_cd kernel against its plain version at
+            the tuner's shape (1200 rows, 109 levers and their squares: p =
+            218, A in shared memory; 60 lambdas x 60 epochs) and at p = 300
+            (A's rows from global memory): coefficients within the stated
+            scaled tolerance, entry order equal, device time (CUDA events
+            over 3 launches) beside the plain version's and the bound. Then
+            the paper's whole method through AutoTuner: the 80-cluster
+            sweep at full width (109 levers, 90 metrics, 10 nodes),
+            collect(1200, windows_per_cluster=6), analyse(), 3 fused
+            run_updates and 1 update of the per-step host fleet loop, then a
+            serial SimCluster's collect(120), analyse() and 1 host-loop
+            update (4 episodes x 5 steps); fleet_tick and lasso_cd launches
+            equal to the counts the code gives, windows/s of collect and
+            tune, analyse's split, the Lasso on the sweep's own matrix
+            against its plain version
 
 Each path's kernel launches are counted from 0 just before the path runs
 and read just after. The last two lines are the kernels JSON and the
@@ -129,6 +144,11 @@ WKV_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
 #: SSD kernel vs its plain versions, on the same scale: tests/test_kernels.py's
 #: f32 2e-4 (chunked vs sequential) and bf16 3e-2
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+#: lasso_cd vs its plain version, max |difference| over max(1, max |plain|):
+#: the same f32 updates with the dot summed in another order, chained over
+#: 3600 epochs (the tests hold the port's path to the reference's at rtol
+#: 1e-4 the same way)
+LASSO_TOL = 1e-4
 #: the RWKV-6 loss in bf16, kernel route vs forward_train's chunked route:
 #: the loss is the f32 mean over 16384 positions of CE on bf16 logits; the
 #: two routes' logits differ by single bf16 ulps (2^-8 relative) of both
@@ -751,7 +771,8 @@ def _prefill_agreement(eng, cfg, toks, engine_tok) -> None:
                              "tolerance")
 
 
-KERNEL_MODULES = ("fleet_tick", "flash_attention", "rwkv6_wkv", "mamba2_ssd")
+KERNEL_MODULES = ("fleet_tick", "flash_attention", "rwkv6_wkv", "mamba2_ssd",
+                  "lasso_cd")
 
 
 def _kernel_mods():
@@ -1246,6 +1267,215 @@ def phase_ssd(dev, facts: str) -> dict:
     return {"launches": counts["mamba2_ssd"], **main}
 
 
+def _lasso_case(A, b, lams, n: int, label: str, facts: str,
+                reps: int = 3) -> dict:
+    """lasso_cd on the card against its plain version on the same inputs
+    (the plain loop runs on the host over a copy): scaled error, entry
+    order, device time (CUDA events over ``reps`` launches), the plain
+    version's time and the bound."""
+    from repro_torch.core.lasso import entry_order
+    from repro_torch.kernels import lasso_cd as lc
+
+    p = A.shape[0]
+    w0 = torch.zeros(p, device=A.device)
+    lt = torch.as_tensor(lams, dtype=torch.float32, device=A.device)
+    run = lambda: lc.lasso_cd(A, b, w0, lt, float(n), epochs=60)
+    got = run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = lc.lasso_cd_ref(A, b, w0, lt, float(n), epochs=60)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err, scale = _scaled_err(got, want)
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    order_k, order_p = entry_order(g, lams)[0], entry_order(w, lams)[0]
+    ms = _time_ms(run, reps=reps, warmup=1)
+    nbytes, flops = lc.cd_cost(p, len(lams), 60)
+    bound_ms, by = _bound(nbytes, flops, F32_OPS_S)
+    upd = lc.chain_updates(p, len(lams), 60)
+    print(f"  lasso_cd {label} p={p} ({'shared' if lc.a_in_smem(p) else 'global'}"
+          f" A) n_lam={len(lams)} epochs=60: max_abs {err:.3e} (scale "
+          f"{scale:.3f}, scaled {err / scale:.3e}, tol {LASSO_TOL}); entry "
+          f"order equal {order_k == order_p} ({len(order_k)} features, first "
+          f"{order_k[:6]})")
+    print(f"    kernel device {ms:.3f} ms, plain (host loop over a CPU copy) "
+          f"{plain_ms:.1f} ms, bound {bound_ms * 1e3:.3f} us by {by} "
+          f"({nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP), "
+          f"{bound_ms / ms:.2e} of the bound; the chain: {upd} dependent "
+          f"updates, {ms * 1e6 / upd:.1f} ns each [{facts}]")
+    if err / scale > LASSO_TOL:
+        raise AssertionError(f"lasso_cd vs plain out of tolerance at {label}")
+    if order_k != order_p:
+        raise AssertionError(f"lasso_cd entry order differs at {label}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+
+
+def _planted_levers(n: int, levers: int, seed: int):
+    """Integer lever settings with four effective levers, one quadratic."""
+    rng = np.random.default_rng(seed)
+    R = rng.integers(0, 10, (n, levers)).astype(float)
+    y = 0.8 * R[:, 3] - 0.5 * R[:, 17] + 0.03 * R[:, 40] ** 2 \
+        + 0.2 * R[:, 60] + 0.5 * rng.standard_normal(n)
+    return R, np.log(y - y.min() + 1.0)
+
+
+def _lasso_design(R, y, dev, n_lambdas: int = 60):
+    """The path's inputs as ``rank_levers`` builds them: normalised levers
+    and their squares, the centred target, the lambda grid."""
+    from repro_torch.core import lasso as lasso_mod
+
+    Z, _, _ = lasso_mod.normalise_levers(R)
+    X, _ = lasso_mod.polynomial_features(Z, [str(i) for i in range(R.shape[1])])
+    A, b, lams = lasso_mod.path_inputs(X, y, device=dev)
+    return A, b, lams[:n_lambdas]
+
+
+def phase_tuner(dev, facts: str) -> dict:
+    """lasso_cd against its plain version, then AutoTuner's collect ->
+    analyse -> tune over the 80-cluster fleet and a serial SimCluster, with
+    the launches of both kernels counted around it."""
+    from repro_torch.core import AutoTuner, Configurator
+    from repro_torch.engine import FleetEnv, SimCluster
+    from repro_torch.kernels import fleet_tick as ft
+    from repro_torch.kernels import lasso_cd as lc
+
+    R, y = _planted_levers(1200, 109, seed=0)
+    row = _lasso_case(*_lasso_design(R, y, dev), 1200, "planted", facts)
+    R, y = _planted_levers(600, 150, seed=1)
+    _lasso_case(*_lasso_design(R, y, dev, n_lambdas=6), 600, "planted", facts,
+                reps=1)
+
+    N, S, W = 80, 5, 6
+    env = FleetEnv.heterogeneous(N, seed=0, backend="torch", mix=MIX)
+    assert env.device.type == "cuda" and env.n_nodes == 10
+    assert len(env.lever_specs) == 109 and len(env.metric_names) == 90
+    tuner = AutoTuner(env, seed=0, window_s=240.0, top_levers=8)
+    assert tuner.device.type == "cuda"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    expected = {n: 0 for n in KERNEL_MODULES}
+
+    def check(stage: str, fleet_tick: int, lasso: int) -> None:
+        expected["fleet_tick"] += fleet_tick
+        expected["lasso_cd"] += lasso
+        got = _counts()
+        print(f"    launches after {stage}: {got}")
+        if got != expected:
+            raise AssertionError(f"{stage}: launches {got} != {expected}")
+
+    rounds = -(-1200 // N)
+    t0 = time.perf_counter()
+    tuner.collect(1200, windows_per_cluster=W)
+    torch.cuda.synchronize()
+    t_collect = time.perf_counter() - t0
+    print(f"  collect(1200) over N={N}: {t_collect:.3f} s, "
+          f"{1200 / t_collect:.1f} windows/s ({rounds} rounds, guard "
+          f"exhausted {tuner.guard_exhausted}) [{facts}]")
+    check("collect (a stabilisation and a window a round)", 2 * rounds, 0)
+    mets, levers = tuner.analyse()
+    sp = tuner.analyse_s
+    sel = tuner.selection
+    print(f"  analyse: {sp['total']:.3f} s (FA {sp['fa']:.3f}, k-means "
+          f"{sp['kmeans']:.3f}, Lasso {sp['lasso']:.3f}) [{facts}]")
+    print(f"  metrics: reduction {sel.reduction:.4f}, {sel.n_factors} factors, "
+          f"k={sel.k}: {mets}")
+    print(f"  ranked levers: {levers}")
+    check("analyse", 0, 1)
+    if not 3 <= sel.k <= 12:
+        raise AssertionError(f"selection.k = {sel.k} outside 3..12")
+
+    env.reset()
+    base = float(np.mean([w.p99_ms for w in env.observe(300.0)]))
+    check("the default's window", 1, 0)
+    cfgr = tuner.build_configurator(steps_per_episode=S, window_s=240.0,
+                                    f_exploit=0.8, device_loop="on")
+    w0 = {k: v.detach().clone() for k, v in cfgr.agent.params.items()}
+    t0 = time.perf_counter()
+    for _ in range(3):
+        cfgr.run_update()
+    torch.cuda.synchronize()
+    t_fused = time.perf_counter() - t0
+    check("3 fused run_updates", 1 + 3 * S, 0)
+    host = Configurator(env, mets, levers, device_loop="off",
+                        steps_per_episode=S, window_s=240.0, seed=1)
+    h0 = {k: v.detach().clone() for k, v in host.agent.params.items()}
+    t0 = time.perf_counter()
+    host.run_update()
+    torch.cuda.synchronize()
+    t_host = time.perf_counter() - t0
+    check("1 host-loop fleet update", 1 + S, 0)
+    print(f"  tune: 3 fused updates {3 * N * S} windows in {t_fused:.3f} s = "
+          f"{3 * N * S / t_fused:.1f} windows/s (the first carries one-time "
+          f"set-up); host fleet loop {N * S} windows in {t_host:.3f} s = "
+          f"{N * S / t_host:.1f} windows/s [{facts}]")
+
+    ser = SimCluster(seed=0)
+    assert ser.device.type == "cuda"
+    stuner = AutoTuner(ser, seed=0, window_s=240.0, top_levers=8)
+    t0 = time.perf_counter()
+    stuner.collect(120)
+    torch.cuda.synchronize()
+    t_ser = time.perf_counter() - t0
+    check("serial collect(120)", 2 * 120, 0)
+    smets, slevers = stuner.analyse()
+    check("serial analyse", 0, 1)
+    scfgr = stuner.build_configurator(steps_per_episode=S,
+                                      episodes_per_update=4, window_s=240.0)
+    s0 = {k: v.detach().clone() for k, v in scfgr.agent.params.items()}
+    t0 = time.perf_counter()
+    scfgr.run_update()
+    torch.cuda.synchronize()
+    t_stune = time.perf_counter() - t0
+    check("serial host-loop update", 1 + 4 * S * 2, 0)
+    counts = _counts()
+    mem = torch.cuda.max_memory_allocated()
+    print(f"  serial SimCluster: collect(120) {t_ser:.3f} s = "
+          f"{120 / t_ser:.1f} windows/s; analyse {stuner.analyse_s['total']:.3f}"
+          f" s (Lasso {stuner.analyse_s['lasso']:.3f}); 1 update of 20 steps "
+          f"{t_stune:.3f} s; k={stuner.selection.k}, levers {slevers} "
+          f"[{facts}]")
+    for name, c, p0 in (("fused", cfgr, w0), ("host fleet", host, h0),
+                        ("serial", scfgr, s0)):
+        r = np.array([x.reward for x in c.history])
+        p = np.array([x.p99_ms for x in c.history])
+        if not (np.isfinite(r).all() and np.isfinite(p).all() and (p > 0).all()):
+            raise AssertionError(f"{name}: non-finite reward or p99")
+        moved = [k for k, v in c.agent.params.items()
+                 if not torch.equal(v.detach(), p0[k])]
+        if not moved:
+            raise AssertionError(f"{name}: policy parameters did not move")
+        print(f"  {name}: {len(r)} steps, reward median {np.median(r):.4f}, "
+              f"p99 median {np.median(p):.1f} ms, params moved {moved}")
+    best = min(x.p99_ms for x in cfgr.history + host.history)
+    print(f"  best p99 {best:.1f} ms against the default's {base:.1f} ms "
+          f"(fleet mean), {best / base:.4f}; peak device memory "
+          f"{mem / 2**20:.1f} MiB")
+
+    # what a collect round spends on the host per cluster (after the count
+    # was read): the 80 metric rows read one (N, nodes, 90) copy of the
+    # window, the 80 target means each draw a latency sample on the host
+    windows = env.observe(240.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = [tuner._metric_row(w) for w in windows]
+    t_rows = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lats = [w.latencies_ms for w in windows]
+    t_lat = time.perf_counter() - t0
+    print(f"  a round's host reads at N={N}: metric rows {t_rows * 1e3:.2f} ms "
+          f"({len(rows[0])} metrics each), latency samples {t_lat * 1e3:.2f} "
+          f"ms ({np.mean([x.size for x in lats]):.0f} events each), of "
+          f"{t_collect / rounds * 1e3:.2f} ms a collect round [{facts}]")
+
+    # the Lasso on the sweep's own matrix, kernel against plain (after the
+    # count was read: these launches are the comparison's)
+    R, yk, _ = tuner.lasso_inputs()
+    _lasso_case(*_lasso_design(R, yk, dev), len(yk), "on the N=80 sweep",
+                facts, reps=1)
+    return {"launches": counts["lasso_cd"], **row}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1337,6 +1567,8 @@ def main() -> int:
     rwkv_row = phase_rwkv(dev, facts)
     print("[10] SSD kernel through ops.mamba2_ssd, against plain")
     ssd_row = phase_ssd(dev, facts)
+    print("[11] tuner path")
+    lasso_row = phase_tuner(dev, facts)
     kernels = [
         {"name": "fleet_tick_window", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fleet_tick.cu",
@@ -1353,6 +1585,9 @@ def main() -> int:
         {"name": "mamba2_ssd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/mamba2_ssd.cu",
          "replaces": "src/repro/kernels/mamba2_ssd.py:72", **ssd_row},
+        {"name": "lasso_cd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/lasso_cd.cu",
+         "replaces": "src/repro/core/lasso.py:61", **lasso_row},
     ]
     for row in kernels:
         row["bound_frac"] = row["bound_ms"] / row["ms"]

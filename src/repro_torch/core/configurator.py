@@ -4,29 +4,84 @@ The port of ``repro.core.configurator``: the ``Configurator`` drives the
 paper's episode loop — observe heat-maps -> pick (lever, direction) ->
 discretise -> apply config -> buffer events during loading -> wait for
 stabilisation -> measure latency -> reward -> (end of episode) REINFORCE
-update — as the fused device loop (``repro_torch.core.device_loop``) over a
-``FleetEnv(backend="torch")``.
+update — against a ``TuningEnv`` (the serial ``SimCluster``) or a
+``FleetTuningEnv`` (``FleetEnv(backend="torch")``).
 
-Ported so far: the constructor, state encoding, the fused-loop gate, one
-fused episode batch (``run_fleet_episodes_device``), the device branch of
-``run_update`` and ``tune``. The per-step host loops (``run_episode``,
-``run_fleet_episodes``) and the safety shield raise ``NotImplementedError``
-naming their ROADMAP item; they never fall back.
+Over a fleet whose workloads the device rate grid can pack, ``run_update``
+runs the fused device loop (``repro_torch.core.device_loop``); otherwise,
+or with ``device_loop="off"``, the per-step host loops: ``run_episode``
+(serial) and ``run_fleet_episodes`` (N parallel episodes, acting on the
+device). Every observation window is a ``fleet_tick`` kernel launch either
+way. The safety shield raises ``NotImplementedError`` naming its ROADMAP
+item; it never falls back.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Optional, Protocol, Sequence
 
 import numpy as np
 
-from repro_torch.core.discretize import LeverDiscretiser
+from repro_torch.core.discretize import LeverDiscretiser, LeverSpec
 from repro_torch.core.heatmap import HeatmapEncoder, HeatmapSpec
-from repro_torch.core.policy import ReinforceAgent
+from repro_torch.core.policy import ReinforceAgent, Trajectory
 
-_HOST_LOOP = ("the per-step host loop is not ported yet (ROADMAP queue 1, "
-              "item 5: host-loop configurator); use a FleetEnv(backend="
-              "'torch') with the fused device loop")
+
+class MetricsWindow(Protocol):
+    per_node: dict[str, np.ndarray]   # metric -> (n_nodes,) window average
+    latencies_ms: np.ndarray          # per-event end-to-end latency sample
+    p99_ms: float
+    clock_s: float                    # environment clock (simulated or real)
+
+
+class TuningEnv(Protocol):
+    """Implemented by repro_torch.engine.simcluster.SimCluster."""
+
+    lever_specs: Sequence[LeverSpec]
+    metric_names: Sequence[str]
+    n_nodes: int
+
+    def reset(self) -> None: ...
+    def current_config(self) -> dict: ...
+    def apply_config(self, config: dict) -> dict:
+        """Install a config. Returns {'load_s': float, 'rebooted': bool}."""
+    def observe(self, window_s: float) -> MetricsWindow:
+        """Advance the environment by window_s and return the window metrics."""
+    def stabilisation_time(self) -> float:
+        """Seconds until latency variance trend flattens (paper: <3 min p99)."""
+
+
+class FleetTuningEnv(Protocol):
+    """The plural twin of ``TuningEnv``: N clusters stepped as one batch
+    (repro_torch.engine.fleet.FleetEnv). The configurator runs the
+    Algorithm-1 episode batch as N *parallel* episodes — one per cluster —
+    and the tuner's §2.1 exploration sweeps the whole fleet per window."""
+
+    lever_specs: Sequence[LeverSpec]
+    metric_names: Sequence[str]
+    n_nodes: int
+    n_clusters: int
+
+    def reset(self) -> None: ...
+    def current_configs(self) -> list[dict]: ...
+    def apply_configs(self, configs: Sequence[dict],
+                      changed_levers: Optional[Sequence] = None,
+                      copy: bool = True) -> list[dict]:
+        """Install one config per cluster; list of {'load_s', 'rebooted'}.
+        ``changed_levers`` optionally names each cluster's moved levers so
+        the env can skip the full config diff; ``copy=False`` hands over
+        ownership of the dicts."""
+    def observe(self, window_s, preroll_s=None) -> list[MetricsWindow]:
+        """Advance all clusters by window_s (scalar or per-cluster array);
+        ``preroll_s`` prepends a stabilisation wait excluded from the
+        window (fused into the same kernel launch)."""
+    def advance(self, window_s) -> None:
+        """observe() without building window summaries (stabilisation waits)."""
+    def stabilisation_times(self) -> np.ndarray:
+        """(N,) seconds until each cluster's latency trend flattens."""
+    def runnable_mask(self, configs: Sequence[dict]) -> np.ndarray:
+        """(N,) bool — the paper's allow-list, vectorised."""
 
 
 def is_fleet_env(env) -> bool:
@@ -45,14 +100,49 @@ class StepRecord:
     phases: dict  # generation/loading/stabilisation/update seconds
 
 
+@dataclass
+class EpisodeResult:
+    steps: list[StepRecord]
+    mean_return: float
+
+
+def reward_from_latency(latencies_ms: np.ndarray, mode: str = "neg_mean", *,
+                        slo_ms: float = 1000.0, hinge_w: float = 1.0,
+                        breach_w: float = 1.0) -> float:
+    """Paper's delay-dependent reward: -mean(T) by default (the text's
+    cumulative reward is negative summed latency at gamma=1), ``neg_p99``,
+    ``neg_sum``, the literal ``neg_inv`` Σ -1/T, or ``slo`` (DESIGN.md
+    §12): -mean latency, minus a hinge penalty when the window p99
+    breaches ``slo_ms``, minus the fraction of latency samples above it."""
+    lat = np.asarray(latencies_ms, float)
+    lat = lat[np.isfinite(lat) & (lat > 0)]
+    if lat.size == 0:
+        return -1e4  # failed window: strongly negative
+    if mode == "neg_mean":
+        return float(-lat.mean() / 1000.0)
+    if mode == "neg_p99":
+        return float(-np.percentile(lat, 99.0) / 1000.0)
+    if mode == "neg_sum":
+        return float(-lat.sum() / 1000.0)
+    if mode == "neg_inv":  # the literal Σ -1/T form from the paper text
+        return float(np.sum(-1.0 / np.maximum(lat, 1e-3)))
+    if mode == "slo":
+        p99 = float(np.percentile(lat, 99.0))
+        breach = float((lat > slo_ms).mean())
+        return float(-lat.mean() / 1000.0
+                     - hinge_w * max(p99 - slo_ms, 0.0) / 1000.0
+                     - breach_w * breach)
+    raise ValueError(mode)
+
+
 class Configurator:
     """Paper §3: runs tuning phases made of episodes of N configuration steps.
 
     ``device_loop`` selects the §10 fused training loop over a torch fleet:
     ``"auto"`` (default) uses it whenever ``device_loop_reason()`` is None,
-    ``"on"`` fails loudly when it can't, ``"off"`` asks for the per-step host
-    loop (not ported yet: it raises). ``device`` is where the policy lives;
-    it defaults to the fleet's device.
+    ``"on"`` fails loudly when it can't, ``"off"`` always runs the per-step
+    host loop. ``device`` is where the policy lives; it defaults to the
+    env's device.
 
     ``reward_mode="slo"`` (DESIGN.md §12) shapes the reward against a
     latency SLO: ``slo_ms`` is the p99 target, ``slo_hinge_w`` weights the
@@ -85,7 +175,7 @@ class Configurator:
         if safe:
             raise NotImplementedError(
                 "the safety shield is not ported yet (ROADMAP queue 1, "
-                "item 4: the shield carry of the episode runner)")
+                "item 3: the shield carry of the episode runner)")
         from repro_torch.utils import resolve_device
 
         self.env = env
@@ -113,6 +203,8 @@ class Configurator:
         self.slo_hinge_w = float(slo_hinge_w)
         self.slo_breach_w = float(slo_breach_w)
         self.history: list[StepRecord] = []
+        self._last_window: Optional[MetricsWindow] = None
+        self._last_fleet_windows: Optional[list] = None
         try:  # selected-metric columns in registry order (dense encodes)
             self._sel_cols = [list(env.metric_names).index(m)
                               for m in self.hspec.metric_names]
@@ -149,12 +241,104 @@ class Configurator:
                           for c in configs])
         return self.encoder.encode_fleet(raw, fracs)
 
-    # -- the per-step host loops (not ported) -----------------------------------
-    def run_episode(self, *, explore: bool = True):
-        raise NotImplementedError(_HOST_LOOP)
+    # -- the per-step host loops ------------------------------------------
+    def run_episode(self, *, explore: bool = True
+                    ) -> tuple[Trajectory, list[StepRecord]]:
+        """One serial episode: each step acts on the host (``agent.act``),
+        applies the move, waits for stabilisation and rewards the window
+        after it (paper §4.2)."""
+        traj = Trajectory()
+        records: list[StepRecord] = []
+        config = self.env.current_config()
+        window = self._last_window or self.env.observe(self.window_s)
+        for _ in range(self.steps_per_episode):
+            state = self._encode(window, config)
+            t0 = time.perf_counter()
+            a = self.agent.act(state, explore=explore)
+            lever, direction = self.agent.action_decode(a)
+            gen_s = time.perf_counter() - t0
 
-    def run_fleet_episodes(self, *, explore: bool = True):
-        raise NotImplementedError(_HOST_LOOP)
+            new_config = self.disc.apply(config, lever, direction)
+            report = self.env.apply_config(new_config)
+            stab_s = self.env.stabilisation_time()
+            if stab_s > 0:
+                # the reward is measured on the window AFTER stabilisation,
+                # so skip summaries when the env can
+                getattr(self.env, "advance", self.env.observe)(stab_s)
+            window = self.env.observe(self.window_s)
+            reward = reward_from_latency(window.latencies_ms, self.reward_mode,
+                                         slo_ms=self.slo_ms,
+                                         hinge_w=self.slo_hinge_w,
+                                         breach_w=self.slo_breach_w)
+
+            traj.add(state, a, reward)
+            records.append(StepRecord(
+                lever=lever, direction=direction, config=dict(new_config),
+                reward=reward, p99_ms=window.p99_ms, clock_s=window.clock_s,
+                phases={"generation_s": gen_s, "loading_s": report["load_s"],
+                        "stabilisation_s": stab_s, "update_s": 0.0},
+            ))
+            config = new_config
+        self._last_window = window
+        return traj, records
+
+    def run_fleet_episodes(self, *, explore: bool = True
+                           ) -> tuple[list[Trajectory], list[StepRecord]]:
+        """Algorithm 1's episode batch as N *parallel* episodes — one per
+        fleet cluster — stepped from the host: each step samples all N
+        actions on the device (``act_batch_device``), applies the moves
+        through the host ``LeverDiscretiser``, and observes the whole fleet
+        with the §4.2 stabilisation wait fused into the window (one
+        ``fleet_tick`` launch a step). ``neg_mean``/``neg_p99`` rewards read
+        the window's device statistic; other modes draw each cluster's
+        latency sample on the host."""
+        env = self.env
+        N = env.n_clusters
+        trajs = [Trajectory() for _ in range(N)]
+        records: list[list[StepRecord]] = [[] for _ in range(N)]
+        configs = env.current_configs()
+        windows = self._last_fleet_windows or env.observe(self.window_s)
+        for _ in range(self.steps_per_episode):
+            states = self._encode_fleet(windows, configs)
+            t0 = time.perf_counter()
+            actions = self.agent.act_batch_device(
+                states, explore=explore).cpu().numpy()
+            gen_s = (time.perf_counter() - t0) / N
+            decoded = [self.agent.action_decode(int(a)) for a in actions]
+            new_configs = [self.disc.apply(c, lever, direction)
+                           for c, (lever, direction) in zip(configs, decoded)]
+            changed = [(l,) for l, _ in decoded]
+            reports = env.apply_configs(new_configs, changed_levers=changed)
+            stabs = env.stabilisation_times()
+            # paper §4.2: reward measured on the window after stabilisation
+            windows = env.observe(self.window_s, preroll_s=stabs)
+            if self.reward_mode == "neg_mean":
+                rewards = [-w.mean_ms / 1000.0 for w in windows]
+            elif self.reward_mode == "neg_p99":
+                rewards = [-w.p99_ms / 1000.0 for w in windows]
+            else:
+                rewards = [reward_from_latency(w.latencies_ms,
+                                               self.reward_mode,
+                                               slo_ms=self.slo_ms,
+                                               hinge_w=self.slo_hinge_w,
+                                               breach_w=self.slo_breach_w)
+                           for w in windows]
+            for i in range(N):
+                reward = rewards[i]
+                trajs[i].add(states[i], int(actions[i]), reward)
+                lever, direction = decoded[i]
+                records[i].append(StepRecord(
+                    lever=lever, direction=direction,
+                    config=dict(new_configs[i]), reward=reward,
+                    p99_ms=windows[i].p99_ms, clock_s=windows[i].clock_s,
+                    phases={"generation_s": gen_s,
+                            "loading_s": reports[i]["load_s"],
+                            "stabilisation_s": float(stabs[i]),
+                            "update_s": 0.0},
+                ))
+            configs = new_configs
+        self._last_fleet_windows = windows
+        return trajs, [r for cluster in records for r in cluster]
 
     # -- the fused device loop (DESIGN.md §10) ----------------------------------
     def _device_runner(self):
@@ -188,14 +372,34 @@ class Configurator:
         return self._device_runner().run(explore=explore, greedy=greedy)
 
     def run_update(self) -> dict:
-        """One Algorithm-1 outer iteration: N episodes (one per cluster, in
-        parallel, as fused device batches) then a policy update."""
+        """One Algorithm-1 outer iteration: N episodes then a policy update.
+        Against a FleetTuningEnv the N episodes run in parallel, one per
+        cluster (as fused device batches when the §10 loop can run);
+        serially otherwise."""
         reason = self.device_loop_reason()
         if reason is None:
             return self._run_update_device()
         if self.device_loop == "on":
             raise RuntimeError(f"device_loop='on' but: {reason}")
-        raise NotImplementedError(f"{_HOST_LOOP} (fused loop: {reason})")
+        trajs, all_records = [], []
+        if self.fleet:
+            # small fleets still need a real episode batch: the per-step
+            # baseline is the across-episode mean, which degenerates (zero
+            # advantages) with a single episode
+            passes = max(1, -(-self.episodes_per_update // self.env.n_clusters))
+            for _ in range(passes):
+                t, r = self.run_fleet_episodes()
+                trajs.extend(t)
+                all_records.extend(r)
+        else:
+            for _ in range(self.episodes_per_update):
+                t, r = self.run_episode()
+                trajs.append(t)
+                all_records.extend(r)
+        t0 = time.perf_counter()
+        stats = self.agent.update(trajs)
+        upd_s = time.perf_counter() - t0
+        return self._finish_update(stats, all_records, upd_s)
 
     def _run_update_device(self) -> dict:
         """§10 outer iteration: the fused episode batch(es), then ONE policy
@@ -212,6 +416,14 @@ class Configurator:
             all_records[-1].phases["update_s"] = upd_s
         self.history.extend(all_records)
         stats["p99_ms"] = all_records[-1].p99_ms if all_records else float("nan")
+        return stats
+
+    def run_cycle(self) -> dict:
+        """One ``run_update`` whose freshly appended ``StepRecord``s ride
+        back under ``stats["records"]`` (the serve loop's shadow pass)."""
+        n0 = len(self.history)
+        stats = self.run_update()
+        stats["records"] = self.history[n0:]
         return stats
 
     def tune(self, n_updates: int, *, callback=None) -> list[StepRecord]:

@@ -31,8 +31,8 @@ config-index carry IN PLACE on a per-batch clone (the caller's tensor is
 never written); every other carry is rebound to fresh tensors per step.
 
 Ported branches: one device (no fleet mesh), no fault table (no deploy
-ring), no safety shield. ``run_pipelined``, ``run_epoch`` and the mesh wrap
-wait (ROADMAP queue 1, item 4).
+ring), no safety shield. ``run_pipelined`` and ``run_epoch`` wait for
+ROADMAP queue 1, item 4, the mesh wrap for item 7.
 """
 from __future__ import annotations
 

@@ -13,6 +13,13 @@ PyTorch.
   episodes of the batch (Algorithm 1), gamma 1 by default, rmsprop(lr=1e-3)
   (paper §3); the gradient comes from ``torch.autograd``.
 
+Acting has the reference's three front ends: ``act`` (one state) and
+``act_batch`` (N states) draw on the host from a numpy ``default_rng(seed)``,
+as the reference's do, so the same probabilities give the same actions;
+``act_batch_device`` samples on the device from the agent's own
+``PhiloxDraws`` through ``_sample_actions``. ``update`` pads host
+``Trajectory``s onto ``update_batch``.
+
 The reference keeps its weights as ``{"w1" (D, H), "b1", "w2" (H, A), "b2"}``;
 ``ReinforceAgent.load_reference_params`` carries such a dict (and
 optionally the rmsprop state) into the module, transposing the weights to
@@ -20,6 +27,7 @@ optionally the rmsprop state) into the module, transposing the weights to
 """
 from __future__ import annotations
 
+from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 import numpy as np
@@ -27,6 +35,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from repro_torch.engine.draws import PhiloxDraws
 from repro_torch.optim import rmsprop
 
 #: reference parameter name -> (module parameter name, transposed?)
@@ -64,6 +73,12 @@ def policy_logits(policy: nn.Module, states: torch.Tensor,
     return functional_call(policy, params, (states,))
 
 
+def policy_probs(policy: nn.Module, states) -> torch.Tensor:
+    """Softmax action distribution of (..., D) states (no gradient)."""
+    with torch.no_grad():
+        return torch.softmax(policy(states), dim=-1)
+
+
 def _sample_actions(policy: nn.Module, states: torch.Tensor, draws,
                     f: float, exploit: bool,
                     greedy: bool = False) -> torch.Tensor:
@@ -97,6 +112,30 @@ def _batch_pg_loss(policy, params: dict, states, actions, advantages, mask,
     ent = -(torch.exp(logp) * logp).sum(-1)
     ent = (ent * mask).sum() / msum
     return pg - entropy_beta * ent
+
+
+@dataclass
+class Trajectory:
+    states: list = field(default_factory=list)
+    actions: list = field(default_factory=list)
+    rewards: list = field(default_factory=list)
+
+    def add(self, s, a, r) -> None:
+        self.states.append(np.asarray(s, np.float32))
+        self.actions.append(int(a))
+        self.rewards.append(float(r))
+
+    def __len__(self) -> int:
+        return len(self.actions)
+
+
+def discounted_returns(rewards: Sequence[float], gamma: float) -> np.ndarray:
+    out = np.zeros(len(rewards), np.float32)
+    acc = 0.0
+    for t in range(len(rewards) - 1, -1, -1):
+        acc = rewards[t] + gamma * acc
+        out[t] = acc
+    return out
 
 
 def discounted_returns_device(rewards: torch.Tensor, gamma: float) -> torch.Tensor:
@@ -172,6 +211,9 @@ class ReinforceAgent:
         self.entropy_beta = entropy_beta
         self.f_warmup_updates = f_warmup_updates
         self.n_updates = 0
+        self._rng = np.random.default_rng(seed)
+        #: the device sampler's draw source (``act_batch_device``)
+        self._act_draws = PhiloxDraws(seed ^ 0x5EED, self.device)
         gen = torch.Generator().manual_seed(int(seed))
         self.policy = PolicyNet(state_dim, self.n_actions, hidden,
                                 generator=gen).to(self.device)
@@ -209,6 +251,59 @@ class ReinforceAgent:
         lever = self.lever_names[a // 2]
         direction = 1 if a % 2 == 0 else -1
         return lever, direction
+
+    def _probs_host(self, states: np.ndarray) -> np.ndarray:
+        """The policy's action distribution of host states, back on the
+        host as float32 (the reference's ``np.asarray(policy_probs...)``)."""
+        st = torch.as_tensor(np.asarray(states, np.float32),
+                             device=self.device)
+        return policy_probs(self.policy, st).cpu().numpy()
+
+    def act(self, state: np.ndarray, *, explore: bool = True) -> int:
+        """Paper §2.4.2: the top lever is used f% of the time (its two
+        directions, renormalised), the full softmax otherwise; drawn on the
+        host from the agent's numpy generator."""
+        probs = self._probs_host(state)
+        probs = probs / probs.sum()
+        if self.exploit_ready(explore=explore) and self._rng.uniform() < self.f:
+            sub = probs[:2] + 1e-9  # actions 0/1 = top lever's +/- directions
+            return int(self._rng.choice(2, p=sub / sub.sum()))
+        return int(self._rng.choice(self.n_actions, p=probs))
+
+    def act_batch(self, states: np.ndarray, *, explore: bool = True,
+                  greedy: bool = False) -> np.ndarray:
+        """One action per fleet cluster from (N, state_dim) states: one
+        policy evaluation, then vectorised inverse-CDF draws on the host
+        (the f-gate, the full distribution and the top lever's two
+        directions). ``greedy`` takes the argmax and draws nothing."""
+        probs = self._probs_host(states)
+        probs = probs / probs.sum(axis=1, keepdims=True)
+        if greedy:
+            return np.argmax(probs, axis=1).astype(np.int64)
+        N = probs.shape[0]
+        u = self._rng.uniform(size=N)
+        full_a = (np.cumsum(probs, axis=1) < u[:, None]).sum(axis=1)
+        full_a = np.minimum(full_a, self.n_actions - 1)
+        if not self.exploit_ready(explore=explore):
+            return full_a.astype(np.int64)
+        sub = probs[:, :2] + 1e-9
+        sub = sub / sub.sum(axis=1, keepdims=True)
+        u2 = self._rng.uniform(size=N)
+        sub_a = (np.cumsum(sub, axis=1) < u2[:, None]).sum(axis=1)
+        sub_a = np.minimum(sub_a, 1)
+        gate = self._rng.uniform(size=N) < self.f
+        return np.where(gate, sub_a, full_a).astype(np.int64)
+
+    def act_batch_device(self, states, *, explore: bool = True,
+                         greedy: bool = False) -> torch.Tensor:
+        """``act_batch`` on the device: the forward pass, the f-gate and the
+        Gumbel-max draws (from the agent's ``PhiloxDraws``) never leave it.
+        Returns the (N,) int64 actions on the agent's device."""
+        st = torch.as_tensor(states, dtype=torch.float32, device=self.device)
+        return _sample_actions(self.policy, st, self._act_draws,
+                               float(self.f),
+                               self.exploit_ready(explore=explore),
+                               greedy=greedy)
 
     def exploit_ready(self, *, explore: bool = True) -> bool:
         """The f-gate warm-up state: exploitation only after
@@ -249,3 +344,25 @@ class ReinforceAgent:
     def update_batch(self, states, actions, rewards, mask=None) -> dict:
         """``update_batch_async`` and wait for its stats."""
         return self.update_batch_async(states, actions, rewards, mask)()
+
+    def update(self, episodes: Sequence[Trajectory]) -> dict:
+        """One REINFORCE batch update from N host episodes (the per-step
+        baseline is the across-episode mean return at that step): pads the
+        trajectories into (N, T) arrays with a validity mask and runs the
+        same update as the fused loop (``update_batch``)."""
+        eps = [e for e in episodes if len(e)]
+        if not eps:
+            return {"pg_loss": 0.0, "mean_return": 0.0}
+        N = len(eps)
+        T = max(len(e) for e in eps)
+        states = np.zeros((N, T, self.state_dim), np.float32)
+        actions = np.zeros((N, T), np.int64)
+        rewards = np.zeros((N, T), np.float32)
+        mask = np.zeros((N, T), np.float32)
+        for i, e in enumerate(eps):
+            L = len(e)
+            states[i, :L] = np.stack(e.states)
+            actions[i, :L] = e.actions
+            rewards[i, :L] = e.rewards
+            mask[i, :L] = 1.0
+        return self.update_batch(states, actions, rewards, mask)

@@ -1,11 +1,12 @@
 """The stream-processing engine: the real micro-batch engine
 (``StreamEngine``) with its queue and sink, and the simulated fleet (lever
-specs, the fleet model and the torch device engine)."""
+specs, the fleet model and the torch device engine, and its serial N=1
+view ``SimCluster``)."""
 from repro_torch.engine.engine import BatchReport, EngineConfig, StreamEngine
 from repro_torch.engine.fleet import FleetEnv
 from repro_torch.engine.levers import EFFECTIVE, LEVER_NAMES, LEVER_SPECS, build_lever_specs
 from repro_torch.engine.queue import EventBuffer, IdempotentSink
-from repro_torch.engine.simcluster import FleetCore, SimSpec
+from repro_torch.engine.simcluster import FleetCore, SimCluster, SimSpec
 
 __all__ = [
     "BatchReport",
@@ -17,6 +18,7 @@ __all__ = [
     "IdempotentSink",
     "LEVER_NAMES",
     "LEVER_SPECS",
+    "SimCluster",
     "SimSpec",
     "StreamEngine",
     "build_lever_specs",

@@ -23,8 +23,8 @@ workload rate grid, the window mean/p99 and the metric emission.
   compile; the padded tick and emission counts still follow the reference's
   buckets, which keeps the shapes (and the statistics) equal to its own.
 
-Not ported yet (ROADMAP queue 1, item 2): the lean ``_tick_body`` scan arm,
-``fault_effect_grid`` and the kernel-vs-scan calibration.
+Not ported yet: ``fault_effect_grid`` (ROADMAP queue 1, item 2), and the
+lean ``_tick_body`` scan arm with the kernel-vs-scan calibration (item 6).
 """
 from __future__ import annotations
 

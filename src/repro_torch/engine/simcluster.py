@@ -40,6 +40,10 @@ oracle in ``repro.engine.simcluster``. ``service_terms_arrays`` runs on
 numpy arrays (stabilisation, the allow-list) and, through its ``xp``
 namespace parameter (``xp=repro_torch.utils.txp``), on torch tensors.
 
+``SimCluster`` is the serial ``TuningEnv``: the N=1 view over
+``FleetCore``, so every apply, stabilisation wait and window runs through
+the same code (and the same ``fleet_tick`` launch) as a fleet of one.
+
 This module is the port's copy of the parts of ``repro.engine.simcluster``
 the torch engine uses: every numpy formula is kept bitwise-identical to the
 reference (tests/test_torch_copies.py pins it).
@@ -534,3 +538,90 @@ class FleetCore:
     def _windows(self, window_s) -> np.ndarray:
         win = np.asarray(window_s, float)
         return np.full(self.n, float(win)) if win.ndim == 0 else win
+
+
+class SimCluster:
+    """Implements repro_torch.core.configurator.TuningEnv on a simulated
+    clock: the N=1 view over ``FleetCore`` on ``device`` (``None`` resolves
+    to ``cuda`` and raises without a card; ``"cpu"`` runs the kernel's plain
+    version). Loading-time noise comes from the cluster's own numpy stream,
+    as in the reference; each window is one ``fleet_tick`` launch."""
+
+    def __init__(
+        self,
+        workload: Optional[Workload] = None,
+        model: Optional[ModelConfig] = None,
+        *,
+        spec: Optional[SimSpec] = None,
+        lever_specs: Optional[Sequence[LeverSpec]] = None,
+        seed: int = 0,
+        device=None,
+    ):
+        from repro_torch import configs
+        from repro_torch.data.workloads import PoissonWorkload
+        from repro_torch.engine.levers import LEVER_SPECS
+
+        self.workload = workload or PoissonWorkload(10_000, 0.5)
+        self.model = model or configs.get("smollm_135m")
+        self.spec = spec or SimSpec()
+        self._core = FleetCore([self.workload], [self.model], self.spec,
+                               list(lever_specs or LEVER_SPECS), [seed],
+                               device=device)
+        self.lever_specs = self._core.lever_specs
+        self.metric_names = self._core.metric_names
+        self.n_nodes = self._core.n_nodes
+        self.device = self._core.device
+
+    # ------------------------------------------------- N=1 views over the core
+    @property
+    def clock(self) -> float:
+        return float(self._core.clock[0])
+
+    @clock.setter
+    def clock(self, v: float) -> None:
+        self._core.clock[0] = v
+
+    @property
+    def config(self) -> dict:
+        # the live dict; a caller may mutate it in place, which the setter
+        # would never see, so drop the packed-lever cache
+        self._core.invalidate()
+        return self._core.configs[0]
+
+    @config.setter
+    def config(self, cfg: dict) -> None:
+        self._core.configs[0] = cfg
+        self._core.invalidate()
+
+    # ------------------------------------------------------------------ env API
+    def reset(self) -> None:
+        self._core.reset()
+
+    def current_config(self) -> dict:
+        return dict(self._core.configs[0])
+
+    def apply_config(self, config: dict) -> dict:
+        return self._core.apply_configs([config])[0]
+
+    def stabilisation_time(self) -> float:
+        return float(self._core.stabilisation_times()[0])
+
+    def observe(self, window_s: float):
+        """Advance the sim by window_s; the window's metrics and latency
+        sample (a lazy view over the device results)."""
+        return self._core.observe_fleet(float(window_s))[0]
+
+    def advance(self, window_s: float) -> None:
+        """observe() minus the unread window summary (stabilisation waits)."""
+        self._core.advance_fleet(float(window_s))
+
+    # ------------------------------------------------------------- perf model
+    def _chips(self) -> int:
+        return self._core.chips
+
+    def _service_terms(self, rate: float, ev_size: float = 0.5,
+                       batch_events: Optional[float] = None) -> dict:
+        terms = service_terms_arrays(
+            self._core.packed(), self._core.mc, self.spec, self._core.chips,
+            rate, ev_size, batch_events)
+        return {k: float(np.asarray(v).reshape(-1)[0]) for k, v in terms.items()}

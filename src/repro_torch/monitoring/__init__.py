@@ -1,6 +1,6 @@
 """The 90-metric registry, the per-node series store (a copy of the
 reference's; the torch engine summarises windows on the device and does not
-use it) and the fused loop's counters."""
+use it), the fused loop's counters and the launcher's metrics-dump guard."""
 from repro_torch.monitoring.metrics import (
     DRIVER_METRICS,
     METRIC_NAMES,
@@ -11,6 +11,7 @@ from repro_torch.monitoring.metrics import (
     MetricDef,
     ShieldCounters,
     build_registry,
+    flush_guard,
     retrace_counts,
 )
 
@@ -24,5 +25,6 @@ __all__ = [
     "MetricDef",
     "ShieldCounters",
     "build_registry",
+    "flush_guard",
     "retrace_counts",
 ]

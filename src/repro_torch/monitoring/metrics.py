@@ -17,7 +17,10 @@ them): load, compute, memory, network, host, efficiency, reliability, power.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Optional, Sequence
 
 import numpy as np
@@ -280,6 +283,38 @@ def _prometheus_text(prefix: str, values: dict, counter_keys) -> str:
         lines.append(f"# TYPE {name} {kind}")
         lines.append(f"{name} {float(v):g}")
     return "\n".join(lines) + "\n"
+
+
+@contextlib.contextmanager
+def flush_guard(path, render):
+    """Always-write-the-metrics-dump guard for the launchers.
+
+    ``render()`` must return the text to write to ``path``. The body runs
+    with SIGTERM remapped to ``KeyboardInterrupt`` so a polite kill of a
+    long-running serve/tune process unwinds through the ``finally`` and
+    the final dump is written — the tune launcher's Ctrl-C path uses it."""
+    import os
+    import signal
+
+    path = Path(path)
+    prev = None
+    is_main = threading.current_thread() is threading.main_thread()
+    if is_main:
+        def _term(signum, frame):
+            raise KeyboardInterrupt
+        try:
+            prev = signal.signal(signal.SIGTERM, _term)
+        except (ValueError, OSError):
+            prev = None
+    try:
+        yield
+    finally:
+        if prev is not None:
+            signal.signal(signal.SIGTERM, prev)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(path.suffix + ".tmp")
+        tmp.write_text(render())
+        os.replace(tmp, path)
 
 
 class FleetSeriesStore:

@@ -2,7 +2,7 @@
 rmsprop(lr=1e-3), paper §3).
 
 Only ``rmsprop`` is ported so far; ``adamw``/``sgd`` serve the LM side
-(ROADMAP queue 1, item 8).
+(ROADMAP queue 1, item 8.2: the training step).
 """
 from __future__ import annotations
 

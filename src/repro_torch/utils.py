@@ -13,9 +13,12 @@ tensor-tensor ops otherwise — one formula, no fork.
 ``softmax_cross_entropy`` is its CE in torch.
 ``resolve_device`` is the port's rule for every entry point: ``cuda`` unless
 the caller names another device, and no silent fall back to the CPU.
+``strict_f32`` keeps f32 matrix products out of TF32 on the card for the
+code that needs every digit (the Lasso's normal equations, k-means sums).
 """
 from __future__ import annotations
 
+import contextlib
 import types
 
 import torch
@@ -70,6 +73,18 @@ def resolve_device(device=None, what: str = "the port") -> torch.device:
                 "device='cpu' to run the kernels' plain versions")
         device = "cuda"
     return torch.device(device)
+
+
+@contextlib.contextmanager
+def strict_f32():
+    """f32 matrix products in full f32 on the card inside the block (TF32
+    keeps ~3 decimal digits); the previous setting is restored after."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def softmax_cross_entropy(logits: torch.Tensor,

@@ -172,3 +172,49 @@ def test_load_reference_opt_state():
                                 for k, v in ref.params.items()}, opt)
     assert int(port.opt_state["count"]) == 7
     assert port.opt_state["nu"]["l1.weight"].shape == (20, D)
+
+
+@pytest.mark.parametrize("n_updates", [0, 2], ids=["warm-up", "exploiting"])
+def test_host_acting_matches_reference_draw_for_draw(n_updates):
+    """``act`` and ``act_batch`` draw on the host from the reference's
+    numpy stream (``default_rng(seed)``): with the weights carried across,
+    the same states give the same actions, before and after the f-gate's
+    warm-up."""
+    ref, port = _agents(seed=6)
+    ref.n_updates = port.n_updates = n_updates
+    s = _states(64, seed=3)
+    for i in range(16):
+        assert port.act(s[i]) == ref.act(s[i])
+    np.testing.assert_array_equal(port.act_batch(s), ref.act_batch(s))
+    np.testing.assert_array_equal(port.act_batch(s, explore=False),
+                                  ref.act_batch(s, explore=False))
+    with torch.no_grad():
+        p = pol.policy_probs(port.policy, torch.from_numpy(s)).numpy()
+    np.testing.assert_allclose(
+        p, np.asarray(ref_pol.policy_probs_batch(ref.params, jnp.asarray(s))),
+        rtol=RTOL, atol=1e-7)
+
+
+def test_trajectory_update_matches_reference():
+    """``update`` pads host trajectories of unequal length onto the same
+    update as the fused loop; ``discounted_returns`` is a copy."""
+    ref, port = _agents(seed=7)
+    rng = np.random.default_rng(8)
+    trajs = [(pol.Trajectory(), ref_pol.Trajectory()) for _ in range(5)]
+    for i, (a, b) in enumerate(trajs):
+        for _ in range(3 + i % 3):
+            s, act, r = rng.random(D), int(rng.integers(10)), -rng.random()
+            a.add(s, act, r)
+            b.add(s, act, r)
+    got = port.update([a for a, _ in trajs] + [pol.Trajectory()])
+    want = ref.update([b for _, b in trajs])
+    assert got["pg_loss"] == pytest.approx(want["pg_loss"], rel=1e-4)
+    assert got["mean_return"] == pytest.approx(want["mean_return"], rel=RTOL)
+    assert got["steps"] == want["steps"] == sum(len(a) for a, _ in trajs)
+    w = port.params["l2.weight"].detach().numpy().T
+    np.testing.assert_allclose(w, np.asarray(ref.params["w2"]), rtol=RTOL,
+                               atol=1e-6)
+    rw = rng.normal(size=9)
+    np.testing.assert_array_equal(pol.discounted_returns(rw, 0.9),
+                                  ref_pol.discounted_returns(rw, 0.9))
+    assert port.update([]) == {"pg_loss": 0.0, "mean_return": 0.0}

@@ -195,15 +195,24 @@ def test_torch_backend_needs_a_card_unless_asked_for_the_cpu():
 
 
 def test_unported_paths_raise_instead_of_falling_back():
-    # a workload the device rate grid cannot pack sends the reference to its
-    # host loop, which the port has not got: it raises, naming the ROADMAP
+    # a workload the device rate grid cannot pack sends the configurator to
+    # its per-step host loop, as in the reference; it runs that fleet
     env = FleetEnv.heterogeneous(2, seed=0, mix=("iot",), device="cpu")
-    cfgr = Configurator(env, METRICS, LEVERS, device="cpu")
+    cfgr = Configurator(env, METRICS, LEVERS, device="cpu",
+                        steps_per_episode=2)
     assert "not device-packable" in cfgr.device_loop_reason()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cfgr.run_update()
+    stats = cfgr.run_update()
+    assert stats["episodes"] == 4 and len(cfgr.history) == 2 * 2 * 2
+    assert cfgr._runner is None or not cfgr._runner._inflight
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Configurator(FleetEnv(n=2, backend="torch", device="cpu"), METRICS,
                      LEVERS, safe=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FleetEnv(n=2, backend="torch", device="cpu", faults=[[]] * 2)
+    from repro_torch.core import AutoTuner
+
+    tuner = AutoTuner(FleetEnv(n=2, backend="torch", device="cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tuner.build_serve_controller([])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tuner.run(1, epoch_k=2)
