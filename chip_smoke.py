@@ -63,12 +63,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
             time (a CUDA graph of 20 launches) and host-loop time and the
             plain chunked version's time beside the bound (on the TF32
             tensor cores' peak, which the kernel's products use)
-11. tuner   the Lasso path's lasso_cd kernel against its plain version at
-            the tuner's shape (1200 rows, 109 levers and their squares: p =
-            218, A in shared memory; 60 lambdas x 60 epochs) and at p = 300
-            (A's rows from global memory): coefficients within the stated
-            scaled tolerance, entry order equal, device time (CUDA events
-            over 3 launches) beside the plain version's and the bound. Then
+11. tuner   the Lasso path's lasso_cd kernel against its CPU mirror
+            (bitwise) and its plain version at the tuner's shape (1200 rows,
+            109 levers and their squares: p = 218, A in shared memory; 60
+            lambdas x up to 60 epochs) and at p = 300 (A's rows from global
+            memory): coefficients within the stated scaled tolerance, entry
+            order equal, device time (CUDA events over 3 launches), ns an
+            update, epochs run and updates that moved, beside the plain
+            version's time and the bound. Then
             the paper's whole method through AutoTuner: the 80-cluster
             sweep at full width (109 levers, 90 metrics, 10 nodes),
             collect(1200, windows_per_cluster=6), analyse(), 3 fused
@@ -77,7 +79,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
             update (4 episodes x 5 steps); fleet_tick and lasso_cd launches
             equal to the counts the code gives, windows/s of collect and
             tune, analyse's split, the Lasso on the sweep's own matrix
-            against its plain version
+            against its mirror and its plain version
 
 Each path's kernel launches are counted from 0 just before the path runs
 and read just after. The last two lines are the kernels JSON and the
@@ -145,9 +147,10 @@ WKV_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
 #: f32 2e-4 (chunked vs sequential) and bf16 3e-2
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 #: lasso_cd vs its plain version, max |difference| over max(1, max |plain|):
-#: the same f32 updates with the dot summed in another order, chained over
-#: 3600 epochs (the tests hold the port's path to the reference's at rtol
-#: 1e-4 the same way)
+#: the same f32 updates with the gradient carried instead of a dot taken
+#: afresh, chained over up to 3600 epochs (the tests hold the port's path
+#: to the reference's at rtol 1e-4 the same way); against its CPU mirror,
+#: which takes the kernel's steps in its order, the kernel is bitwise equal
 LASSO_TOL = 1e-4
 #: the RWKV-6 loss in bf16, kernel route vs forward_train's chunked route:
 #: the loss is the f32 mean over 16384 positions of CE on bf16 logits; the
@@ -1269,10 +1272,12 @@ def phase_ssd(dev, facts: str) -> dict:
 
 def _lasso_case(A, b, lams, n: int, label: str, facts: str,
                 reps: int = 3) -> dict:
-    """lasso_cd on the card against its plain version on the same inputs
-    (the plain loop runs on the host over a copy): scaled error, entry
-    order, device time (CUDA events over ``reps`` launches), the plain
-    version's time and the bound."""
+    """lasso_cd on the card from w0 = 0 against its CPU mirror (bitwise:
+    the same elementwise f32 steps in the same order, which also counts the
+    epochs run and the updates that moved) and its plain version (the
+    plain loop runs on the host over a copy: scaled error, entry order);
+    the kernel's device time (CUDA events over ``reps`` launches), ns an
+    update run, the plain version's time and the bound of this run's work."""
     from repro_torch.core.lasso import entry_order
     from repro_torch.kernels import lasso_cd as lc
 
@@ -1282,6 +1287,9 @@ def _lasso_case(A, b, lams, n: int, label: str, facts: str,
     run = lambda: lc.lasso_cd(A, b, w0, lt, float(n), epochs=60)
     got = run()
     torch.cuda.synchronize()
+    mirror, cnt = lc.lasso_cd_mirror(A, b, w0, lt, float(n), epochs=60)
+    runs, upd, moves = cnt["epochs"], cnt["updates"], cnt["moves"]
+    bitwise = torch.equal(got, mirror)
     t0 = time.perf_counter()
     want = lc.lasso_cd_ref(A, b, w0, lt, float(n), epochs=60)
     plain_ms = (time.perf_counter() - t0) * 1e3
@@ -1289,19 +1297,25 @@ def _lasso_case(A, b, lams, n: int, label: str, facts: str,
     g, w = got.cpu().numpy(), want.cpu().numpy()
     order_k, order_p = entry_order(g, lams)[0], entry_order(w, lams)[0]
     ms = _time_ms(run, reps=reps, warmup=1)
-    nbytes, flops = lc.cd_cost(p, len(lams), 60)
+    nbytes, flops = lc.cd_cost(p, len(lams), upd, moves)
     bound_ms, by = _bound(nbytes, flops, F32_OPS_S)
-    upd = lc.chain_updates(p, len(lams), 60)
     print(f"  lasso_cd {label} p={p} ({'shared' if lc.a_in_smem(p) else 'global'}"
-          f" A) n_lam={len(lams)} epochs=60: max_abs {err:.3e} (scale "
-          f"{scale:.3f}, scaled {err / scale:.3e}, tol {LASSO_TOL}); entry "
-          f"order equal {order_k == order_p} ({len(order_k)} features, first "
+          f" A, c in {'registers' if p <= 32 * lc.MAX_REG_CHUNKS else 'shared'}"
+          f") n_lam={len(lams)} epochs=60: bitwise equal to the mirror "
+          f"{bitwise}; vs plain max_abs {err:.3e} (scale {scale:.3f}, scaled "
+          f"{err / scale:.3e}, tol {LASSO_TOL}); entry order equal "
+          f"{order_k == order_p} ({len(order_k)} features, first "
           f"{order_k[:6]})")
     print(f"    kernel device {ms:.3f} ms, plain (host loop over a CPU copy) "
           f"{plain_ms:.1f} ms, bound {bound_ms * 1e3:.3f} us by {by} "
           f"({nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP), "
-          f"{bound_ms / ms:.2e} of the bound; the chain: {upd} dependent "
-          f"updates, {ms * 1e6 / upd:.1f} ns each [{facts}]")
+          f"{bound_ms / ms:.2e} of the bound; the chain: {runs} epochs run "
+          f"of {60 * len(lams)}, {upd} updates ({moves} moved) in "
+          f"{cnt['rounds']} rounds, "
+          f"{ms * 1e6 / upd:.1f} ns an update, {ms * 1e6 / cnt['rounds']:.1f}"
+          f" ns a round [{facts}]")
+    if not bitwise:
+        raise AssertionError(f"lasso_cd differs from its mirror at {label}")
     if err / scale > LASSO_TOL:
         raise AssertionError(f"lasso_cd vs plain out of tolerance at {label}")
     if order_k != order_p:

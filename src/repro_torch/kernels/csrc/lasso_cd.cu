@@ -5,98 +5,217 @@
 // Replaces the reference's `repro.core.lasso._cd_epoch` (a jitted
 // fori_loop over the p coordinates, one XLA program an epoch) and the host
 // loop around it in `lasso_path`: one launch runs every lambda of the grid
-// and `epochs` cycles at each, and writes the (n_lam, p) coefficients after
-// each lambda. For coordinate j of a cycle, with A = X'X and b = X'y:
+// and up to `epochs` cycles at each, and writes the (n_lam, p) coefficients
+// after each lambda. For coordinate j of a cycle, with A = X'X and b = X'y,
+// the reference computes
 //     r_j = b_j - A_j . w + A_jj w_j
 //     w_j <- sign(r_j) max(|r_j| - n lam, 0) / max(A_jj, 1e-12)
 // every coordinate reading the w its predecessors just wrote (Gauss-Seidel
-// order), exactly as the reference does. A, b, w0 and the lambdas are f32;
-// n lam is one f32 product, as in the reference.
+// order). A, b, w0 and the lambdas are f32; n lam is one f32 product.
 //
-// Bound on an H100 at the tuner's shape (p = 218: 109 levers and their
-// squares; 60 lambdas x 60 epochs): A read once and the coefficients
-// written once are 0.24 MB, ~0.07 us at 3.35 TB/s; the 2 p^2 flops of an
-// epoch over 3600 epochs are 0.34 GFLOP, ~5 us at the 67 TFLOP/s of f32.
-// Neither is what holds the kernel: the 785k coordinate updates form one
-// dependency chain (each reads the w the previous one wrote), and each
-// update is a dot of length p, a 5-step warp shuffle reduction, the soft
-// threshold, a division and a write with two warp barriers. At a few
-// hundred cycles an update that is tens of ms (PERF.md).
+// What bounds it on an H100: not the roofline (at the tuner's shape, p =
+// 218 with 60 lambdas x 60 epochs, A is 0.19 MB and the arithmetic a few
+// microseconds at the f32 peak) but the chain of updates: each reads the w
+// the one before it wrote. So the design makes an update's chain short.
 //
-// Design: a single warp. The chain allows no more parallelism than one
-// dot at a time, and a warp reduces it with shuffles and no block barrier.
-// A sits in shared memory when it fits beside w, b and diag(A) (p <= 239
-// in the 227 KB a block may take; A alone is 190,096 B at p = 218); past
-// that its rows are read from global memory through L1/L2. w, b and
-// diag(A) always sit in shared memory. Lane l sums A_jk w_k over k = l, l + 32, ...; the
-// xor-butterfly leaves the same total in every lane, so every lane computes
-// the same w_j and lane 0 writes it between two __syncwarp()s. Built with
-// -fmad=false, so the update's scalar arithmetic is the plain version's f32
-// operations in its order; only the dot sums in another order.
+// * A carried gradient. c = b - A w is formed once, from w0, at the launch
+//   start (a zero w0_m adds nothing and is skipped, so w0 = 0 gives c = b
+//   exactly). An update then reads r_j = c_j + A_jj w_j, and only when it
+//   moves w_j by delta != 0 does every lane apply c_k -= delta A[j, k] to
+//   its own k: row j of A, which is column j since A is symmetric, read
+//   contiguously across the lanes. No dot, no reduction: one shuffle
+//   broadcasts delta. c is never refreshed, so after the start every step
+//   is elementwise and the kernel is bitwise equal to a CPU mirror of its
+//   order (kernels/lasso_cd.py: lasso_cd_mirror).
+// * One warp; lane l owns the coordinates k = l + 32 q: their c_k, w_k and
+//   A_kk. Up to p = 256 (8 chunks) they sit in registers: the chunk count
+//   is a template constant and every loop over q unrolls, so q is a
+//   compile-time index. Past that they sit in shared memory, still owned
+//   lane by lane, so no lane reads another's and no barrier is needed.
+// * Rounds, not single updates. Most updates move nothing (60 % on the
+//   tuner's matrix), and an update that moves nothing changes no c. So the
+//   32 coordinates of a chunk are updated together: every live lane forms
+//   its update from c as it stands, which is exact up to and including the
+//   first that moves; a ballot finds that one, the lanes up to it keep
+//   their results, one shuffle broadcasts its delta for the carry, and the
+//   next round starts after it. A chunk takes one round per move, plus one
+//   when its last coordinate does not move; each c_k still receives its
+//   carries in Gauss-Seidel order. A lane divides only a nonzero numerator
+//   (0 / den is that 0; a zero dividend would take the IEEE division's
+//   slow path).
+// * The exact epoch skip: an epoch that moves no w leaves c and w as it
+//   found them, so every later epoch at that lambda would repeat it; the
+//   kernel goes on to the next lambda. The flag is warp-uniform (it comes
+//   from the ballot).
+// * A sits in shared memory when it fits beside the space reserved for c,
+//   w and diag(A) (p <= 239 in the 227 KB a block may take); past that its
+//   rows are read from global memory through L1/L2.
+//
+// Built with -fmad=false, so each update's arithmetic is the reference's
+// f32 operations in its order (and c -= delta A[j, k] a multiply, then a
+// subtraction), with IEEE division.
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
+// chunks of 32 coordinates held in registers (p <= 256)
+constexpr int MAX_REG_CHUNKS = 8;
 
+// The values of the coordinates a lane owns, k = lane + 32 q: in registers
+// when the chunk count NQ is a template constant, in shared memory (indexed
+// by k) when NQ is 0.
+template <int NQ>
+struct Owned {
+  float v[NQ];
+  __device__ __forceinline__ float& operator[](int q) { return v[q]; }
+};
+template <>
+struct Owned<0> {
+  float* v;
+  __device__ __forceinline__ float& operator[](int q) {
+    return v[32 * q + threadIdx.x];
+  }
+};
+
+// A[row, 32 q + lane], 0 past the end of the row (only the last chunk can
+// reach it)
+__device__ __forceinline__ float row_at(const float* A, int row, int q,
+                                        int nq, int p, int lane) {
+  const int k = 32 * q + lane;
+  return (q < nq - 1 || k < p) ? A[(size_t)row * p + k] : 0.0f;
+}
+
+template <int NQ, bool A_SMEM>
 __global__ void __launch_bounds__(32, 1)
 lasso_cd_kernel(const float* __restrict__ xtx, const float* __restrict__ xty,
                 const float* __restrict__ w0, const float* __restrict__ lams,
                 float* __restrict__ coefs, int p, int n_lam, int epochs,
-                float n, int a_in_smem) {
+                float n) {
   extern __shared__ float sm[];
-  float* w = sm;
-  float* b = sm + p;
-  float* dg = sm + 2 * p;
-  float* a_sm = sm + 3 * p;
   const int lane = threadIdx.x;
-  for (int k = lane; k < p; k += 32) {
-    w[k] = w0[k];
-    b[k] = xty[k];
-    dg[k] = xtx[(size_t)k * p + k];
+  const int nq = NQ > 0 ? NQ : (p + 31) / 32;
+  const int pad = 32 * nq;
+  Owned<NQ> c, w, d;
+  if constexpr (NQ == 0) {
+    c.v = sm;
+    w.v = sm + pad;
+    d.v = sm + 2 * pad;
   }
-  if (a_in_smem) {
+  const float* A = xtx;
+  if constexpr (A_SMEM) {
+    float* a_sm = sm + 3 * pad;
     const size_t pp = (size_t)p * p;
     for (size_t e = lane; e < pp; e += 32) a_sm[e] = xtx[e];
+    __syncwarp();
+    A = a_sm;
   }
-  __syncwarp();
-  const float* A = a_in_smem ? a_sm : xtx;
+
+  // c = b - A w0: coordinate k sums row k's A_km w0_m over m in order
+#pragma unroll
+  for (int q = 0; q < nq; ++q) {
+    const int k = 32 * q + lane;
+    w[q] = k < p ? w0[k] : 0.0f;
+    d[q] = k < p ? A[(size_t)k * p + k] : 0.0f;
+    c[q] = 0.0f;
+  }
+  for (int m = 0; m < p; ++m) {
+    const float wm = w0[m];
+    if (wm == 0.0f) continue;
+#pragma unroll
+    for (int q = 0; q < nq; ++q) {
+      const int k = 32 * q + lane;
+      if (k < p) c[q] = c[q] + A[(size_t)k * p + m] * wm;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < nq; ++q) {
+    const int k = 32 * q + lane;
+    c[q] = k < p ? xty[k] - c[q] : 0.0f;
+  }
+
   for (int l = 0; l < n_lam; ++l) {
     const float nl = n * lams[l];
     for (int e = 0; e < epochs; ++e) {
-      for (int j = 0; j < p; ++j) {
-        const float* row = A + (size_t)j * p;
-        float s = 0.0f;
-#pragma unroll 8
-        for (int k = lane; k < p; k += 32) s += row[k] * w[k];
+      bool moved = false;
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          s += __shfl_xor_sync(FULL, s, off);
-        const float djj = dg[j];
-        const float r = (b[j] - s) + djj * w[j];
-        const float sg = (r > 0.0f) ? 1.0f : ((r < 0.0f) ? -1.0f : 0.0f);
-        const float wj = sg * fmaxf(fabsf(r) - nl, 0.0f) / fmaxf(djj, 1e-12f);
-        __syncwarp();  // every lane has read w before it changes
-        if (lane == 0) w[j] = wj;
-        __syncwarp();
+      for (int q = 0; q < nq; ++q) {
+        // the coordinates 32 q + lane, lane < end, in rounds from lane o0
+        const int end = min(32, p - 32 * q);
+        for (int o0 = 0; o0 < end;) {
+          // every live lane's update, as if none before it in the chunk
+          // moved: true up to and including the first one that moves
+          const float cq = c[q], wq = w[q], dq = d[q];
+          const float r = cq + dq * wq;
+          const float sg = (r > 0.0f) ? 1.0f : ((r < 0.0f) ? -1.0f : 0.0f);
+          float wj = sg * fmaxf(fabsf(r) - nl, 0.0f);
+          const bool live = lane >= o0 && lane < end;
+          // 0 / den is that 0 (den > 0), and a zero dividend would send
+          // the IEEE division down its slow path
+          if (live && wj != 0.0f) wj = wj / fmaxf(dq, 1e-12f);
+          const float delta = wj - wq;
+          const unsigned movers = __ballot_sync(FULL, live && delta != 0.0f);
+          const int o = movers ? __ffs(movers) - 1 : end;
+          if (live && lane <= o) w[q] = wj;
+          if (movers == 0u) break;
+          moved = true;
+          const float dl = __shfl_sync(FULL, delta, o);
+          const int j = 32 * q + o;
+          // carry: c_k -= delta A[j, k] at every lane's coordinates
+#pragma unroll
+          for (int t = 0; t < nq; ++t)
+            c[t] = c[t] - dl * row_at(A, j, t, nq, p, lane);
+          // end of the carry
+          o0 = o + 1;
+        }
       }
+      if (!moved) break;  // a fixed point: the rest of this lambda repeats it
     }
-    for (int k = lane; k < p; k += 32) coefs[(size_t)l * p + k] = w[k];
+#pragma unroll
+    for (int q = 0; q < nq; ++q) {
+      const int k = 32 * q + lane;
+      if (k < p) coefs[(size_t)l * p + k] = w[q];
+    }
   }
+}
+
+using Kernel = void (*)(const float*, const float*, const float*,
+                        const float*, float*, int, int, int, float);
+
+// The instance for p: its chunks in registers up to p = 256, else in shared
+// memory; A in shared memory or read from global memory.
+template <int NQ>
+Kernel pick(int nq, int a_in_smem) {
+  if constexpr (NQ == 0) {
+    return nullptr;
+  } else {
+    if (nq == NQ)
+      return a_in_smem ? lasso_cd_kernel<NQ, true> : lasso_cd_kernel<NQ, false>;
+    return pick<NQ - 1>(nq, a_in_smem);
+  }
+}
+
+Kernel kernel_for(int p, int a_in_smem) {
+  const int nq = (p + 31) / 32;
+  if (nq > MAX_REG_CHUNKS)
+    return a_in_smem ? nullptr : lasso_cd_kernel<0, false>;
+  return pick<MAX_REG_CHUNKS>(nq, a_in_smem);
 }
 
 }  // namespace
 
-// Dynamic shared memory of a launch: w, b and diag(A), plus A when
-// `a_in_smem`.
+// Dynamic shared memory of a launch: c, w and diag(A) at 32 ceil(p / 32)
+// floats each (used when they do not fit in registers, reserved at every p
+// so that where A sits depends on p alone), plus A when `a_in_smem`.
 extern "C" int lasso_cd_smem(int p, int a_in_smem) {
-  long long floats = 3LL * p + (a_in_smem ? (long long)p * p : 0LL);
+  const long long pad = 32LL * ((p + 31) / 32);
+  long long floats = 3LL * pad + (a_in_smem ? (long long)p * p : 0LL);
   return (int)(floats * (long long)sizeof(float));
 }
 
-// One launch: the whole path (n_lam lambdas x epochs cycles) from w0.
-// coefs (n_lam, p) receives w after each lambda. `smem` must be
+// One launch: the whole path (n_lam lambdas x up to `epochs` cycles) from
+// w0. coefs (n_lam, p) receives w after each lambda. `smem` must be
 // lasso_cd_smem(p, a_in_smem). Returns a cudaError_t.
 extern "C" int lasso_cd_launch(const float* xtx, const float* xty,
                                const float* w0, const float* lams,
@@ -105,13 +224,15 @@ extern "C" int lasso_cd_launch(const float* xtx, const float* xty,
                                void* stream) {
   if (p <= 0 || n_lam < 0 || epochs < 0) return (int)cudaErrorInvalidValue;
   if (smem != lasso_cd_smem(p, a_in_smem)) return (int)cudaErrorInvalidValue;
+  const Kernel kernel = kernel_for(p, a_in_smem);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   if (n_lam == 0) return 0;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        lasso_cd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
-  lasso_cd_kernel<<<1, 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      xtx, xty, w0, lams, coefs, p, n_lam, epochs, n, a_in_smem);
+  kernel<<<1, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      xtx, xty, w0, lams, coefs, p, n_lam, epochs, n);
   return (int)cudaGetLastError();
 }

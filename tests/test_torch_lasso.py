@@ -8,9 +8,12 @@ the dot summed in another order); ``lasso_path`` coefficients rtol 1e-4 /
 atol 1e-6 (3600 chained epochs of that rounding) and the entry order equal
 where the planted gaps are clear; ``rank_levers`` equal on a fixed
 109-lever planted matrix. On a CPU tensor the wrapper runs its plain
-version.
+version. The kernel's CPU mirror (its carried gradient, in numpy f32) is
+held within ``LASSO_TOL`` of the plain version and of the reference's path,
+with the entry order equal; on the card the kernel is held to the mirror
+bitwise from w0 = 0, and within ``LASSO_TOL`` of the plain version.
 
-The ``gpu`` test needs neither jax nor the reference:
+The ``gpu`` tests need neither jax nor the reference:
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_lasso.py``.
 """
 import numpy as np
@@ -34,6 +37,10 @@ needs_reference = pytest.mark.skipif(ref is None,
 EPOCH_RTOL = 1e-5
 #: a whole path: 3600 chained epochs of that rounding
 PATH_RTOL, PATH_ATOL = 1e-4, 1e-6
+#: kernel or mirror vs the plain version or the reference, max |difference|
+#: over max(1, max |theirs|): the same f32 updates with the gradient carried
+#: instead of a dot taken afresh, over a whole path (chip_smoke.py's)
+LASSO_TOL = 1e-4
 
 
 @pytest.fixture(autouse=True)
@@ -165,12 +172,12 @@ def test_wrapper_runs_the_plain_version_on_cpu_and_counts_nothing():
 def test_shared_memory_arm_and_cost_at_the_tuner_shape():
     assert lc.a_in_smem(218) and lc.a_in_smem(239)
     assert not lc.a_in_smem(240)
-    assert lc.smem_bytes(218, True) == 4 * (3 * 218 + 218 * 218) <= \
+    assert lc.smem_bytes(218, True) == 4 * (3 * 224 + 218 * 218) <= \
         kbuild.MAX_SMEM
-    assert lc.smem_bytes(300, False) == 3600
-    nbytes, flops = lc.cd_cost(218, 60, 60)
+    assert lc.smem_bytes(300, False) == 4 * 3 * 320
+    nbytes, flops = lc.cd_cost(218, 60, 514_044, 212_462)
     assert nbytes == 4 * (218 * 218 + 2 * 218 + 60 + 60 * 218)
-    assert flops == 2 * 218 * 218 * 3600
+    assert flops == 7 * 514_044 + 2 * 218 * 212_462 + 60
     assert lc.chain_updates(218, 60, 60) == 784_800
 
 
@@ -182,26 +189,118 @@ def _tuner_gram(R, y, device):
     return lasso.path_inputs(X, np.log(y - y.min() + 1.0), device=device)
 
 
-@pytest.mark.gpu
+def _scaled(got, want) -> float:
+    g, w = np.asarray(got), np.asarray(want)
+    return float(np.abs(g - w).max()) / max(1.0, float(np.abs(w).max()))
+
+
+@needs_reference
 @pytest.mark.parametrize("levers,n_lam", [(109, 60), (150, 6)],
-                         ids=["p218-shared", "p300-global"])
-def test_cuda_kernel_matches_plain_version_on_the_card(levers, n_lam):
-    """The tuner's shape (A in shared memory) and p = 300 (A's rows from
-    global memory), on the card against the plain version on the same
-    tensors: coefficients within 1e-4 of the scale, entry order equal."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
+                         ids=["p218", "p300"])
+def test_mirror_matches_plain_version_and_reference_path(levers, n_lam):
+    """The kernel's order (the gradient carried, c -= delta A[j] on a move,
+    the exact epoch skip) on the tuner's planted 109-lever matrix and on p =
+    300: within LASSO_TOL of the plain version and of the reference's
+    ``lasso_path`` on the same lever matrix, entry order equal to both."""
+    R, y, _ = _planted_levers(levers=levers, seed=levers)
+    A, b, lams = _tuner_gram(R, y, "cpu")
+    lams = lams[:n_lam]
+    p = A.shape[0]
+    lt = torch.as_tensor(lams, dtype=torch.float32)
+    w0 = torch.zeros(p)
+    got, counts = lc.lasso_cd_mirror(A, b, w0, lt, float(len(y)), epochs=60)
+    assert got.shape == (n_lam, p) and 0 < counts["epochs"] <= 60 * n_lam
+    assert counts["updates"] == counts["epochs"] * p
+    assert 0 < counts["moves"] < counts["rounds"] <= \
+        counts["moves"] + counts["epochs"] * -(-p // 32)
+    plain = lc.lasso_cd_ref(A, b, w0, lt, float(len(y)), epochs=60).numpy()
+    Z, _, _ = lasso.normalise_levers(R)
+    X, names = lasso.polynomial_features(Z, [str(i) for i in range(levers)])
+    want = ref.lasso_path(X, np.log(y - y.min() + 1.0), names)
+    np.testing.assert_array_equal(want.lambdas[:n_lam], lams)
+    g = got.numpy()
+    order = lasso.entry_order(g, lams)[0]
+    assert order[:2] == [3, 17]        # the two strongest planted levers
+    for other in (plain, want.coefs[:n_lam]):
+        assert _scaled(g, other) <= LASSO_TOL
+        assert lasso.entry_order(other, lams)[0] == order
+
+
+@pytest.mark.parametrize("levers", [None, 109], ids=["p24", "p218"])
+def test_mirror_one_epoch_from_nonzero_w0(levers):
+    """``lasso_solve``'s launch: one epoch from a nonzero w0 (c = b - A w0
+    formed a column at a time), against the plain version's dot form."""
+    if levers is None:
+        X, y = _planted(n=200, p=24, seed=4)
+        A, b, lams = lasso.path_inputs(X, y, device="cpu")
+        n = 200
+    else:
+        R, y, _ = _planted_levers(levers=levers, seed=levers)
+        A, b, lams = _tuner_gram(R, y, "cpu")
+        n = len(y)
+    rng = np.random.default_rng(7)
+    w0 = rng.standard_normal(A.shape[0]).astype(np.float32)
+    w0[rng.random(A.shape[0]) < 0.5] = 0.0
+    lt = torch.as_tensor(lams[20:21], dtype=torch.float32)
+    w0t = torch.from_numpy(w0)
+    got, counts = lc.lasso_cd_mirror(A, b, w0t, lt, float(n), epochs=1)
+    want = lc.lasso_cd_ref(A, b, w0t, lt, float(n), epochs=1)
+    assert counts["epochs"] == 1
+    assert np.count_nonzero(want.numpy()) > 3
+    assert _scaled(got, want) <= LASSO_TOL
+
+
+def _card_case(levers, n_lam):
     R, y, _ = _planted_levers(levers=levers, seed=levers)
     A, b, lams = _tuner_gram(R, y, torch.device("cuda"))
-    lams = lams[:n_lam]
+    return A, b, lams[:n_lam], len(y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("levers,n_lam", [(109, 60), (150, 6), (125, 60)],
+                         ids=["p218-shared", "p300-global",
+                              "p250-global-registers"])
+def test_cuda_kernel_matches_plain_version_on_the_card(levers, n_lam):
+    """The tuner's shape (A in shared memory), p = 300 (A's rows from
+    global memory, c in shared memory) and p = 250 (A from global memory, c
+    in registers), on the card: bitwise equal to the mirror from w0 = 0,
+    within LASSO_TOL of the plain version on the same tensors, entry order
+    equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    A, b, lams, n = _card_case(levers, n_lam)
+    assert lc.a_in_smem(A.shape[0]) == (levers == 109)
     w0 = torch.zeros(A.shape[0], device="cuda")
     lt = torch.as_tensor(lams, dtype=torch.float32, device="cuda")
     before = lc.LAUNCHES
-    got = lc.lasso_cd(A, b, w0, lt, float(len(y)), epochs=60)
+    got = lc.lasso_cd(A, b, w0, lt, float(n), epochs=60)
     torch.cuda.synchronize()
     assert lc.LAUNCHES == before + 1
-    want = lc.lasso_cd_ref(A, b, w0, lt, float(len(y)), epochs=60)
+    mirror, _ = lc.lasso_cd_mirror(A, b, w0, lt, float(n), epochs=60)
+    assert torch.equal(got.cpu(), mirror.cpu())
+    want = lc.lasso_cd_ref(A, b, w0, lt, float(n), epochs=60)
     g, w = got.cpu().numpy(), want.cpu().numpy()
-    scale = max(1.0, float(np.abs(w).max()))
-    assert np.abs(g - w).max() / scale <= 1e-4
+    assert _scaled(g, w) <= LASSO_TOL
     assert lasso.entry_order(g, lams)[0] == lasso.entry_order(w, lams)[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("levers", [109, 150], ids=["p218", "p300"])
+def test_cuda_kernel_one_epoch_from_nonzero_w0(levers):
+    """``lasso_solve``'s launch on the card: one epoch from a nonzero w0,
+    within LASSO_TOL of the plain version and equal to the mirror, whose
+    c = b - A w0 sums in the kernel's order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    A, b, lams, n = _card_case(levers, 60)
+    rng = np.random.default_rng(8)
+    w0 = rng.standard_normal(A.shape[0]).astype(np.float32)
+    w0[rng.random(A.shape[0]) < 0.5] = 0.0
+    w0 = torch.from_numpy(w0).cuda()
+    lt = torch.as_tensor(lams[20:21], dtype=torch.float32, device="cuda")
+    got = lc.lasso_cd(A, b, w0, lt, float(n), epochs=1)
+    torch.cuda.synchronize()
+    want = lc.lasso_cd_ref(A, b, w0, lt, float(n), epochs=1)
+    assert _scaled(got.cpu(), want.cpu()) <= LASSO_TOL
+    mirror, _ = lc.lasso_cd_mirror(A, b, w0, lt, float(n), epochs=1)
+    assert torch.equal(got.cpu(), mirror.cpu())

@@ -13,8 +13,9 @@ A B B A so that a drift of the card or the host falls on both alike. It
 prints each run's lines, then, for ``phase_main``, one line per run with
 its steady windows/s and median seconds an update, for ``phase_ssd`` one
 line per run with the SSD kernel's time at each zamba2 shape (the device
-time where the checkout's phase measures one, else its host loop), and the
-card's name and power limit. Example: the RWKV-6 path on another seed,
+time where the checkout's phase measures one, else its host loop), for
+``phase_tuner`` one line per run with each ``lasso_cd`` case's device time
+and analyse's seconds, and the card's name and power limit. Example: the RWKV-6 path on another seed,
 ``--phase phase_rwkv --kwargs '{"seed": 1}' .``
 """
 from __future__ import annotations
@@ -43,6 +44,11 @@ STEADY = re.compile(r"= ([\d.]+) windows/s; per update min [\d.]+, median "
 #: 0.84 ms)"
 SSD = re.compile(r"zamba2-mixer .*? chunk=(\d+) (\w+) vs chunked.*\n\s+kernel "
                  r"(device )?([\d.]+) ms(?: \(host loop ([\d.]+) ms\))?")
+#: phase_tuner's lines: each Lasso case (label, p, then its device time on
+#: the next line) and analyse's split
+LASSO = re.compile(r"lasso_cd (.*?) p=(\d+) .*\n\s+kernel device ([\d.]+) ms")
+ANALYSE = re.compile(r"  analyse: ([\d.]+) s \(FA ([\d.]+), k-means ([\d.]+), "
+                     r"Lasso ([\d.]+)\)")
 
 
 def main(argv: list[str]) -> int:
@@ -53,7 +59,7 @@ def main(argv: list[str]) -> int:
     args = ap.parse_args(argv)
     json.loads(args.kwargs)
     facts = cs._gpu_facts()
-    rows, ssd = [], []
+    rows, ssd, tuner = [], [], []
     for i, root in enumerate(args.roots):
         path = Path(root).resolve()
         env = dict(os.environ, PYTHONPATH=str(path / "src"))
@@ -75,6 +81,14 @@ def main(argv: list[str]) -> int:
             ssd.append(f"  run {i + 1} {root}: {m.group(2)} chunk "
                        f"{m.group(1)}: " + (f"device {ms} ms, " if dev else "")
                        + f"host loop {host} ms")
+        cases = [f"{m.group(1)} p={m.group(2)} {m.group(3)} ms"
+                 for m in LASSO.finditer(proc.stdout)]
+        m = ANALYSE.search(proc.stdout)
+        if cases or m:
+            tuner.append(f"  run {i + 1} {root}: lasso_cd " + "; ".join(cases)
+                         + (f"; analyse {m.group(1)} s (FA {m.group(2)}, "
+                            f"k-means {m.group(3)}, Lasso {m.group(4)})"
+                            if m else ""))
     if rows:
         print(f"steady windows/s at N=1024 [{facts}]:")
         for i, root, rate, med in rows:
@@ -83,6 +97,9 @@ def main(argv: list[str]) -> int:
     if ssd:
         print(f"SSD kernel at zamba2-2.7b's mixer shape [{facts}]:")
         print("\n".join(ssd))
+    if tuner:
+        print(f"lasso_cd device time and analyse at N=80 [{facts}]:")
+        print("\n".join(tuner))
     print(f"[{facts}]")
     return 0
 
