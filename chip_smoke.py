@@ -80,6 +80,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
             equal to the counts the code gives, windows/s of collect and
             tune, analyse's split, the Lasso on the sweep's own matrix
             against its mirror and its plain version
+12. chaos   fault scenarios and the safety shield on the fused tuning loop,
+            in the configuration of the reference's chaos and shield rows
+            (benchmarks/fleet_scaling.py: Poisson 10k ev/s fleets, its
+            metrics and levers, 6 steps, 240 s windows, frozen bins,
+            chaos_scenario(N, seed=0)) at N=1024: fault_effect_grid on the
+            card bitwise equal to the CPU; a 16-cluster greedy batch under
+            chaos, deploy delay 1 and the shield through the kernel and its
+            plain version (phase 5's criterion, the shield's counters
+            equal), no_faults(16) bitwise equal to no table; the chaos arm
+            (its main path: 3 warm-up + 10 timed run_updates under the 2 s
+            SLO reward, fleet_tick launches as the code counts them,
+            ChaosCounters, a profiled update) beside a clean arm; recovery
+            from a fleet-wide FailureFault(900, 480, 16) on a frozen config
+            (spike above the pre-fault p99, back in 1..4 windows); the
+            shielded and unshielded arms at a 12 s SLO, 14 updates
+            interleaved (windows/s, breach rate and intensity, mean reward,
+            ShieldCounters, the two ratios recorded; the shield must engage)
 
 Each path's kernel launches are counted from 0 just before the path runs
 and read just after. The last two lines are the kernels JSON and the
@@ -370,10 +387,11 @@ def _steady_rate(cfgr, N: int, S: int, facts: str, updates: int = 10) -> None:
           f"{', '.join(f'{x:.6f}' for x in t)} s")
 
 
-def _profile_update(cfgr) -> None:
+def _profile_update(cfgr) -> dict:
     """One more outer iteration under torch.profiler: device busy share
     and the kernels that take the device time (after the launch count was
-    read, so the main-path count is untouched)."""
+    read, so the main-path count is untouched). Returns the wall and busy
+    ms and the device launches."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -395,6 +413,8 @@ def _profile_update(cfgr) -> None:
                     reverse=True)[:8]:
         print(f"    {e.device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:70]}")
+    return {"wall_ms": wall * 1e3, "busy_ms": busy_us / 1e3,
+            "launches": launches}
 
 
 def phase_check(dev) -> None:
@@ -1490,6 +1510,246 @@ def phase_tuner(dev, facts: str) -> dict:
     return {"launches": counts["lasso_cd"], **row}
 
 
+#: the reference's chaos and shield benchmark rows
+#: (benchmarks/fleet_scaling.py::train_chaos_rows, ::train_safe_rows):
+#: Poisson 10k ev/s fleets, these metrics and levers, 6 steps an episode,
+#: 240 s windows, frozen bins; the SLO of the chaos arm and of the shield
+#: matrix
+TRAIN_METRICS = ["latency_p99_ms", "latency_mean_ms", "queue_depth",
+                 "device_util", "sched_queue_depth"]
+TRAIN_LEVERS = ["max_batch_events", "prefetch_depth", "driver_memory_gb",
+                "sink_partitions", "microbatch_count"]
+CHAOS_SLO_MS, SHIELD_SLO_MS = 2_000.0, 12_000.0
+
+
+def _chaos_cfgr(N: int, faults, *, steps: int = 6, slo_ms=CHAOS_SLO_MS,
+                seed: int = 0, safe: bool = False, shield_kw=None):
+    from repro_torch.core import Configurator
+    from repro_torch.data.workloads import PoissonWorkload
+    from repro_torch.engine import FleetEnv
+
+    env = FleetEnv([PoissonWorkload(10_000, 0.5) for _ in range(N)],
+                   seeds=[seed + i for i in range(N)], backend="torch",
+                   faults=faults)
+    return Configurator(env, TRAIN_METRICS, TRAIN_LEVERS, seed=seed,
+                        steps_per_episode=steps, window_s=240.0,
+                        device_loop="on", bin_kw=FROZEN, reward_mode="slo",
+                        slo_ms=slo_ms, safe=safe, shield_kw=shield_kw)
+
+
+def _timed_updates(cfgr, n: int) -> list:
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        cfgr.run_update()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def _chaos_greedy(dev, faults, *, plain: bool = False, safe: bool = False):
+    """A 16-cluster greedy episode batch on the card with fixed draws,
+    through the kernel or through its plain version."""
+    from repro_torch.engine.draws import PhiloxDraws
+    from repro_torch.kernels import fleet_tick as ft
+
+    saved = ft.fleet_tick_window
+    if plain:
+        ft.fleet_tick_window = ft.fleet_tick_window_ref
+    try:
+        # the chaos arm's 2 s SLO, a narrow trust region and budget: the
+        # shield clamps and falls back inside the batch
+        shield_kw = dict(trust_radius=1, breach_budget=2) if safe else None
+        cfgr = _chaos_cfgr(16, faults, safe=safe, seed=3,
+                           shield_kw=shield_kw)
+        cfgr.env._dev.draws = PhiloxDraws(1234, dev)
+        batch, recs = cfgr.run_fleet_episodes_device(explore=False)
+    finally:
+        ft.fleet_tick_window = saved
+    return (batch["actions"].cpu().numpy(), batch["rewards"].cpu().numpy(),
+            np.array([x.p99_ms for x in recs]), cfgr.env.clock.copy(),
+            cfgr.env.current_configs(), cfgr.shield_counters.as_dict())
+
+
+def phase_chaos(dev, facts: str, N: int = 1024) -> dict:
+    """Fault scenarios and the safety shield on the fused tuning loop at
+    N=1024: the fault grid on the card against the CPU, kernel against
+    plain under chaos, the chaos arm against a clean one, recovery from a
+    correlated failure, and the shielded against the unshielded arm."""
+    from repro_torch.core.faults import (DeployLatencyFault, FailureFault,
+                                         chaos_scenario, no_faults,
+                                         pack_device_faults)
+    from repro_torch.engine.fleet_torch import fault_effect_grid
+    from repro_torch.kernels import fleet_tick as ft
+
+    S = 6
+    t_start = time.perf_counter()
+    # ---- 12.1: the grid, card against CPU, bitwise ----
+    tab = chaos_scenario(N, deploy_delay=1)
+    rng = np.random.default_rng(0)
+    T_b = rng.uniform(2.0, 10.0, N)
+    clock = rng.uniform(300.0, 1200.0, N)
+    times = torch.as_tensor(clock[None, :] + np.arange(48)[:, None]
+                            * T_b[None, :], dtype=torch.float32)
+    grids = {}
+    for where in ("cuda", "cpu"):
+        ftd = {k: torch.as_tensor(v, device=where)
+               for k, v in tab.asdict().items()}
+        grids[where] = [g.cpu() for g in fault_effect_grid(
+            ftd, times.to(where))]
+    for name, a, b in zip(("service", "rate"), grids["cuda"], grids["cpu"]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"fault grid {name}: card and CPU differ, "
+                                 f"max {float((a - b).abs().max()):.3e}")
+        print(f"  fault_effect_grid {name} (48, {N}): card == CPU bitwise; "
+              f"{int((a != 1.0).sum())} of {a.numel()} entries != 1, range "
+              f"[{float(a.min()):.4f}, {float(a.max()):.4f}]")
+
+    # ---- 12.2: kernel against plain under chaos, deploy delay, shield ----
+    chaos16 = chaos_scenario(16, t0_s=500.0, deploy_delay=1)
+    kern = _chaos_greedy(dev, chaos16, safe=True)
+    plain = _chaos_greedy(dev, chaos16, safe=True, plain=True)
+    assert np.array_equal(kern[0], plain[0]), "greedy actions differ"
+    for name, a, b in zip(("rewards", "p99", "clock"), kern[1:4],
+                          plain[1:4]):
+        assert np.isfinite(a).all(), name
+        if not np.allclose(a, b, rtol=RTOL, atol=0.0):
+            raise AssertionError(f"{name}: kernel path {a} vs plain {b}")
+        print(f"  chaos greedy N=16 (safe, deploy delay 1) {name}: max_rel "
+              f"{float(np.max(np.abs(a - b) / np.abs(b))):.3e} (rtol {RTOL})")
+    assert kern[4] == plain[4], "final configs differ"
+    assert kern[5] == plain[5], (kern[5], plain[5])
+    print(f"  shield counters, kernel == plain: {kern[5]}")
+    if not kern[5]["clamped_actions"] + kern[5]["fallbacks"] > 0:
+        raise AssertionError(f"the shield never engaged: {kern[5]}")
+    off = _chaos_greedy(dev, None)
+    pad = _chaos_greedy(dev, no_faults(16))
+    for name, a, b in zip(("actions", "rewards", "p99", "clock"), off[:4],
+                          pad[:4]):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"no_faults(16) vs faults=None: {name} "
+                                 "differ")
+    print("  no_faults(16) against faults=None: bitwise equal")
+
+    # ---- 12.3: the chaos arm (the phase's main path) and a clean arm ----
+    arms, profiles = {}, {}
+    for tag, faults in (("chaos", chaos_scenario(N, seed=0)),
+                        ("clean", None)):
+        cfgr = _chaos_cfgr(N, faults)
+        assert cfgr.env.device.type == "cuda"
+        _zero_counts()
+        warm = _timed_updates(cfgr, 3)
+        ts = _timed_updates(cfgr, 10)
+        counts = _counts()
+        expected = 1 + 13 * S
+        print(f"  {tag} arm: fleet_tick launches {counts['fleet_tick']} "
+              f"(expected {expected})")
+        if counts["fleet_tick"] != expected:
+            raise AssertionError(f"{tag}: launches {counts} != {expected}")
+        r = np.array([x.reward for x in cfgr.history])
+        if not (np.isfinite(r).all() and r.size == 13 * N * S):
+            raise AssertionError(f"{tag}: {r.size} rewards, finite "
+                                 f"{np.isfinite(r).all()}")
+        arms[tag] = (N * S * len(ts) / sum(ts), N * S / float(np.median(ts)),
+                     counts["fleet_tick"])
+        print(f"  {tag} arm: warm-up {', '.join(f'{x:.3f}' for x in warm)} "
+              f"s; 10 timed updates {N * S * len(ts)} windows in "
+              f"{sum(ts):.6f} s = {arms[tag][0]:.1f} windows/s, median "
+              f"{float(np.median(ts)):.6f} s an update = {arms[tag][1]:.1f} "
+              f"windows/s [{facts}]")
+        chaos = cfgr._runner.chaos
+        print(f"  {tag} ChaosCounters: {json.dumps(chaos.as_dict())}")
+        if tag == "chaos" and chaos.fault_events != int(
+                (chaos_scenario(N, seed=0).kind != 0).sum()):
+            raise AssertionError(f"fault_events {chaos.fault_events}")
+        profiles[tag] = _profile_update(cfgr)
+    print(f"  chaos / clean: {arms['chaos'][0] / arms['clean'][0]:.4f} of "
+          f"the windows/s; eager launches per update "
+          f"{profiles['chaos']['launches']} / {profiles['clean']['launches']}"
+          f" ({(profiles['chaos']['launches'] - profiles['clean']['launches']) / S:.1f}"
+          f" more a step) [{facts}]")
+
+    # ---- 12.4: recovery from a correlated failure on a frozen config ----
+    t0_s, dur, steps_r = 900.0, 480.0, 12
+    faults = pack_device_faults([[FailureFault(t0_s, dur, 16.0),
+                                  DeployLatencyFault(steps_r + 1)]
+                                 for _ in range(N)])
+    cfgr = _chaos_cfgr(N, faults, steps=steps_r)
+    cfgr.run_update()
+    torch.cuda.synchronize()
+    clock = np.array([r.clock_s for r in cfgr.history])
+    p99 = np.array([r.p99_ms for r in cfgr.history])
+    pre = float(np.median(p99[clock < t0_s]))
+    spike = float(np.median(p99[((clock - 240.0) < t0_s + dur)
+                                & (clock > t0_s)]))
+    end = t0_s + dur
+    post = clock - 240.0 > end
+    buckets = np.floor((clock - 240.0 - end) / 240.0)
+    recovery = -1
+    for b in range(int(buckets[post].max()) + 1 if post.any() else 0):
+        sel = post & (buckets == b)
+        if sel.any() and float(np.median(p99[sel])) <= 1.3 * pre:
+            recovery = b + 1
+            break
+    print(f"  recovery (FailureFault({t0_s:.0f}, {dur:.0f}, 16) + "
+          f"DeployLatencyFault({steps_r + 1}), {steps_r} steps): pre-fault "
+          f"p99 {pre:.1f} ms, spike {spike:.1f} ms, recovery {recovery} "
+          f"windows (gate 1..4)")
+    if not spike > pre:
+        raise AssertionError(f"no spike: pre {pre}, spike {spike}")
+    if not 1 <= recovery <= 4:
+        raise AssertionError(f"recovery {recovery} windows outside 1..4")
+
+    # ---- 12.5: the shield matrix at a 12 s SLO ----
+    mat = {tag: _chaos_cfgr(N, chaos_scenario(N, seed=0),
+                            slo_ms=SHIELD_SLO_MS, safe=safe)
+           for tag, safe in (("unshielded", False), ("shielded", True))}
+    for cfgr in mat.values():
+        _timed_updates(cfgr, 1)
+    times_m = {tag: [] for tag in mat}
+    for _ in range(14):
+        for tag, cfgr in mat.items():
+            times_m[tag] += _timed_updates(cfgr, 1)
+    res = {}
+    for tag, cfgr in mat.items():
+        chaos = cfgr._runner.chaos
+        ts = times_m[tag]
+        res[tag] = dict(wps=N * S * len(ts) / sum(ts),
+                        breach_rate=chaos.breach_rate,
+                        intensity=chaos.breach_frac_sum / max(chaos.windows, 1),
+                        mean_reward=chaos.mean_reward)
+        print(f"  {tag}: {res[tag]['wps']:.1f} windows/s (median "
+              f"{float(np.median(ts)):.6f} s an update), breach rate "
+              f"{res[tag]['breach_rate']:.6f}, breach intensity "
+              f"{res[tag]['intensity']:.6f}, mean reward "
+              f"{res[tag]['mean_reward']:.6f} [{facts}]")
+    sc = mat["shielded"].shield_counters
+    print(f"  ShieldCounters: {json.dumps(sc.as_dict())}")
+    for tag, cfgr in mat.items():      # after the counters were read
+        res[tag]["launches"] = _profile_update(cfgr)["launches"]
+    print(f"  eager launches per update: shielded "
+          f"{res['shielded']['launches']}, unshielded "
+          f"{res['unshielded']['launches']} ("
+          f"{(res['shielded']['launches'] - res['unshielded']['launches']) / S:.1f}"
+          f" more a step) [{facts}]")
+    un, sh = res["unshielded"], res["shielded"]
+    br = sh["breach_rate"] / un["breach_rate"] if un["breach_rate"] else -1.0
+    tr = sh["wps"] / un["wps"]
+    print(f"  shielded / unshielded: breach rate {br:.4f} (the reference's "
+          f"full-run gate <= 0.25, recorded), windows/s {tr:.4f} (gate >= "
+          f"0.8, recorded)")
+    if not (sc.fallbacks > 0 or sc.clamped_actions > 0):
+        raise AssertionError(f"the shield never engaged: {sc.as_dict()}")
+    if not sc.trust_radius > 0.0:
+        raise AssertionError(f"trust radius {sc.trust_radius}")
+    print(f"  chaos summary: chaos {arms['chaos'][0]:.1f} windows/s, clean "
+          f"{arms['clean'][0]:.1f} windows/s, unshielded {un['wps']:.1f} "
+          f"windows/s breach rate {un['breach_rate']:.6f}, shielded "
+          f"{sh['wps']:.1f} windows/s breach rate {sh['breach_rate']:.6f}")
+    print(f"  phase 12 took {time.perf_counter() - t_start:.1f} s")
+    return {"launches": arms["chaos"][2]}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1583,11 +1843,14 @@ def main() -> int:
     ssd_row = phase_ssd(dev, facts)
     print("[11] tuner path")
     lasso_row = phase_tuner(dev, facts)
+    print("[12] chaos: fault scenarios and the shield on the tuning loop")
+    chaos_row = phase_chaos(dev, facts)
     kernels = [
         {"name": "fleet_tick_window", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fleet_tick.cu",
          "replaces": "src/repro/kernels/fleet_tick.py:387",
-         "launches": main_row["launches"], **row, "library_ms": None},
+         "launches": main_row["launches"], **row, "library_ms": None,
+         "launches_chaos": chaos_row["launches"]},
         {"name": "flash_attention_bhsd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:88",

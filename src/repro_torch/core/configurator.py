@@ -12,8 +12,10 @@ runs the fused device loop (``repro_torch.core.device_loop``); otherwise,
 or with ``device_loop="off"``, the per-step host loops: ``run_episode``
 (serial) and ``run_fleet_episodes`` (N parallel episodes, acting on the
 device). Every observation window is a ``fleet_tick`` kernel launch either
-way. The safety shield raises ``NotImplementedError`` naming its ROADMAP
-item; it never falls back.
+way. ``safe=True`` (DESIGN.md §16) runs the safety shield on both fleet
+paths: inside the fused loop's episode, and as its numpy twin in
+``run_fleet_episodes``, which walks the same integerised lever table with
+the same mask, clamp, fallback and budget recurrence.
 """
 from __future__ import annotations
 
@@ -22,8 +24,10 @@ from dataclasses import dataclass
 from typing import Optional, Protocol, Sequence
 
 import numpy as np
+import torch
 
-from repro_torch.core.discretize import LeverDiscretiser, LeverSpec
+from repro_torch.core.discretize import (DeviceLeverTable, LeverDiscretiser,
+                                         LeverSpec, ShieldSpec, shield_update)
 from repro_torch.core.heatmap import HeatmapEncoder, HeatmapSpec
 from repro_torch.core.policy import ReinforceAgent, Trajectory
 
@@ -147,7 +151,12 @@ class Configurator:
     ``reward_mode="slo"`` (DESIGN.md §12) shapes the reward against a
     latency SLO: ``slo_ms`` is the p99 target, ``slo_hinge_w`` weights the
     hinge penalty on a window-p99 breach and ``slo_breach_w`` the
-    breach-duration term (computed on device per window)."""
+    breach-duration term (computed on device per window).
+
+    ``safe=True`` (DESIGN.md §16, needs ``reward_mode="slo"``) shields
+    exploration: trust-region masked sampling, the clamp, fallback to the
+    last-known-good config and a per-episode breach budget, with
+    ``shield_kw`` the ``ShieldSpec`` fields."""
 
     def __init__(
         self,
@@ -169,13 +178,10 @@ class Configurator:
         bin_kw: Optional[dict] = None,
         device_loop: str = "auto",
         safe: bool = False,
+        shield_kw: Optional[dict] = None,
         device=None,
     ):
         assert device_loop in ("auto", "on", "off"), device_loop
-        if safe:
-            raise NotImplementedError(
-                "the safety shield is not ported yet (ROADMAP queue 1, "
-                "item 3: the shield carry of the episode runner)")
         from repro_torch.utils import resolve_device
 
         self.env = env
@@ -202,6 +208,16 @@ class Configurator:
         self.slo_ms = float(slo_ms)
         self.slo_hinge_w = float(slo_hinge_w)
         self.slo_breach_w = float(slo_breach_w)
+        #: §16 safety shield: None = unshielded exploration, a ShieldSpec =
+        #: the shield on the fused loop and on the host loop's numpy twin
+        self.shield = ShieldSpec(**(shield_kw or {})) if safe else None
+        if self.shield is not None and reward_mode != "slo":
+            raise ValueError(
+                "safe exploration needs reward_mode='slo': the shield's "
+                "breach-risk carry reads the window breach fraction")
+        from repro_torch.monitoring.metrics import ShieldCounters
+        self.shield_counters = ShieldCounters()
+        self._host_shield = None   # numpy twin carry (sig, lkg, radius, ...)
         self.history: list[StepRecord] = []
         self._last_window: Optional[MetricsWindow] = None
         self._last_fleet_windows: Optional[list] = None
@@ -291,23 +307,83 @@ class Configurator:
         with the §4.2 stabilisation wait fused into the window (one
         ``fleet_tick`` launch a step). ``neg_mean``/``neg_p99`` rewards read
         the window's device statistic; other modes draw each cluster's
-        latency sample on the host."""
+        latency sample on the host.
+
+        Under ``safe=True`` this is the fused loop's shield as a numpy twin:
+        it walks the same integerised table (frozen for the episode, the
+        §2.4.1 replay at its end), with the same mask, clamp, fallback and
+        budget recurrence, and carries LKG, radius, streak and risk across
+        episodes, keyed on the bin-edge signature. Its breach signal is the
+        fraction of each window's latency sample above the SLO."""
         env = self.env
         N = env.n_clusters
         trajs = [Trajectory() for _ in range(N)]
         records: list[list[StepRecord]] = [[] for _ in range(N)]
         configs = env.current_configs()
         windows = self._last_fleet_windows or env.observe(self.window_s)
+        spec = self.shield
+        if spec is not None:
+            table = DeviceLeverTable.from_discretiser(self.disc)
+            names = table.names
+            ranked = np.asarray([table.index_of[n] for n in self.levers])
+            idx = table.index_configs(configs)
+            rows = np.arange(N)
+            sig = tuple(e.tobytes() if e is not None else b""
+                        for e in table._edges)
+            if self._host_shield is not None and self._host_shield[0] == sig:
+                _, lkg, radius, streak, risk = self._host_shield
+            else:
+                lkg = idx.copy()
+                radius = np.full(N, spec.trust_radius, np.int32)
+                streak = np.zeros(N, np.int32)
+                risk = np.zeros(N, np.float32)
+            budget = np.full(N, spec.breach_budget, np.int32)
+            ex_any = np.zeros(N, bool)
+            replay_l: list = []
+            replay_b: list = []
         for _ in range(self.steps_per_episode):
             states = self._encode_fleet(windows, configs)
+            mask = (table.shield_mask(idx, lkg, radius, ranked)
+                    if spec is not None else None)
             t0 = time.perf_counter()
             actions = self.agent.act_batch_device(
-                states, explore=explore).cpu().numpy()
+                states, explore=explore, mask=mask).cpu().numpy()
             gen_s = (time.perf_counter() - t0) / N
             decoded = [self.agent.action_decode(int(a)) for a in actions]
-            new_configs = [self.disc.apply(c, lever, direction)
-                           for c, (lever, direction) in zip(configs, decoded)]
-            changed = [(l,) for l, _ in decoded]
+            if spec is None:
+                new_configs = [self.disc.apply(c, lever, direction)
+                               for c, (lever, direction)
+                               in zip(configs, decoded)]
+                changed = [(l,) for l, _ in decoded]
+            else:
+                # a step counts as clamped when the mask removed the action
+                # the policy's own argmax would have taken (no extra draws),
+                # or when the hard clamp moved the sampled bin
+                a_free = self.agent.act_batch(states, greedy=True)
+                diverted = ~mask[rows, a_free]
+                l_idx = ranked[actions // 2]
+                direction = np.where(actions % 2 == 0, 1, -1)
+                prev_idx = idx.copy()
+                raw = table.step_index(idx[rows, l_idx], l_idx, direction)
+                nb = table.shield_clamp(raw, lkg[rows, l_idx], radius, l_idx)
+                fallback = (risk > spec.risk_threshold) | (budget <= 0)
+                idx[rows, l_idx] = nb
+                idx = np.where(fallback[:, None], lkg, idx)
+                self.shield_counters.clamped_actions += int(
+                    (diverted | (nb != raw)).sum())
+                self.shield_counters.fallbacks += int(fallback.sum())
+                replay_l.append(l_idx.copy())
+                replay_b.append(idx[rows, l_idx].copy())
+                new_configs = []
+                changed = []
+                for i in range(N):
+                    cfg = dict(configs[i])
+                    moved = np.nonzero(idx[i] != prev_idx[i])[0]
+                    for li in moved:
+                        cfg[names[li]] = table.value_of(int(li),
+                                                        int(idx[i, li]))
+                    new_configs.append(cfg)
+                    changed.append(tuple(names[int(li)] for li in moved))
             reports = env.apply_configs(new_configs, changed_levers=changed)
             stabs = env.stabilisation_times()
             # paper §4.2: reward measured on the window after stabilisation
@@ -323,6 +399,19 @@ class Configurator:
                                                hinge_w=self.slo_hinge_w,
                                                breach_w=self.slo_breach_w)
                            for w in windows]
+            if spec is not None:
+                # the host breach-fraction proxy (the slo reward's): the
+                # fraction of the window's latency sample above the SLO
+                bf = np.empty(N, np.float32)
+                for i, w in enumerate(windows):
+                    lat = np.asarray(w.latencies_ms, float)
+                    lat = lat[np.isfinite(lat) & (lat > 0)]
+                    bf[i] = float((lat > self.slo_ms).mean()) \
+                        if lat.size else 1.0
+                lkg, radius, streak, risk, budget, b_out = shield_update(
+                    bf, lkg, idx, radius, streak, risk, budget, spec,
+                    xp=np)
+                ex_any |= np.asarray(b_out)
             for i in range(N):
                 reward = rewards[i]
                 trajs[i].add(states[i], int(actions[i]), reward)
@@ -337,8 +426,42 @@ class Configurator:
                             "update_s": 0.0},
                 ))
             configs = new_configs
+        if spec is not None:
+            self._host_shield = (sig, lkg, radius, streak, risk)
+            self.shield_counters.budget_exhaustions += int(ex_any.sum())
+            self.shield_counters.trust_radius = float(radius.mean())
+            # §2.4.1 replay, step-major like the fused loop's (the table
+            # stayed frozen for the whole episode)
+            lever_sm = np.concatenate(replay_l)
+            bin_sm = np.concatenate(replay_b)
+            for li in np.unique(lever_sm):
+                dyn = self.disc.bins.get(names[li])
+                if dyn is not None:
+                    dyn.record_many(bin_sm[lever_sm == li])
         self._last_fleet_windows = windows
         return trajs, [r for cluster in records for r in cluster]
+
+    def contract_shield(self) -> None:
+        """Collapse the shield's trust region to its floor and reset the
+        clean-window streaks, on whichever path (fused runner / numpy twin)
+        holds shield state: exploration continues, confined to
+        ±radius_min bins around the last-known-good configs until clean
+        windows earn the radius back (the serve loop's breach-budget trip,
+        DESIGN.md §16)."""
+        spec = self.shield
+        if spec is None:
+            return
+        runner = self._runner
+        if runner is not None and runner._shield is not None:
+            lkg, radius, streak, risk = runner._shield
+            runner._shield = (lkg, torch.full_like(radius, spec.radius_min),
+                              torch.zeros_like(streak), risk)
+        if self._host_shield is not None:
+            sig, lkg, radius, streak, risk = self._host_shield
+            self._host_shield = (sig, lkg,
+                                 np.full_like(radius, spec.radius_min),
+                                 np.zeros_like(streak), risk)
+        self.shield_counters.trust_radius = float(spec.radius_min)
 
     # -- the fused device loop (DESIGN.md §10) ----------------------------------
     def _device_runner(self):

@@ -30,9 +30,26 @@ Where the reference donates its loop-state buffers, the port updates the
 config-index carry IN PLACE on a per-batch clone (the caller's tensor is
 never written); every other carry is rebound to fresh tensors per step.
 
-Ported branches: one device (no fleet mesh), no fault table (no deploy
-ring), no safety shield. ``run_pipelined`` and ``run_epoch`` wait for
-ROADMAP queue 1, item 4, the mesh wrap for item 7.
+**Fault scenarios (§12).** When the fleet carries a ``DeviceFaultTable``
+(``FleetEnv(..., faults=...)``), its device copy rides into every window
+step: straggler/failure/backlog-shock events are evaluated on the device
+(``fault_effect_grid``) and reach the ``fleet_tick`` kernel through its
+``fmult`` operand, and ``DeployLatencyFault`` clusters run the config they
+requested ``delays[i]`` steps ago — a carried (R_max+1, N, L) ring of
+config indices — while the encoder still shows the requested knobs.
+
+**Safety shield (§16).** With ``Configurator(safe=True)`` each step masks
+the policy's logits to the trust region around the last-known-good (LKG)
+config, takes the unmasked counterfactual pick from the same draws, clamps
+the move into the region and falls back to the whole LKG row when a
+cluster's breach risk or its episode budget says so; after the window
+``shield_update`` advances the carry (LKG, radius, streak, risk; the
+per-episode budget is dropped after the episode). The integer leaves are
+int64, the dtype of the config-index carry (the reference's are int32:
+the values are the same).
+
+Ported branches: one device (no fleet mesh). ``run_pipelined`` and
+``run_epoch`` wait for ROADMAP queue 1, item 4, the mesh wrap for item 7.
 """
 from __future__ import annotations
 
@@ -43,7 +60,7 @@ import numpy as np
 import torch
 import torch.nn.functional as Fn
 
-from repro_torch.core.discretize import DeviceLeverTable
+from repro_torch.core.discretize import DeviceLeverTable, shield_update
 from repro_torch.core.heatmap import node_grid_shape
 from repro_torch.core.policy import _sample_actions
 from repro_torch.data.workloads import (device_workload_reason,
@@ -121,6 +138,15 @@ class DeviceEpisodeRunner:
         self._hw_T = 0
         self._hw_B = 0
         self._wl_dev: Optional[dict] = None
+        self._ft_dev: Optional[dict] = None   # packed DeviceFaultTable (§12)
+        self._delays = None                   # (N,) per-cluster deploy lag
+        self._R_max = 0                       # deploy-ring depth
+        self._hist = None                     # carried config-index ring
+        #: §16 shield carry across batches: (lkg (N, L), radius (N,),
+        #: streak (N,), risk (N,) f32); None until the first safe batch
+        #: packs it (or after a table re-index)
+        self._shield = None
+        self._idx0 = None                     # pre-batch indices (shield sync)
         #: the not-yet-adopted device carry and the dispatched but not yet
         #: materialised episode batches
         self._carry = None
@@ -128,8 +154,11 @@ class DeviceEpisodeRunner:
         self._epoch_configs: Optional[list] = None
         self._epoch_t0 = 0.0
         self.last_wall_s = 0.0
-        from repro_torch.monitoring.metrics import ChaosCounters
+        from repro_torch.monitoring.metrics import ChaosCounters, ShieldCounters
         self.chaos = ChaosCounters()
+        #: one counter object per configurator: the host-loop twin feeds the
+        #: same instance
+        self.shield = getattr(cfgr, "shield_counters", None) or ShieldCounters()
 
     # ------------------------------------------------------------------ gates
     def supported(self) -> Optional[str]:
@@ -168,8 +197,11 @@ class DeviceEpisodeRunner:
     def _episode(self, draws, carry: tuple, *, S: int, exploit: bool,
                  greedy: bool) -> tuple:
         """One fused episode batch from ``carry`` (config_idx, backlog,
-        sfree, clock, last_service, reconfigs, lo, hi, per_node). Returns the
-        final carry and the (N, S) per-step outputs."""
+        sfree, clock, last_service, reconfigs, lo, hi, per_node, then the
+        deploy ring when the fleet has deploy latency — None starts it from
+        the pre-episode config at every depth — then the shield's lkg,
+        radius, streak and risk when the configurator is safe). Returns the
+        final carry in the same layout and the (N, S) per-step outputs."""
         cfgr, env = self.cfgr, self.env
         spec = env.spec
         T, E = self._tick_budget()
@@ -188,10 +220,23 @@ class DeviceEpisodeRunner:
         policy, f = cfgr.agent.policy, float(cfgr.agent.f)
 
         (config_idx, backlog, sfree, clock, last_service, reconfigs, lo, hi,
-         per_node) = carry
+         per_node) = carry[:9]
         config_idx = config_idx.clone()       # updated in place below
         N = config_idx.shape[0]
         rows = torch.arange(N, device=self.device)
+        R_max, pos = self._R_max, 9
+        hist = None
+        if R_max:
+            hist = carry[9]
+            pos = 10
+            if hist is None:   # fresh epoch: the pre-episode config deployed
+                hist = config_idx[None].repeat(R_max + 1, 1, 1)
+        sh_spec = cfgr.shield
+        if sh_spec is not None:
+            lkg_idx, radius, streak, risk = carry[pos:pos + 4]
+            # the breach budget is fresh at every episode start
+            budget_left = torch.full((N,), sh_spec.breach_budget,
+                                     dtype=torch.int64, device=self.device)
         frac_den = torch.clamp(n_valid[ranked].to(torch.float32) - 1.0,
                                min=1.0)
         outs: dict = {}
@@ -211,7 +256,19 @@ class DeviceEpisodeRunner:
                                dim=1).to(torch.float32)
 
             # ---- act (policy forward + f-gated sampling / argmax) ----
-            a = _sample_actions(policy, states, sd, f, exploit, greedy)
+            if sh_spec is not None:
+                # §16 trust-region mask before the pick; the unmasked
+                # counterfactual pick (same draws) feeds clamped_actions: a
+                # diversion is a step where the unshielded policy would have
+                # left the trust region
+                mask = table.shield_mask(config_idx, lkg_idx, radius, ranked,
+                                         xp=txp, n_valid=n_valid,
+                                         kind_code=kind_code)
+                a, a_free = _sample_actions(policy, states, sd, f, exploit,
+                                            greedy, mask=mask, unmasked=True)
+                sh_diverted = ~torch.gather(mask, 1, a_free[:, None])[:, 0]
+            else:
+                a = _sample_actions(policy, states, sd, f, exploit, greedy)
             direction = 1 - 2 * (a % 2)
             l_idx = ranked[a // 2]
 
@@ -219,8 +276,30 @@ class DeviceEpisodeRunner:
             cur = config_idx[rows, l_idx]
             new_bin = table.step_index(cur, l_idx, direction, xp=txp,
                                        n_valid=n_valid, kind_code=kind_code)
-            config_idx[rows, l_idx] = new_bin
-            cc = {kk: tabs[kk][config_idx[:, li]] for kk, li in self._cc_pairs}
+            if sh_spec is not None:
+                # hard trust-region clamp, then the risk/budget fallback: a
+                # cluster whose breach risk crossed the threshold (or whose
+                # episode budget is spent) deploys its whole LKG row
+                clamped = table.shield_clamp(
+                    new_bin, lkg_idx[rows, l_idx], radius, l_idx, xp=txp,
+                    n_valid=n_valid, kind_code=kind_code)
+                sh_clamped = sh_diverted | (clamped != new_bin)
+                fallback = ((risk > sh_spec.risk_threshold)
+                            | (budget_left <= 0))
+                config_idx[rows, l_idx] = clamped
+                config_idx = torch.where(fallback[:, None], lkg_idx,
+                                         config_idx)
+                new_bin = config_idx[rows, l_idx]
+            else:
+                config_idx[rows, l_idx] = new_bin
+            eff_idx = config_idx
+            if R_max:
+                # §12 deploy latency: the engine runs the config cluster i
+                # requested delays[i] steps ago; the encoder above still
+                # shows the requested knobs
+                hist = torch.cat([config_idx[None], hist[:-1]], dim=0)
+                eff_idx = hist[self._delays, rows]
+            cc = {kk: tabs[kk][eff_idx[:, li]] for kk, li in self._cc_pairs}
 
             # ---- loading (Kafka buffers arrivals, paper §4.2) ----
             rate_now, _ = workload_rate_grid(self._wl_dev, clock)
@@ -246,7 +325,7 @@ class DeviceEpisodeRunner:
             # ---- fused preroll + observation window + reward ----
             (backlog, sfree, clock), stats = step_window(
                 sd.window(), backlog, sfree, clock, cc, self._wl_dev, stab,
-                reconfigs, float(cfgr.window_s))
+                reconfigs, float(cfgr.window_s), ft=self._ft_dev)
             per_node = stats["per_node"]
             if cfgr.reward_mode == "neg_p99":
                 reward = -stats["p99_ms"] / 1000.0
@@ -263,12 +342,24 @@ class DeviceEpisodeRunner:
                         "bin": new_bin}
             if slo:
                 step_out["breach_frac"] = stats["breach_frac"]
+            if sh_spec is not None:
+                (lkg_idx, radius, streak, risk, budget_left,
+                 budget_out) = shield_update(
+                    stats["breach_frac"], lkg_idx, config_idx, radius, streak,
+                    risk, budget_left, sh_spec, xp=txp)
+                step_out["shield_clamped"] = sh_clamped
+                step_out["shield_fallback"] = fallback
+                step_out["budget_out"] = budget_out
             for k, v in step_out.items():
                 outs.setdefault(k, []).append(v)
         # (S, N) -> (N, S): the episode axis leads, ready for the update
         outs = {k: torch.stack(v, dim=1) for k, v in outs.items()}
         carry = (config_idx, backlog, sfree, clock, last_service, reconfigs,
                  lo, hi, per_node)
+        if R_max:
+            carry = carry + (hist,)
+        if sh_spec is not None:
+            carry = carry + (lkg_idx, radius, streak, risk)
         return carry, outs
 
     # ------------------------------------------------------------------- run
@@ -313,6 +404,13 @@ class DeviceEpisodeRunner:
         cfgr = self.cfgr
         if self._carry is None:
             carry = self._fresh_inputs()
+            if self._R_max:
+                carry = carry + (self._hist,)  # survives while configs do
+            if cfgr.shield is not None:
+                # pre-batch indices: a fallback reverts whole rows to LKG,
+                # so finalize re-syncs the configs from index differences
+                self._idx0 = carry[0].cpu().numpy()
+                carry = carry + tuple(self._shield)
             self._epoch_t0 = time.perf_counter()
         else:
             carry = self._carry
@@ -365,6 +463,18 @@ class DeviceEpisodeRunner:
             tbl = pack_device_workloads(env.workloads)
             self._wl_dev = {k: torch.as_tensor(v, device=device)
                             for k, v in tbl.asdict().items()}
+            # §12 fault table: tick effects ride the window step; deploy
+            # lags drive the config-index ring
+            ftab = getattr(env, "_faults", None)
+            self._R_max = 0 if ftab is None else int(ftab.max_deploy_delay())
+            self.chaos.fault_events = (0 if ftab is None
+                                       else int((ftab.kind != 0).sum()))
+            if ftab is not None and ftab.has_tick_effects():
+                self._ft_dev = {k: torch.as_tensor(v, device=device)
+                                for k, v in ftab.asdict().items()}
+            if self._R_max:
+                self._delays = torch.as_tensor(
+                    np.clip(ftab.deploy_delays(), 0, self._R_max), **i64)
         configs = env.current_configs()
         self._epoch_configs = configs
         # between consecutive fused batches the configs are exactly what the
@@ -378,7 +488,18 @@ class DeviceEpisodeRunner:
             config_idx = self._config_idx
         else:
             config_idx = torch.as_tensor(table.index_configs(configs), **i64)
+            self._hist = None     # a stale config ring cannot be replayed
+            self._shield = None   # LKG indices refer to the old ladder
         self._bins_sig = sig
+        sh_spec = cfgr.shield
+        if sh_spec is not None and self._shield is None:
+            # fresh shield: LKG = the current (pre-exploration) config, the
+            # initial trust radius, a clean streak and risk
+            n = config_idx.shape[0]
+            self._shield = (config_idx.clone(),
+                            torch.full((n,), sh_spec.trust_radius, **i64),
+                            torch.zeros((n,), **i64),
+                            torch.zeros((n,), **f32))
 
         self._sel_cols = tuple(env.metric_names.index(m)
                                for m in cfgr.hspec.metric_names)
@@ -419,7 +540,17 @@ class DeviceEpisodeRunner:
         self.chaos.add_wall(self.last_wall_s)
 
         (config_idx_f, backlog_f, sfree_f, clock_f, last_service_f,
-         reconfigs_f, lo_f, hi_f, per_node_f) = carry
+         reconfigs_f, lo_f, hi_f, per_node_f) = carry[:9]
+        pos = 9
+        self._hist = None
+        if self._R_max:
+            self._hist = carry[9]
+            pos = 10
+        sh_spec = cfgr.shield
+        if sh_spec is not None:
+            self._shield = tuple(carry[pos:pos + 4])
+            self.shield.trust_radius = float(
+                self._shield[1].cpu().numpy().mean())
         env._dev.adopt_loop_state(backlog_f, sfree_f, clock_f)
         env.reconfigs[:] = reconfigs_f.cpu().numpy().astype(np.int64)
         env.last_service[:] = last_service_f.cpu().numpy().astype(np.float64)
@@ -437,7 +568,39 @@ class DeviceEpisodeRunner:
             configs = self._materialise(entry, configs, records, gen_s)
         env.configs = configs
         env.invalidate()
+        if sh_spec is not None:
+            N = env.n_clusters
+            touched = np.zeros((N, self._table.n_levers), bool)
+            rows = np.arange(N)[:, None]
+            for entry in inflight:
+                touched[rows, entry["outs"]["lever"].cpu().numpy()] = True
+            self._sync_configs(self._idx0, config_idx_f.cpu().numpy(),
+                               touched)
         return records
+
+    def _sync_configs(self, idx0: np.ndarray, idx_f: np.ndarray,
+                      touched: np.ndarray) -> None:
+        """Exact final config dicts under the shield: a fallback step
+        reverts a cluster's WHOLE row to LKG, which the per-lever
+        ``StepRecord`` stream cannot express. The device index array is
+        authoritative: rebuild ``env.configs`` from its difference to the
+        pre-batch indices. ``touched`` (N, L bool) marks levers the batch's
+        actions visited; they are decoded again even when they returned to
+        their first bin, as the record path decodes every visited bin (so a
+        neutral shield replays the shield-off configs bit for bit)."""
+        table = self._table
+        names = table.names
+        configs = [dict(c) for c in self._epoch_configs]
+        stale = (idx_f != idx0) | touched
+        val_cache: dict = {}
+        for ci, li in zip(*np.nonzero(stale)):
+            kv = (int(li), int(idx_f[ci, li]))
+            val = val_cache.get(kv)
+            if val is None:
+                val = val_cache[kv] = table.value_of(*kv)
+            configs[ci][names[li]] = val
+        self.env.configs = configs
+        self.env.invalidate()
 
     def _materialise(self, entry: dict, configs: list, records: list,
                      gen_s: float) -> list:
@@ -453,6 +616,12 @@ class DeviceEpisodeRunner:
         self.chaos.record_batch(outs["rewards"], outs["p99_ms"],
                                 outs.get("breach_frac"),
                                 slo_ms=self.cfgr.slo_ms)
+        if "shield_fallback" in outs:
+            self.shield.clamped_actions += int(outs["shield_clamped"].sum())
+            self.shield.fallbacks += int(outs["shield_fallback"].sum())
+            # one exhaustion per (cluster, episode) whose budget ran dry
+            self.shield.budget_exhaustions += int(
+                outs["budget_out"].any(axis=1).sum())
         rewards = outs["rewards"].tolist()
         p99 = outs["p99_ms"].tolist()
         clock_s = outs["clock_s"].tolist()

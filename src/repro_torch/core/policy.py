@@ -79,25 +79,44 @@ def policy_probs(policy: nn.Module, states) -> torch.Tensor:
         return torch.softmax(policy(states), dim=-1)
 
 
-def _sample_actions(policy: nn.Module, states: torch.Tensor, draws,
-                    f: float, exploit: bool,
-                    greedy: bool = False) -> torch.Tensor:
-    """Acting for one fused episode step over (N, D) states. ``greedy``
-    takes the argmax action and reads no draws (the explore=False contract:
-    deterministic, exactly replayable against the reference). Otherwise a
-    Gumbel-max draw over the full action space, a renormalised draw over the
-    top lever's two directions, and a per-row gate ``u < f`` picking the
-    latter once ``exploit`` is on."""
-    with torch.no_grad():
-        logits = policy(states)
-    if greedy:
+def _pick(logits: torch.Tensor, draws, f: float, exploit: bool):
+    """One action per row from (N, A) logits and the step's draws
+    ``(g_full, g_sub, u_gate)`` (``None``: the argmax)."""
+    if draws is None:
         return torch.argmax(logits, dim=-1)
-    g_full, g_sub, u_gate = draws.act(*logits.shape)
+    g_full, g_sub, u_gate = draws
     full_a = torch.argmax(logits + g_full, dim=-1)
     if not exploit:
         return full_a
     sub_a = torch.argmax(logits[:, :2] + g_sub, dim=-1)
     return torch.where(u_gate < f, sub_a, full_a)
+
+
+def _sample_actions(policy: nn.Module, states: torch.Tensor, draws,
+                    f: float, exploit: bool, greedy: bool = False,
+                    mask: Optional[torch.Tensor] = None,
+                    unmasked: bool = False):
+    """Acting for one fused episode step over (N, D) states. ``greedy``
+    takes the argmax action and reads no draws (the explore=False contract:
+    deterministic, exactly replayable against the reference). Otherwise a
+    Gumbel-max draw over the full action space, a renormalised draw over the
+    top lever's two directions, and a per-row gate ``u < f`` picking the
+    latter once ``exploit`` is on.
+
+    ``mask`` (bool (N, A), True = allowed) is the §16 shield's trust-region
+    action mask: a disallowed action's logit drops to -1e9 before the pick,
+    greedy or not. ``unmasked=True`` also returns the pick the unmasked
+    policy would have made — from the SAME draws, taken once (the
+    reference re-samples with the same key; a stateful draw source must
+    not be read twice) — as ``(a, a_free)``."""
+    with torch.no_grad():
+        logits = policy(states)
+    g = None if greedy else draws.act(*logits.shape)
+    masked = logits if mask is None else torch.where(mask, logits, -1e9)
+    a = _pick(masked, g, f, exploit)
+    if unmasked:
+        return a, _pick(logits, g, f, exploit)
+    return a
 
 
 def _batch_pg_loss(policy, params: dict, states, actions, advantages, mask,
@@ -295,15 +314,18 @@ class ReinforceAgent:
         return np.where(gate, sub_a, full_a).astype(np.int64)
 
     def act_batch_device(self, states, *, explore: bool = True,
-                         greedy: bool = False) -> torch.Tensor:
+                         greedy: bool = False, mask=None) -> torch.Tensor:
         """``act_batch`` on the device: the forward pass, the f-gate and the
         Gumbel-max draws (from the agent's ``PhiloxDraws``) never leave it.
-        Returns the (N,) int64 actions on the agent's device."""
+        ``mask`` rides into the masked pick (§16 shield). Returns the (N,)
+        int64 actions on the agent's device."""
         st = torch.as_tensor(states, dtype=torch.float32, device=self.device)
+        if mask is not None:
+            mask = torch.as_tensor(mask, dtype=torch.bool, device=self.device)
         return _sample_actions(self.policy, st, self._act_draws,
                                float(self.f),
                                self.exploit_ready(explore=explore),
-                               greedy=greedy)
+                               greedy=greedy, mask=mask)
 
     def exploit_ready(self, *, explore: bool = True) -> bool:
         """The f-gate warm-up state: exploitation only after

@@ -23,8 +23,14 @@ workload rate grid, the window mean/p99 and the metric emission.
   compile; the padded tick and emission counts still follow the reference's
   buckets, which keeps the shapes (and the statistics) equal to its own.
 
-Not ported yet: ``fault_effect_grid`` (ROADMAP queue 1, item 2), and the
-lean ``_tick_body`` scan arm with the kernel-vs-scan calibration (item 6).
+* Chaos tables (``repro_torch.core.faults``, DESIGN.md §12): rate shocks
+  premultiply the arrival grid and service faults ride the kernel's
+  ``fmult`` operand — evaluated host-side in f64 on the observe path, as
+  the reference does, and on the device (``fault_effect_grid``) in the
+  fused loop's window step.
+
+Not ported yet: the lean ``_tick_body`` scan arm with the kernel-vs-scan
+calibration (ROADMAP queue 1, item 6).
 """
 from __future__ import annotations
 
@@ -164,6 +170,38 @@ def workload_rate_grid(wl: dict, times) -> tuple[torch.Tensor, torch.Tensor]:
             torch.where(use_a, wl["size_a"], wl["size_b"]))
 
 
+def fault_effect_grid(ft: dict, times) -> tuple[torch.Tensor, torch.Tensor]:
+    """Evaluate a packed ``DeviceFaultTable`` (a dict of device tensors) at
+    ``times`` of shape (..., N) -> (service_mult, rate_mult), both f32 and
+    shaped like ``times`` — the device twin of ``DeviceFaultTable.effects``
+    and of the reference's ``fault_effect_grid`` (DESIGN.md §12).
+
+    Per event slot, every kind's law (the shared ``device_effect``
+    staticmethods) is evaluated over all rows and the row's own is SELECTED
+    by kind code — never multiplied by a mask, since another kind's law on
+    this row's parameters may give inf/NaN (``FailureFault``'s division by
+    its 1e-9 tail). Slots compose by sequential multiplication in slot
+    order, as the reference does; padding slots multiply by an exact
+    ``1.0``. Only compares, adds, multiplies, divides and selects: the grid
+    is bitwise the same on the card and on the CPU."""
+    from repro_torch.core.faults import FAULT_KIND_CLASSES
+
+    t = torch.as_tensor(times, dtype=torch.float32)
+    slow = torch.ones_like(t)
+    rate = torch.ones_like(t)
+    for e in range(ft["kind"].shape[1]):
+        kind, p = ft["kind"][:, e], ft["params"][:, e]
+        s_e = torch.ones_like(t)
+        r_e = torch.ones_like(t)
+        for code, cls in sorted(FAULT_KIND_CLASSES.items()):
+            s_k, r_k = cls.device_effect(p, t, xp=txp)
+            s_e = torch.where(kind == code, s_k, s_e)
+            r_e = torch.where(kind == code, r_k, r_e)
+        slow = slow * s_e
+        rate = rate * r_e
+    return slow, rate
+
+
 class _Emission:
     """Metric emission at the paper cadence for one window (the reference's
     emission block): the factor model at the emission ticks, 16-bit metric
@@ -237,9 +275,11 @@ class _Emission:
 
 
 def _window_core(wdraws, T, S, backlog, sfree_rel, consts, rg, sg, tmask,
-                 wmask, spec):
+                 wmask, spec, fmult=None):
     """Draw the window's tick and lane noise and run the ``fleet_tick``
-    kernel. Returns the carry, ys (7 × (T, N)), the per-tick lane sums and
+    kernel (``fmult``: the contiguous f32 (T, N) chaos service
+    multiplier, or None).
+    Returns the carry, ys (7 × (T, N)), the per-tick lane sums and
     quantiles in ms, the head in ms, n_s and the valid-lane count."""
     from repro_torch.kernels.fleet_tick import window_recurrence
 
@@ -253,7 +293,7 @@ def _window_core(wdraws, T, S, backlog, sfree_rel, consts, rg, sg, tmask,
     (backlog, sfree_rel), ys, kstats, head = window_recurrence(
         backlog, sfree_rel, consts, rg.contiguous(), sg.contiguous(),
         z.contiguous(), l0.contiguous(), u1.contiguous(), l1.contiguous(),
-        tmask.to(torch.float32), u_wait, z2a, None,
+        tmask.to(torch.float32), u_wait, z2a, fmult,
         wmask.to(torch.float32), noise=spec.noise,
         retention_s=spec.retention_s, straggler_prob=spec.straggler_prob,
         slo=slo, shi=shi, p99_k=p99_depth(T, S))
@@ -521,6 +561,16 @@ class DeviceFleetEngine:
             evalid = np.arange(E)[:, None] < n_emit[None, :]
             etick = np.clip(etick, 0, T - 1)
         rate_g, size_g = self._rate_grids(T, T_b)
+        # chaos events (repro_torch.core.faults): host-evaluated effect
+        # grids in f64, like the rate grids — rate shocks premultiply
+        # arrivals, service faults ride the kernel's fmult operand
+        fmult = None
+        ft = core._faults
+        if ft is not None and ft.has_tick_effects():
+            times = core.clock[None, :] + np.arange(T)[:, None] * T_b[None, :]
+            f_slow, f_rate = ft.effects(times)
+            rate_g = rate_g * f_rate            # broadcasts (1,N) -> (T,N)
+            fmult = self._tensor(f_slow)
         S = window_lanes(T, self.device)
         backlog, sfree = self._device_state()
         sfree = torch.clamp(sfree, min=0.0)      # server_free = max(·, clock)
@@ -539,7 +589,7 @@ class DeviceFleetEngine:
         self._windows += 1
         ((backlog, sfree), ys, lane_sum_ms, tickq_ms, head_ms, n_s,
          cnt) = _window_core(wdraws, T, S, backlog, sfree, consts, rg, sg,
-                             tmask, wmask, core.spec)
+                             tmask, wmask, core.spec, fmult)
         core.clock += n_ticks * T_b        # exact host shadow
         self._backlog, self._sfree_rel = backlog, sfree
         if not summarise:
@@ -582,7 +632,7 @@ def build_step_window(core, sel_cols: tuple, T: int, E: int,
     documented §10 deviation) and ``E`` the emission-slot budget.
 
         step_window(wdraws, backlog, sfree_rel, clock, cc, wl,
-                    stab_s, reconfigs, win_s)
+                    stab_s, reconfigs, win_s, ft=None)
             -> (backlog', sfree_rel', clock'), stats
 
     with ``stats = {"mean_ms", "p99_ms", "processed", "per_node"}``
@@ -591,7 +641,11 @@ def build_step_window(core, sel_cols: tuple, T: int, E: int,
     (``repro_torch.engine.draws``); ``wl`` a packed ``DeviceWorkloadTable``
     as a dict of device tensors — the (T, N) rate grids are evaluated from
     the carried clock (``workload_rate_grid``), so time-varying fleets run
-    fused. The window itself is one ``fleet_tick`` kernel launch."""
+    fused. ``ft`` (optional) is a packed ``DeviceFaultTable`` as a dict of
+    device tensors: its events are evaluated at the same tick times
+    (``fault_effect_grid``) — rate shocks premultiply the arrival grid,
+    service faults ride the kernel's ``fmult`` operand. The window itself
+    is one ``fleet_tick`` kernel launch."""
     from repro_torch.kernels.fleet_tick import pack_tick_consts
 
     dev = core._dev
@@ -607,7 +661,7 @@ def build_step_window(core, sel_cols: tuple, T: int, E: int,
     e_ax = torch.arange(E, device=device)[:, None]
 
     def step_window(wdraws, backlog, sfree_rel, clock, cc, wl, stab_s,
-                    reconfigs, win_s):
+                    reconfigs, win_s, ft=None):
         T_b = cc["T_b"]
         ee = torch.clamp(cc["emit_every"].to(torch.int64), min=1)
         n_win = torch.clamp(torch.round(win_s / T_b).to(torch.int64), 1, T)
@@ -622,9 +676,13 @@ def build_step_window(core, sel_cols: tuple, T: int, E: int,
         # [clock + t·T_b, clock + (t+1)·T_b)
         times = clock[None, :] + t_ax.to(torch.float32) * T_b[None, :]
         rg, sg = workload_rate_grid(wl, times)
+        f_slow = None
+        if ft is not None:
+            f_slow, f_rate = fault_effect_grid(ft, times)
+            rg = rg * f_rate
         ((backlog, sfree_rel), ys, lane_sum_ms, tickq_ms, head_ms, n_s,
          cnt) = _window_core(wdraws, T, S, backlog, sfree_rel, consts, rg,
-                             sg, tmask, wmask, spec)
+                             sg, tmask, wmask, spec, f_slow)
         mean_ms, p99, processed = _window_summary(ys, wmask, lane_sum_ms,
                                                   head_ms, cnt)
         # ---- metric emission, selected columns only (device etick) ----

@@ -297,13 +297,21 @@ class FleetCore:
             raise ValueError(f"backend={backend!r}: the port runs only the "
                              "torch engine (the numpy oracle is the "
                              "reference's repro.engine.simcluster)")
-        if faults is not None:
-            raise NotImplementedError(
-                "fault scenarios are not ported yet (ROADMAP queue 1, item 2: "
-                "fault_effect_grid and the deploy-latency ring)")
         self.n = len(workloads)
         self.backend = backend
         self.workloads = list(workloads)
+        # chaos event table (repro_torch.core.faults, DESIGN.md §12):
+        # per-cluster fault scenarios evaluated per tick — None, a packed
+        # DeviceFaultTable, or per-cluster fault spec lists
+        if faults is not None and not hasattr(faults, "effects"):
+            from repro_torch.core.faults import pack_device_faults
+
+            faults = pack_device_faults(faults)
+        if faults is not None and faults.n_clusters != self.n:
+            raise ValueError(f"fault table covers {faults.n_clusters} "
+                             f"clusters, fleet has {self.n}")
+        self._faults = faults
+        self._fault_tick = faults is not None and faults.has_tick_effects()
         self.models = list(models)
         self.spec = spec
         self.lever_specs = list(lever_specs)

@@ -13,9 +13,14 @@ otherwise.
     PYTHONPATH=src python -m repro_torch.launch.tune --device cpu --fleet 4 \
         --collect 80 --updates 1 --steps-per-episode 2 --out /tmp/t
 
+    # safe exploration (the shield, DESIGN.md §16) under the SLO reward
+    PYTHONPATH=src python -m repro_torch.launch.tune --fleet 16 \
+        --reward slo --slo-ms 12000 --safe --out experiments/tune_safe
+
 ``--fleet 1`` (or less) runs the serial ``SimCluster``. Prints the
 Fig-5-style latency trajectory and writes ``analysis.json``,
-``history.json`` and ``metrics.prom`` (the fused loop's ``ChaosCounters``).
+``history.json`` and ``metrics.prom`` (the fused loop's ``ChaosCounters``,
+plus the ``ShieldCounters`` under ``--safe``).
 """
 from __future__ import annotations
 
@@ -59,7 +64,17 @@ def main(argv=None):
     ap.add_argument("--slo-ms", type=float, default=1000.0,
                     help="latency SLO for --reward slo (ms)")
     ap.add_argument("--safe", action="store_true",
-                    help="safe exploration (the shield): not ported yet")
+                    help="safe exploration (DESIGN.md §16): trust-region "
+                         "shield over the lever lattice + breach-risk "
+                         "fallback to last-known-good configs (needs "
+                         "--reward slo)")
+    ap.add_argument("--trust-radius", type=int, default=2,
+                    help="--safe: initial ±bin trust radius around the "
+                         "last-known-good config")
+    ap.add_argument("--breach-budget", type=int, default=4,
+                    help="--safe: per-episode SLO-breach budget per cluster; "
+                         "exhaustion pins the cluster to last-known-good "
+                         "for the rest of the episode")
     ap.add_argument("--collect", type=int, default=1200)
     ap.add_argument("--updates", type=int, default=8)
     ap.add_argument("--steps-per-episode", type=int, default=5)
@@ -74,10 +89,10 @@ def main(argv=None):
         raise NotImplementedError(
             "--env local: LocalEngine is not ported yet (ROADMAP queue 1, "
             "item 8.1)")
-    if args.safe:
-        raise NotImplementedError(
-            "--safe: the safety shield is not ported yet (ROADMAP queue 1, "
-            "item 3)")
+    if args.safe and args.reward != "slo":
+        # before the collect budget is spent
+        raise SystemExit("--safe needs --reward slo (the shield's breach "
+                         "signal is the in-trace window breach fraction)")
 
     from repro_torch.core import AutoTuner
     from repro_torch.data.workloads import fleet_workloads, get_workload
@@ -130,7 +145,14 @@ def main(argv=None):
         steps_per_episode=args.steps_per_episode,
         episodes_per_update=args.episodes, window_s=window, f_exploit=args.f,
         device_loop=args.device_loop, reward_mode=args.reward,
-        slo_ms=args.slo_ms)
+        slo_ms=args.slo_ms, safe=args.safe,
+        shield_kw=(dict(trust_radius=args.trust_radius,
+                        breach_budget=args.breach_budget)
+                   if args.safe else None))
+    if args.safe:
+        print(f"[tune] safe exploration (§16): shield ACTIVE — trust radius "
+              f"±{args.trust_radius} bins, breach budget "
+              f"{args.breach_budget}/episode")
     reason = cfgr.device_loop_reason()
     if args.device_loop == "on" and reason is not None:
         # fail before the tuning loop starts: a host-loop run here would
@@ -158,7 +180,10 @@ def main(argv=None):
     def metrics_text():
         runner = cfgr._runner
         chaos = runner.chaos if runner is not None else ChaosCounters()
-        return chaos.prometheus_text()
+        text = chaos.prometheus_text()
+        if args.safe:
+            text += cfgr.shield_counters.prometheus_text()
+        return text
 
     # the guard remaps SIGTERM to KeyboardInterrupt and writes the dump in
     # its finally: a Ctrl-C'd or killed tune run leaves a metrics.prom

@@ -40,6 +40,11 @@ def _minimum(a, b):
     return torch.clamp(a, max=b)
 
 
+def _asarray(x, dtype=None):
+    """numpy's ``asarray(x, dtype)``: the dtype may come positionally."""
+    return torch.as_tensor(x, dtype=dtype)
+
+
 def _clip(x, lo, hi):
     """numpy's ``clip``: ``minimum(maximum(x, lo), hi)``, tensor bounds allowed."""
     return _minimum(_maximum(x, lo), hi)
@@ -50,7 +55,7 @@ txp = types.SimpleNamespace(
     minimum=_minimum,
     clip=_clip,
     where=torch.where,
-    asarray=torch.as_tensor,
+    asarray=_asarray,
     log2=torch.log2,
     sin=torch.sin,
     zeros_like=torch.zeros_like,

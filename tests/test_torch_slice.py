@@ -204,11 +204,6 @@ def test_unported_paths_raise_instead_of_falling_back():
     stats = cfgr.run_update()
     assert stats["episodes"] == 4 and len(cfgr.history) == 2 * 2 * 2
     assert cfgr._runner is None or not cfgr._runner._inflight
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Configurator(FleetEnv(n=2, backend="torch", device="cpu"), METRICS,
-                     LEVERS, safe=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FleetEnv(n=2, backend="torch", device="cpu", faults=[[]] * 2)
     from repro_torch.core import AutoTuner
 
     tuner = AutoTuner(FleetEnv(n=2, backend="torch", device="cpu"))

@@ -15,8 +15,10 @@ its steady windows/s and median seconds an update, for ``phase_ssd`` one
 line per run with the SSD kernel's time at each zamba2 shape (the device
 time where the checkout's phase measures one, else its host loop), for
 ``phase_tuner`` one line per run with each ``lasso_cd`` case's device time
-and analyse's seconds, and the card's name and power limit. Example: the RWKV-6 path on another seed,
-``--phase phase_rwkv --kwargs '{"seed": 1}' .``
+and analyse's seconds, for ``phase_chaos`` one line per run with the chaos
+and clean arms' windows/s and the two shield arms' windows/s and breach
+rates, and the card's name and power limit. Example: the RWKV-6 path on
+another seed, ``--phase phase_rwkv --kwargs '{"seed": 1}' .``
 """
 from __future__ import annotations
 
@@ -47,6 +49,11 @@ SSD = re.compile(r"zamba2-mixer .*? chunk=(\d+) (\w+) vs chunked.*\n\s+kernel "
 #: phase_tuner's lines: each Lasso case (label, p, then its device time on
 #: the next line) and analyse's split
 LASSO = re.compile(r"lasso_cd (.*?) p=(\d+) .*\n\s+kernel device ([\d.]+) ms")
+#: phase_chaos's summary line
+CHAOS = re.compile(r"chaos summary: chaos ([\d.]+) windows/s, clean ([\d.]+) "
+                   r"windows/s, unshielded ([\d.]+) windows/s breach rate "
+                   r"([\d.]+), shielded ([\d.]+) windows/s breach rate "
+                   r"([\d.]+)")
 ANALYSE = re.compile(r"  analyse: ([\d.]+) s \(FA ([\d.]+), k-means ([\d.]+), "
                      r"Lasso ([\d.]+)\)")
 
@@ -59,7 +66,7 @@ def main(argv: list[str]) -> int:
     args = ap.parse_args(argv)
     json.loads(args.kwargs)
     facts = cs._gpu_facts()
-    rows, ssd, tuner = [], [], []
+    rows, ssd, tuner, chaos = [], [], [], []
     for i, root in enumerate(args.roots):
         path = Path(root).resolve()
         env = dict(os.environ, PYTHONPATH=str(path / "src"))
@@ -83,6 +90,12 @@ def main(argv: list[str]) -> int:
                        + f"host loop {host} ms")
         cases = [f"{m.group(1)} p={m.group(2)} {m.group(3)} ms"
                  for m in LASSO.finditer(proc.stdout)]
+        m = CHAOS.search(proc.stdout)
+        if m is not None:
+            chaos.append(f"  run {i + 1} {root}: chaos {m.group(1)}, clean "
+                         f"{m.group(2)} windows/s; unshielded {m.group(3)} "
+                         f"windows/s, breach rate {m.group(4)}; shielded "
+                         f"{m.group(5)} windows/s, breach rate {m.group(6)}")
         m = ANALYSE.search(proc.stdout)
         if cases or m:
             tuner.append(f"  run {i + 1} {root}: lasso_cd " + "; ".join(cases)
@@ -100,6 +113,9 @@ def main(argv: list[str]) -> int:
     if tuner:
         print(f"lasso_cd device time and analyse at N=80 [{facts}]:")
         print("\n".join(tuner))
+    if chaos:
+        print(f"chaos and shield arms at N=1024 [{facts}]:")
+        print("\n".join(chaos))
     print(f"[{facts}]")
     return 0
 
