@@ -20,7 +20,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
             fused steps with 240 s windows; the kernel launch count is read
             around exactly this run. Then the steady rate over 10 more
             updates (all their windows over all their time) and one
-            profiled update
+            profiled update (device busy share, host launch calls)
 5. check    a 16-cluster greedy episode batch on the card, once through the
             kernel and once through its plain version, must agree
 6. attn     the flash-attention kernel against its plain version at the
@@ -97,6 +97,29 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
             shielded and unshielded arms at a 12 s SLO, 14 updates
             interleaved (windows/s, breach rate and intensity, mean reward,
             ShieldCounters, the two ratios recorded; the shield must engage)
+13. graphs  the fused loop's captured CUDA graphs, the pipeline and the
+            epoch, in the configuration of the reference's pipelined and
+            mega-scan rows (benchmarks/fleet_scaling.py: Poisson 10k ev/s
+            fleets, its metrics and levers, 5 steps, 240 s windows, frozen
+            bins, 3 warm-up updates): at N=16 on Philox draws, bitwise,
+            graph-replayed tune(4) against the same run with every program
+            run eagerly, run_epoch(1) x4, run_epoch(4, "full") and
+            tune_pipelined(4, depth=1) against tune(4), and the shielded
+            chaos twin (deploy delay 1) run_epoch(2) against tune(2); then
+            at N=1024 chunks of K=8 updates interleaved over 3 passes:
+            sequential tune, tune_pipelined(depth=2), run_epoch(8) in
+            "full", "summary" and "off" (windows/s, chunk and update
+            spread, fleet_tick launches as the code counts them,
+            CAPTURE_COUNTS flat, the ratios beside the reference's CPU gates,
+            recorded), a profiled chunk per mode (busy share, host
+            kernel-launch and graph-launch calls an update, peak and
+            reserved memory) and cProfile's host split of sequential updates
+
+The tuning loop's episode batches and updates (phases 4, 11, 12, 13) run
+as captured CUDA graphs from their second call at a shape
+(``repro_torch.core.graphs``; the first is the capture's eager warm-up, so
+phase 5's single greedy batch runs eagerly); a graph adds the fleet_tick
+launches it holds to the count at every replay.
 
 Each path's kernel launches are counted from 0 just before the path runs
 and read just after. The last two lines are the kernels JSON and the
@@ -358,7 +381,7 @@ def phase_main(dev, facts: str) -> dict:
           f"{np.median(p):.1f} ms, last pg_loss {stats['pg_loss']:.5f}, "
           f"params moved: {moved}")
     _steady_rate(cfgr, N, S, facts)
-    _profile_update(cfgr)
+    _profile_update(cfgr, facts)
     return {"launches": launches}
 
 
@@ -387,34 +410,48 @@ def _steady_rate(cfgr, N: int, S: int, facts: str, updates: int = 10) -> None:
           f"{', '.join(f'{x:.6f}' for x in t)} s")
 
 
-def _profile_update(cfgr) -> dict:
-    """One more outer iteration under torch.profiler: device busy share
-    and the kernels that take the device time (after the launch count was
-    read, so the main-path count is untouched). Returns the wall and busy
-    ms and the device launches."""
+def _profile(fn, label: str, facts: str, top: int = 8) -> dict:
+    """``fn()`` once under torch.profiler: wall, device busy share, device
+    launches (kernel and copy rows, a replayed graph's kernels included)
+    and the host's launch calls (the CUDA runtime's kernel-launch rows
+    against its graph-launch rows), with the kernels that take the device
+    time. Returns the numbers."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        cfgr.run_update()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    avgs = prof.key_averages()
     # device-side rows only (kernels, copies): the CPU-side aten rows carry
     # the same device time again
-    rows = [e for e in prof.key_averages()
+    rows = [e for e in avgs
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.device_time_total for e in rows)
     launches = sum(e.count for e in rows)
-    print(f"  profiled run_update: wall {wall * 1e3:.1f} ms, device busy "
+    host = [e for e in avgs
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    kernel_calls = sum(e.count for e in host if "LaunchKernel" in e.key)
+    graph_calls = sum(e.count for e in host if "GraphLaunch" in e.key)
+    print(f"  profiled {label}: wall {wall * 1e3:.1f} ms, device busy "
           f"{busy_us / 1e3:.1f} ms ({100 * busy_us / 1e6 / wall:.1f} %), "
-          f"{launches} device launches")
+          f"{launches} device launches; host launch calls: "
+          f"{kernel_calls} kernel, {graph_calls} graph [{facts}]")
     for e in sorted(rows, key=lambda e: e.device_time_total,
-                    reverse=True)[:8]:
+                    reverse=True)[:top]:
         print(f"    {e.device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:70]}")
     return {"wall_ms": wall * 1e3, "busy_ms": busy_us / 1e3,
-            "launches": launches}
+            "launches": launches, "kernel_calls": kernel_calls,
+            "graph_calls": graph_calls}
+
+
+def _profile_update(cfgr, facts: str) -> dict:
+    """One more outer iteration under torch.profiler (after the launch
+    count was read, so the main-path count is untouched)."""
+    return _profile(cfgr.run_update, "run_update", facts)
 
 
 def phase_check(dev) -> None:
@@ -1662,9 +1699,9 @@ def phase_chaos(dev, facts: str, N: int = 1024) -> dict:
         if tag == "chaos" and chaos.fault_events != int(
                 (chaos_scenario(N, seed=0).kind != 0).sum()):
             raise AssertionError(f"fault_events {chaos.fault_events}")
-        profiles[tag] = _profile_update(cfgr)
+        profiles[tag] = _profile_update(cfgr, facts)
     print(f"  chaos / clean: {arms['chaos'][0] / arms['clean'][0]:.4f} of "
-          f"the windows/s; eager launches per update "
+          f"the windows/s; device launches per update "
           f"{profiles['chaos']['launches']} / {profiles['clean']['launches']}"
           f" ({(profiles['chaos']['launches'] - profiles['clean']['launches']) / S:.1f}"
           f" more a step) [{facts}]")
@@ -1726,8 +1763,8 @@ def phase_chaos(dev, facts: str, N: int = 1024) -> dict:
     sc = mat["shielded"].shield_counters
     print(f"  ShieldCounters: {json.dumps(sc.as_dict())}")
     for tag, cfgr in mat.items():      # after the counters were read
-        res[tag]["launches"] = _profile_update(cfgr)["launches"]
-    print(f"  eager launches per update: shielded "
+        res[tag]["launches"] = _profile_update(cfgr, facts)["launches"]
+    print(f"  device launches per update: shielded "
           f"{res['shielded']['launches']}, unshielded "
           f"{res['unshielded']['launches']} ("
           f"{(res['shielded']['launches'] - res['unshielded']['launches']) / S:.1f}"
@@ -1748,6 +1785,268 @@ def phase_chaos(dev, facts: str, N: int = 1024) -> dict:
           f"{sh['wps']:.1f} windows/s breach rate {sh['breach_rate']:.6f}")
     print(f"  phase 12 took {time.perf_counter() - t_start:.1f} s")
     return {"launches": arms["chaos"][2]}
+
+
+#: the reference's pipelined and mega-scan training rows
+#: (benchmarks/fleet_scaling.py::train_pipelined_rows, ::train_megascan_rows
+#: over ``_train_cfgr``): Poisson 10k ev/s fleets, TRAIN_METRICS /
+#: TRAIN_LEVERS, 5 steps, 240 s windows, frozen bins, 3 warm-up updates;
+#: K updates a timed chunk, and the reference's CPU gates on the ratios
+GRAPH_K, GRAPH_PASSES = 8, 3
+PIPE_GATE, MEGA_GATE = 1.3, 1.5
+
+
+def _graph_cfgr(N: int, *, warm: int = 3, steps: int = 5, seed: int = 0):
+    from repro_torch.core import Configurator
+    from repro_torch.data.workloads import PoissonWorkload
+    from repro_torch.engine import FleetEnv
+
+    env = FleetEnv([PoissonWorkload(10_000, 0.5) for _ in range(N)],
+                   seeds=[seed + i for i in range(N)], backend="torch")
+    cfgr = Configurator(env, TRAIN_METRICS, TRAIN_LEVERS, seed=seed,
+                        steps_per_episode=steps, window_s=240.0,
+                        device_loop="on", bin_kw=FROZEN)
+    for _ in range(warm):
+        cfgr.run_update()
+    return cfgr
+
+
+def _run_state(cfgr) -> dict:
+    """What a tuning run leaves: parameters, rmsprop state, the record
+    streams, the final configs and clocks (host copies)."""
+    agent = cfgr.agent
+    return {"params": {k: v.detach().cpu() for k, v in agent.params.items()},
+            "nu": {k: v.cpu() for k, v in agent.opt_state["nu"].items()},
+            "count": int(agent.opt_state["count"]),
+            "rewards": [r.reward for r in cfgr.history],
+            "p99": [r.p99_ms for r in cfgr.history],
+            "levers": [(r.lever, r.direction) for r in cfgr.history],
+            "configs": cfgr.env.current_configs(),
+            "clock": cfgr.env.clock.copy(),
+            "shield": cfgr.shield_counters.as_dict()}
+
+
+def _same_state(label: str, a: dict, b: dict) -> None:
+    for k in a["params"]:
+        if not torch.equal(a["params"][k], b["params"][k]):
+            d = float((a["params"][k] - b["params"][k]).abs().max())
+            raise AssertionError(f"{label}: parameter {k} differs by {d:.3e}")
+        if not torch.equal(a["nu"][k], b["nu"][k]):
+            raise AssertionError(f"{label}: rmsprop state {k} differs")
+    for key in ("count", "configs", "shield", "rewards", "p99", "levers"):
+        if a[key] != b[key]:
+            raise AssertionError(f"{label}: {key} differs")
+    if not np.array_equal(a["clock"], b["clock"]):
+        raise AssertionError(f"{label}: clocks differ")
+    print(f"  {label}: bitwise equal ({len(a['rewards'])} records, "
+          f"params, rmsprop state, final configs, clocks"
+          f"{', shield counters' if a['shield']['clamped_actions'] else ''})")
+
+
+def _captured_launch(dev, N: int = 64, T: int = 3328, S: int = 16) -> None:
+    """One fleet_tick launch whose shared memory passes the 48 KB default
+    (so the launch raises the kernel's limit with cudaFuncSetAttribute)
+    captured into a graph and replayed: bitwise equal to the eager launch,
+    and counted at the replay."""
+    from repro_torch.core.graphs import Program
+    from repro_torch.engine.fleet_torch import p99_depth
+    from repro_torch.kernels import fleet_tick as ft
+
+    p99_k = p99_depth(T, S)
+    geo = ft.launch_geometry(N, T, S, ft.head_budget(S, p99_k))
+    assert geo["smem_bytes"] > 48 * 1024, geo
+    ops, kw = _kernel_inputs(N, T, S, seed=5, dev=dev)
+    prog = Program(("fleet_tick", N, T, S), lambda: ft.fleet_tick_window(
+        *ops.values(), **kw, p99_k=p99_k), dev)
+    eager = [x.clone() for x in prog()]
+    before = ft.LAUNCHES
+    replayed = [x.clone() for x in prog()]
+    torch.cuda.synchronize()
+    if ft.LAUNCHES - before != 1 or prog.launches != 1:
+        raise AssertionError(f"replay counted {ft.LAUNCHES - before} "
+                             f"launches, the graph holds {prog.launches}")
+    for name, a, b in zip(("state", "ys", "stats", "head"), eager, replayed):
+        if not torch.equal(a.nan_to_num(), b.nan_to_num()):
+            raise AssertionError(f"captured fleet_tick launch: {name} "
+                                 "differs from the eager launch")
+    print(f"  fleet_tick at N={N} T={T} S={S} ({geo['smem_bytes']} B shared, "
+          f"head in {geo['head']}) captured and replayed: bitwise equal to "
+          "the eager launch, 1 launch counted at the replay")
+
+
+def _graph_equalities(dev) -> None:
+    """The graph-replayed loop against itself on the card, N=16, Philox
+    draws, frozen bins: each pair must agree to the bit."""
+    from repro_torch.core import graphs
+    from repro_torch.core.faults import chaos_scenario
+
+    def fresh(**kw):
+        return _graph_cfgr(16, warm=0, **kw)
+
+    n = 4          # 2 updates before exploitation, 2 after (2 replays each)
+    a = fresh()
+    a.tune(n)
+    replays = sum(p.calls - 1 for p in a._runner._programs.values()
+                  if p.graph is not None)
+    if dev.type == "cuda" and not replays:
+        raise AssertionError("tune ran no replayed episode program")
+    ref = _run_state(a)
+    # the eager twin: every captured program runs its function instead
+    saved = graphs.Program.__call__
+    graphs.Program.__call__ = lambda self: self.fn()
+    try:
+        b = fresh()
+        b.tune(n)
+    finally:
+        graphs.Program.__call__ = saved
+    if b._runner._programs and any(
+            p.graph is not None for p in b._runner._programs.values()):
+        raise AssertionError("the eager twin captured a graph")
+    _same_state(f"tune({n}) from graphs ({replays} episode replays) vs "
+                f"eager", ref, _run_state(b))
+    c = fresh()
+    for _ in range(n):
+        c.run_epoch(1)
+    _same_state(f"run_epoch(1) x{n} vs tune({n})", ref, _run_state(c))
+    d = fresh()
+    d.run_epoch(n, records="full")
+    _same_state(f"run_epoch({n}, full) vs tune({n})", ref, _run_state(d))
+    e = fresh()
+    e.tune_pipelined(n, depth=1)
+    _same_state(f"tune_pipelined({n}, depth=1) vs tune({n})", ref,
+                _run_state(e))
+
+    def shielded():
+        cfgr = _chaos_cfgr(16, chaos_scenario(16, t0_s=500.0,
+                                              deploy_delay=1),
+                           safe=True, seed=3, steps=5,
+                           shield_kw=dict(trust_radius=1, breach_budget=2))
+        return cfgr
+    f, g = shielded(), shielded()
+    f.tune(2)
+    g.run_epoch(2)
+    sf = _run_state(f)
+    if not sf["shield"]["clamped_actions"] + sf["shield"]["fallbacks"]:
+        raise AssertionError(f"the shield never engaged: {sf['shield']}")
+    # a fallback reverts whole rows, which the records' configs do not
+    # show; the final configs are re-synced from the indices
+    _same_state("chaos + deploy delay 1 + shield: run_epoch(2) vs tune(2)",
+                sf, _run_state(g))
+
+
+def phase_graphs(dev, facts: str, N: int = 1024) -> dict:
+    """The fused loop on captured CUDA graphs: the graph paths bitwise
+    against the eager and sequential ones at N=16, then windows/s of the
+    sequential, pipelined and epoch schedules at N=1024 with their spread,
+    launch counts, device busy shares, host launch calls and memory."""
+    from repro_torch.core.device_loop import CAPTURE_COUNTS
+    from repro_torch.kernels import fleet_tick as ft
+
+    t_start = time.perf_counter()
+    S, K = 5, GRAPH_K
+    # ---- 13.1: bitwise equalities on the card ----
+    _captured_launch(dev)
+    _graph_equalities(dev)
+
+    # ---- 13.2: the schedules at N=1024, whole chunks interleaved ----
+    modes = {"seq": lambda c: c.tune(K),
+             "pipe2": lambda c: c.tune_pipelined(K, depth=2),
+             "full": lambda c: c.run_epoch(K, records="full"),
+             "summary": lambda c: c.run_epoch(K, records="summary"),
+             "off": lambda c: c.run_epoch(K, records="off")}
+    cfgrs = {}
+    for name, run in modes.items():
+        cfgrs[name] = _graph_cfgr(N)
+        run(cfgrs[name])             # warm at the chunk's exact shape
+    torch.cuda.synchronize()
+    captures = dict(CAPTURE_COUNTS)
+    times = {name: [] for name in modes}
+    launches = {name: 0 for name in modes}
+    per_update = []
+    for p in range(GRAPH_PASSES):
+        order = list(modes) if p % 2 == 0 else list(reversed(modes))
+        for name in order:
+            cfgr = cfgrs[name]
+            before = ft.LAUNCHES
+            marks = []
+            cb = (lambda i, st, h: marks.append(time.perf_counter())) \
+                if name == "seq" else None
+            t0 = time.perf_counter()
+            if cb is None:
+                modes[name](cfgr)
+            else:
+                cfgr.tune(K, callback=cb)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+            launches[name] += ft.LAUNCHES - before
+            if marks:
+                per_update += list(np.diff([t0] + marks))
+    if dict(CAPTURE_COUNTS) != captures:
+        raise AssertionError("captures grew over the timed chunks: "
+                             f"{captures} -> {dict(CAPTURE_COUNTS)}")
+    print(f"  CAPTURE_COUNTS flat over the timed chunks: "
+          f"{sum(captures.values())} captures in "
+          f"{len(captures)} programs")
+    want = GRAPH_PASSES * K * S
+    wps = {}
+    for name, ts in times.items():
+        t = np.array(ts)
+        if launches[name] != want:
+            raise AssertionError(f"{name}: fleet_tick launches "
+                                 f"{launches[name]}, expected {want}")
+        wps[name] = N * S * K * len(t) / t.sum()
+        print(f"  {name:8s}: {N * S * K * len(t)} windows in {t.sum():.6f} s"
+              f" = {wps[name]:.1f} windows/s; chunks of {K} updates "
+              f"{', '.join(f'{x:.6f}' for x in t)} s (median "
+              f"{N * S * K / float(np.median(t)):.1f} windows/s); fleet_tick "
+              f"launches {launches[name]} [{facts}]")
+    u = np.array(per_update)
+    print(f"  seq per update: min {u.min():.6f}, median {np.median(u):.6f}, "
+          f"max {u.max():.6f} s over {u.size} updates [{facts}]")
+    print(f"  ratios to seq (recorded; the reference's CPU gates "
+          f">= {PIPE_GATE} pipelined, >= {MEGA_GATE} mega-scan): pipe2 "
+          f"{wps['pipe2'] / wps['seq']:.4f}, full "
+          f"{wps['full'] / wps['seq']:.4f}, summary "
+          f"{wps['summary'] / wps['seq']:.4f}, off "
+          f"{wps['off'] / wps['seq']:.4f} [{facts}]")
+
+    # ---- 13.3: a profiled chunk per mode, memory ----
+    for name, run in modes.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        prof = _profile(lambda: run(cfgrs[name]), f"{name} chunk of {K}",
+                        facts, top=3)
+        print(f"  {name:8s}: per update {prof['kernel_calls'] / K:.1f} "
+              f"kernel launch calls, {prof['graph_calls'] / K:.1f} graph "
+              f"launch calls, {prof['launches'] / K:.1f} device launches; "
+              f"peak allocated {torch.cuda.max_memory_allocated() / 2**20:.1f}"
+              f" MiB, reserved {torch.cuda.memory_reserved() / 2**20:.1f} "
+              f"MiB (graph pools included) [{facts}]")
+    _host_split(cfgrs["seq"], K, facts)
+    print(f"  phase 13 took {time.perf_counter() - t_start:.1f} s")
+    return {"launches": sum(launches.values())}
+
+
+def _host_split(cfgr, k: int, facts: str, top: int = 12) -> None:
+    """Where a sequential update's host time goes: ``k`` more updates under
+    cProfile, the functions with the most time of their own."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(cfgr.tune, k)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = pstats.Stats(prof)
+    rows = sorted(st.stats.items(), key=lambda kv: kv[1][2], reverse=True)
+    print(f"  host split of {k} sequential updates under cProfile: wall "
+          f"{wall * 1e3:.1f} ms ({wall / k * 1e3:.1f} ms an update, "
+          f"cProfile's overhead included) [{facts}]; own time by function:")
+    for (path, line, fn), (_, calls, own, cum, _) in rows[:top]:
+        where = f"{Path(path).name}:{line}" if line else path
+        print(f"    {own / k * 1e3:8.3f} ms an update (cumulative "
+              f"{cum / k * 1e3:8.3f}) x{calls // k:<7d} {fn} ({where})")
 
 
 def _leaves(tree):
@@ -1845,12 +2144,16 @@ def main() -> int:
     lasso_row = phase_tuner(dev, facts)
     print("[12] chaos: fault scenarios and the shield on the tuning loop")
     chaos_row = phase_chaos(dev, facts)
+    print("[13] graphs: the fused loop's captured programs, the pipeline "
+          "and the epoch")
+    graphs_row = phase_graphs(dev, facts)
     kernels = [
         {"name": "fleet_tick_window", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fleet_tick.cu",
          "replaces": "src/repro/kernels/fleet_tick.py:387",
          "launches": main_row["launches"], **row, "library_ms": None,
-         "launches_chaos": chaos_row["launches"]},
+         "launches_chaos": chaos_row["launches"],
+         "launches_graphs": graphs_row["launches"]},
         {"name": "flash_attention_bhsd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:88",

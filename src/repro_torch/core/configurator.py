@@ -8,7 +8,9 @@ update — against a ``TuningEnv`` (the serial ``SimCluster``) or a
 ``FleetTuningEnv`` (``FleetEnv(backend="torch")``).
 
 Over a fleet whose workloads the device rate grid can pack, ``run_update``
-runs the fused device loop (``repro_torch.core.device_loop``); otherwise,
+runs the fused device loop (``repro_torch.core.device_loop``, captured CUDA
+graphs on the card), as do ``tune_pipelined`` (§14) and ``run_epoch`` /
+``tune_megascan`` (§15), which need it; otherwise,
 or with ``device_loop="off"``, the per-step host loops: ``run_episode``
 (serial) and ``run_fleet_episodes`` (N parallel episodes, acting on the
 device). Every observation window is a ``fleet_tick`` kernel launch either
@@ -554,4 +556,71 @@ class Configurator:
             stats = self.run_update()
             if callback:
                 callback(i, stats, self.history)
+        return self.history
+
+    def _fused_runner(self, what: str):
+        """The fused loop's runner and the episode batches an update takes;
+        ``what`` names the caller in the error when the loop cannot run."""
+        reason = self.device_loop_reason()
+        if reason is not None:
+            raise RuntimeError(f"{what} needs the fused device loop: {reason}")
+        return (self._device_runner(),
+                max(1, -(-self.episodes_per_update // self.env.n_clusters)))
+
+    def tune_pipelined(self, n_updates: int, *, depth: int = 2,
+                       callback=None) -> list[StepRecord]:
+        """``tune`` as a depth-``depth`` pipelined actor/learner (DESIGN.md
+        §14): update k runs on the card behind batch k+1's episodes, the
+        host's record materialisation deferred to one finalize per call (so
+        §2.4.1 bin adaptation replays once per call, and episodes act on
+        (depth-1)-update-stale parameters, IMPALA-style).
+
+        ``depth=1`` is the sequential schedule: it delegates to ``tune``.
+        Requires the fused device loop."""
+        if depth <= 1 or n_updates <= 0:
+            return self.tune(n_updates, callback=callback)
+        runner, passes = self._fused_runner("pipelined tuning")
+        stats_list, records, upd_s = runner.run_pipelined(
+            n_updates, passes=passes, depth=depth)
+        per = len(records) // n_updates if records else 0
+        for k, stats in enumerate(stats_list):
+            recs = records[k * per:(k + 1) * per] if per else []
+            stats = self._finish_update(stats, recs, upd_s[k])
+            if callback:
+                callback(k, stats, self.history)
+        return self.history
+
+    def run_epoch(self, k: int = 8, *, records: str = "full") -> list[dict]:
+        """``k`` outer Algorithm-1 iterations with no host sync between
+        them — the epoch mega-scan (DESIGN.md §15): episode batch → reward →
+        policy update, one captured body replayed per update. §2.4.1 bin
+        adaptation defers to the epoch boundary (binning is frozen inside);
+        ``records="full"`` materialises the sequential path's exact
+        ``StepRecord`` stream into ``history``, ``"summary"``/``"off"``
+        skip it and return per-update convergence stats only. Requires the
+        fused device loop. Returns the per-update stats dicts."""
+        runner, passes = self._fused_runner("epoch mega-scan")
+        stats_list, recs = runner.run_epoch(k, passes=passes,
+                                            records=records)
+        if recs:
+            # the update runs inside the epoch's body: no separable
+            # update_s (generation_s carries the epoch's wall)
+            per = len(recs) // max(len(stats_list), 1)
+            for i, stats in enumerate(stats_list):
+                self._finish_update(stats, recs[i * per:(i + 1) * per], 0.0)
+        return stats_list
+
+    def tune_megascan(self, n_updates: int, *, k: int = 8,
+                      records: str = "full",
+                      callback=None) -> list[StepRecord]:
+        """``tune`` over epoch mega-scans (DESIGN.md §15): ``n_updates``
+        outer iterations as ⌈n/k⌉ epochs of up to k updates. The callback
+        fires per update, after the epoch holding it lands."""
+        done = 0
+        while done < n_updates:
+            kk = min(k, n_updates - done)
+            for j, stats in enumerate(self.run_epoch(kk, records=records)):
+                if callback:
+                    callback(done + j, stats, self.history)
+            done += kk
         return self.history

@@ -26,9 +26,26 @@ which ``StepRecord``s are materialised once per batch. The dict-based
 batch the chosen (lever, bin) assignments are replayed into its
 ``DynamicBins`` host-side, and the next batch re-packs the table.
 
-Where the reference donates its loop-state buffers, the port updates the
-config-index carry IN PLACE on a per-batch clone (the caller's tensor is
-never written); every other carry is rebound to fresh tensors per step.
+**Captured programs (§10, §14, §15).** Where the reference jits one
+episode batch per static shape bundle (``_program``), the port captures it
+as a CUDA graph (``repro_torch.core.graphs.Program``) and replays it. The
+graph reads every input at a fixed address: the loop-state carry lives in
+static buffers that ``_fresh_inputs`` fills at an epoch's start and the
+captured batch overwrites with its final state (chained batches need no
+copies), the lever tables are re-packed into the same tensors while their
+``_BIN_BUCKETS`` rung holds, and the policy reads the agent's parameters,
+which every update overwrites in place. A rung crossing or a longer tick
+budget is a new bundle and a new capture, as it is a recompile for the
+reference. On the CPU the same program objects run ``_episode`` eagerly on
+the same buffers.
+
+**Pipeline (§14) and epoch (§15).** ``run_pipelined`` keeps ``depth-1``
+episode groups enqueued ahead of the update that uses them, on one stream,
+so dispatch order alone gives the reference's staleness. ``run_epoch(K)``
+replays one captured body — the episode groups, the policy update and the
+records mode's reductions — K times with no host sync between updates
+(``EPOCH_DISPATCHES`` counts the replays); the §2.4.1 replay runs at the
+epoch boundary.
 
 **Fault scenarios (§12).** When the fleet carries a ``DeviceFaultTable``
 (``FleetEnv(..., faults=...)``), its device copy rides into every window
@@ -48,8 +65,8 @@ per-episode budget is dropped after the episode). The integer leaves are
 int64, the dtype of the config-index carry (the reference's are int32:
 the values are the same).
 
-Ported branches: one device (no fleet mesh). ``run_pipelined`` and
-``run_epoch`` wait for ROADMAP queue 1, item 4, the mesh wrap for item 7.
+Ported branches: one device (no fleet mesh; the mesh wrap waits for
+ROADMAP queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -61,6 +78,8 @@ import torch
 import torch.nn.functional as Fn
 
 from repro_torch.core.discretize import DeviceLeverTable, shield_update
+# CAPTURE_COUNTS: re-exported, the twin of the reference's TRACE_COUNTS
+from repro_torch.core.graphs import CAPTURE_COUNTS, Program  # noqa: F401
 from repro_torch.core.heatmap import node_grid_shape
 from repro_torch.core.policy import _sample_actions
 from repro_torch.data.workloads import (device_workload_reason,
@@ -70,6 +89,11 @@ from repro_torch.engine.fleet_torch import (_bucket, build_step_window,
 from repro_torch.engine.simcluster import (_LEVER_TO_PACKED, _PACKERS,
                                            service_terms_arrays)
 from repro_torch.utils import txp
+
+#: epoch body calls (DESIGN.md §15): ``run_epoch(K)`` calls its captured
+#: body once per update — K graph launches an epoch, never O(K·S·ops) eager
+#: ones (the reference counts one jitted program per warm-up segment)
+EPOCH_DISPATCHES = [0]
 
 #: padded tick budget when ``batch_interval_s`` is in the action set (the
 #: episode can walk it low); clusters past (window+stab)/TICK_BUDGET see a
@@ -120,19 +144,38 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _np(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _into(old: Optional[torch.Tensor], new: torch.Tensor) -> torch.Tensor:
+    """``new`` written into ``old`` when their shapes and dtypes match (a
+    captured program reads ``old`` at its address), else ``new``."""
+    if (old is not None and old.shape == new.shape
+            and old.dtype == new.dtype):
+        return old.copy_(new)
+    return new
+
+
 class DeviceEpisodeRunner:
-    """Runs the fused episode batches of one ``Configurator`` and the
-    host-side handoff around them."""
+    """Runs the fused episode batches of one ``Configurator`` as captured
+    programs, one per static shape bundle, and the host-side handoff around
+    them."""
 
     def __init__(self, cfgr):
         self.cfgr = cfgr
         self.env = cfgr.env
         self.device = cfgr.device
+        self._programs: dict = {}
         self._step_windows: dict = {}
         self._per_node = None          # device (N, nodes, M_sel) carry
         self._clock_mark: Optional[np.ndarray] = None
         self._config_idx = None        # device (N, n_levers) int64 carry
         self._table: Optional[DeviceLeverTable] = None
+        #: the packed lever tables (fixed addresses while the rung holds)
+        self._tabs: Optional[dict] = None
+        self._kind_code = self._n_valid = self._ranked = None
+        self._reboot_f = self._rejit_f = None
         self._bins_sig = None
         self._disc_sig = None          # oracle edge hash: re-pack skip
         self._hw_T = 0
@@ -147,8 +190,13 @@ class DeviceEpisodeRunner:
         #: packs it (or after a table re-index)
         self._shield = None
         self._idx0 = None                     # pre-batch indices (shield sync)
-        #: the not-yet-adopted device carry and the dispatched but not yet
-        #: materialised episode batches
+        #: the static carry buffers every program reads and writes (the
+        #: layout of ``_episode``'s carry), and the epoch's (lever, bin)
+        #: count buffer
+        self._bufs: Optional[tuple] = None
+        self._counts = None
+        #: the carry buffers while they hold a not-yet-adopted state, and
+        #: the dispatched but not yet materialised episode batches
         self._carry = None
         self._inflight: list[dict] = []
         self._epoch_configs: Optional[list] = None
@@ -193,22 +241,32 @@ class DeviceEpisodeRunner:
                 self.env, self._sel_cols, T, E, slo_ms=slo_ms)
         return self._step_windows[key]
 
+    def _skey(self, exploit: bool, greedy: bool) -> tuple:
+        """The static bundle of one episode batch (the reference's ``skey``
+        without its mesh and pallas entries, plus N, the table rung and
+        the exploitation factor, which the captured batch bakes in)."""
+        cfgr = self.cfgr
+        T, E = self._tick_budget()
+        slo_sig = ((cfgr.slo_ms, cfgr.slo_hinge_w, cfgr.slo_breach_w)
+                   if cfgr.reward_mode == "slo" else None)
+        return (cfgr.steps_per_episode, T, E, self._sel_cols, exploit,
+                greedy, cfgr.reward_mode, float(cfgr.window_s), slo_sig,
+                self._R_max, self._ft_dev is not None, cfgr.shield,
+                self.env.n_clusters, self._hw_B, float(cfgr.agent.f))
+
     # -------------------------------------------------------------- episode
-    def _episode(self, draws, carry: tuple, *, S: int, exploit: bool,
-                 greedy: bool) -> tuple:
+    def _episode(self, draws, carry: tuple, skey: tuple) -> tuple:
         """One fused episode batch from ``carry`` (config_idx, backlog,
         sfree, clock, last_service, reconfigs, lo, hi, per_node, then the
-        deploy ring when the fleet has deploy latency — None starts it from
-        the pre-episode config at every depth — then the shield's lkg,
-        radius, streak and risk when the configurator is safe). Returns the
-        final carry in the same layout and the (N, S) per-step outputs."""
+        deploy ring when the fleet has deploy latency, then the shield's
+        lkg, radius, streak and risk when the configurator is safe) at the
+        static bundle ``skey``. Returns the final carry in the same layout
+        and the (N, S) per-step outputs."""
         cfgr, env = self.cfgr, self.env
         spec = env.spec
-        T, E = self._tick_budget()
+        S, T, E, _, exploit, greedy = skey[:6]
         slo = cfgr.reward_mode == "slo"
-        slo_ms, hinge_w, breach_w = ((cfgr.slo_ms, cfgr.slo_hinge_w,
-                                      cfgr.slo_breach_w) if slo
-                                     else (0.0, 0.0, 0.0))
+        slo_ms, hinge_w, breach_w = skey[8] if slo else (0.0, 0.0, 0.0)
         step_window = self._step_window(T, E, slo_ms)
         nodes = env.n_nodes
         r, c = node_grid_shape(nodes)
@@ -217,7 +275,7 @@ class DeviceEpisodeRunner:
         table, tabs = self._table, self._tabs
         n_valid, kind_code = self._n_valid, self._kind_code
         ranked = self._ranked
-        policy, f = cfgr.agent.policy, float(cfgr.agent.f)
+        policy, f = cfgr.agent.policy, skey[14]
 
         (config_idx, backlog, sfree, clock, last_service, reconfigs, lo, hi,
          per_node) = carry[:9]
@@ -229,8 +287,6 @@ class DeviceEpisodeRunner:
         if R_max:
             hist = carry[9]
             pos = 10
-            if hist is None:   # fresh epoch: the pre-episode config deployed
-                hist = config_idx[None].repeat(R_max + 1, 1, 1)
         sh_spec = cfgr.shield
         if sh_spec is not None:
             lkg_idx, radius, streak, risk = carry[pos:pos + 4]
@@ -362,6 +418,27 @@ class DeviceEpisodeRunner:
             carry = carry + (lkg_idx, radius, streak, risk)
         return carry, outs
 
+    def _chained_episode(self, draws, skey: tuple) -> dict:
+        """One episode batch from the carry buffers, its final state
+        written back into them (so chained batches need no copies).
+        Returns the per-step outputs."""
+        carry, outs = self._episode(draws.episode(), self._bufs, skey)
+        for buf, x in zip(self._bufs, carry):
+            buf.copy_(x)
+        return outs
+
+    def _program(self, key: tuple, body) -> Program:
+        """The captured program ``key`` (built on first use): ``body(draws)``
+        over the env's current draw source, which the key names — a new
+        source is a new program."""
+        draws = self.env._dev.draws
+        pkey = key + (id(draws),)
+        prog = self._programs.get(pkey)
+        if prog is None:
+            prog = Program(key, lambda: body(draws), self.device, (draws,))
+            self._programs[pkey] = prog
+        return prog
+
     # ------------------------------------------------------------------- run
     def run(self, *, explore: bool = True, greedy: bool = False):
         """One fused episode batch, synchronously. Returns ``(batch,
@@ -396,38 +473,345 @@ class DeviceEpisodeRunner:
         return {k: torch.cat([x[k] for x in batches], dim=0)
                 for k in batches[0]}
 
+    def run_pipelined(self, updates: int, *, passes: int = 1,
+                      depth: int = 2):
+        """``updates`` outer iterations as a depth-``depth`` pipelined
+        actor/learner (DESIGN.md §14): episode group k+1 is enqueued before
+        update k, so the card runs update k behind the episodes that
+        explore with the parameters before it.
+
+        One stream orders everything: update k overwrites the parameters in
+        place after group k+1 was enqueued, so episodes act on
+        (depth-1)-updates-stale parameters (IMPALA-style), as in the
+        reference. A group's outputs are copies, not the captured batch's
+        memory, because later groups replay before update k reads them.
+        One ``finalize`` at the end materialises every batch's records and
+        replays the §2.4.1 bins once (binning is frozen across the call).
+
+        ``depth=1`` is the sequential schedule: ``run_cycle`` per update.
+        Returns ``(stats_list, records, upd_s_list)``."""
+        if updates <= 0:
+            return [], [], []
+        if depth <= 1:
+            out, recs, upds = [], [], []
+            for _ in range(updates):
+                stats, records, upd_s = self.run_cycle(passes=passes)
+                out.append(stats)
+                recs.extend(records)
+                upds.append(upd_s)
+            return out, recs, upds
+        agent = self.cfgr.agent
+        ahead = depth - 1
+        groups: list = []
+        thunks: list = []
+        upds: list = []
+        nxt = 0
+        for k in range(updates):
+            # keep `ahead` episode groups enqueued past the current update
+            while nxt <= min(k + ahead, updates - 1):
+                groups.append(self._dispatch_group(passes))
+                nxt += 1
+            b = groups[k]
+            t0 = time.perf_counter()
+            thunks.append(agent.update_batch_async(
+                b["states"], b["actions"], b["rewards"]))
+            upds.append(time.perf_counter() - t0)
+            groups[k] = None          # drop the group once its update is in
+        records = self.finalize()     # waits for the tail episode batch
+        t1 = time.perf_counter()
+        stats_list = [t() for t in thunks]
+        upds[-1] += time.perf_counter() - t1
+        return stats_list, records, upds
+
+    # ---------------------------------------------------------- epoch (§15)
+    def run_epoch(self, k: int, *, passes: int = 1,
+                  records: str = "full", explore: bool = True):
+        """``k`` full outer Algorithm-1 iterations — episode batch → reward
+        → policy update — with no host sync between them (DESIGN.md §15):
+        one captured body per warm-up segment, replayed once per update.
+
+        Inside the epoch the ``DeviceLeverTable`` is FROZEN; §2.4.1 bin
+        adaptation defers to the epoch boundary. ``records`` controls the
+        host materialisation: ``"full"`` keeps the per-step outputs and
+        emits the sequential path's exact ``StepRecord`` stream;
+        ``"summary"`` keeps a per-update reward/p99 summary (convergence
+        curves, no records); ``"off"`` per-update loss scalars only. Both
+        fold the chosen (lever, bin) pairs into a device count tensor for
+        the replay.
+
+        An epoch crossing the agent's exploit warm-up boundary runs two
+        bodies (exploitation is static in the captured batch). Returns
+        ``(stats_list, records)``; ``records`` is ``[]`` unless
+        ``records="full"``."""
+        if k <= 0:
+            return [], []
+        if records not in ("full", "summary", "off"):
+            raise ValueError(f"records={records!r} (full|summary|off)")
+        if self._inflight or self._carry is not None:
+            raise RuntimeError("run_epoch with episode batches in flight")
+        cfgr, env = self.cfgr, self.env
+        agent = cfgr.agent
+        N, S = env.n_clusters, cfgr.steps_per_episode
+        if explore:
+            w = min(max(agent.f_warmup_updates - agent.n_updates, 0), k)
+            segments = [(kk, ex) for kk, ex in ((w, False), (k - w, True))
+                        if kk > 0]
+        else:
+            segments = [(k, False)]
+        greedy = not explore
+
+        self._load_fresh()
+        self._epoch_t0 = time.perf_counter()
+        sh_spec = cfgr.shield
+        # shield runs ALSO need the pre-epoch indices in "full" mode: a
+        # fallback step reverts a whole row to LKG, which the per-lever
+        # record stream cannot express — final configs re-sync from indices
+        idx0 = (None if records == "full" and sh_spec is None
+                else self._bufs[0].cpu().numpy())
+        if records != "full":
+            shape = (len(self._table.specs), self._hw_B)
+            if self._counts is None or tuple(self._counts.shape) != shape:
+                self._counts = torch.zeros(shape, dtype=torch.int32,
+                                           device=self.device)
+            self._counts.zero_()
+
+        ys_segs: list = []
+        for k_seg, exploit in segments:
+            prog = self._epoch_body(self._skey(exploit, greedy), passes,
+                                    records)
+            ys = []
+            for _ in range(k_seg):
+                EPOCH_DISPATCHES[0] += 1
+                ys.append({name: v.clone() for name, v in prog().items()})
+            ys_segs.append((k_seg, {name: torch.stack([y[name] for y in ys])
+                                    for name in ys[0]}))
+        _sync(self.device)
+        self.last_wall_s = time.perf_counter() - self._epoch_t0
+        agent.adopt_update(agent.params, agent.opt_state, k)
+        total_steps = k * passes * N * S
+        self.chaos.add_wall(self.last_wall_s)
+        carry, self._carry = self._carry, None
+        config_idx_f = self._adopt(carry)
+
+        gen_s = self.last_wall_s / max(total_steps, 1)
+        if records == "full":
+            stats_list, recs = self._epoch_full(ys_segs, N, S, passes,
+                                                gen_s)
+            if sh_spec is not None:
+                touched = np.zeros((N, self._table.n_levers), bool)
+                rows = np.arange(N)[:, None]
+                for k_seg, ys in ys_segs:
+                    lv = _np(ys["lever"]).reshape(k_seg * passes, N, S)
+                    for chunk in lv:
+                        touched[rows, chunk] = True
+                self._sync_configs(idx0, _np(config_idx_f), touched)
+        else:
+            stats_list = self._epoch_summary(ys_segs, self._counts, idx0,
+                                             config_idx_f, N, S, passes)
+            recs = []
+        cfgr._last_fleet_windows = None   # host-loop cache is stale now
+        return stats_list, recs
+
+    def _epoch_body(self, skey: tuple, passes: int, rec_mode: str) -> Program:
+        """The captured body of one epoch update: ``passes`` chained episode
+        groups, the policy update on their stacked outputs (the agent's
+        buffers, in place) and the records mode's per-update outputs —
+        the per-step outputs for ``"full"``, the (lever, bin) counts and
+        the summary reductions otherwise."""
+        agent = self.cfgr.agent
+        slo = skey[8] is not None
+        slo_ms = float(self.cfgr.slo_ms)
+        shield = skey[11] is not None
+        B = skey[13]
+
+        def body(draws) -> dict:
+            groups = [self._chained_episode(draws, skey)
+                      for _ in range(passes)]
+            b = groups[0] if passes == 1 else {
+                name: torch.cat([g[name] for g in groups], dim=0)
+                for name in groups[0]}
+            if rec_mode != "full":
+                flat = (b["lever"] * B + b["bin"]).reshape(-1)
+                self._counts.view(-1).index_add_(
+                    0, flat, torch.ones_like(flat, dtype=torch.int32))
+            mask = torch.ones(b["actions"].shape, dtype=torch.float32,
+                              device=self.device)
+            loss, first = agent._update_in_place(
+                b["states"], b["actions"], b["rewards"], mask)
+            y = {"pg_loss": loss, "mean_return": first}
+            if rec_mode == "full":
+                y.update({name: v for name, v in b.items()
+                          if name != "states"})
+                return y
+            y["reward_sum"] = b["rewards"].sum()
+            y["p99_max"] = b["p99_ms"].max()
+            if slo:
+                y["breach_windows"] = (b["breach_frac"] > 0.0).sum()
+                y["breach_frac_sum"] = b["breach_frac"].sum()
+            elif slo_ms > 0.0:
+                y["breach_windows"] = (b["p99_ms"] > slo_ms).sum()
+            if shield:
+                y["shield_clamped"] = b["shield_clamped"].sum()
+                y["shield_fallbacks"] = b["shield_fallback"].sum()
+                y["budget_exhaustions"] = b["budget_out"].any(dim=1).sum()
+            if rec_mode == "summary":
+                y["reward_mean"] = b["rewards"].mean(dim=1)
+                y["p99_mean"] = b["p99_ms"].mean(dim=1)
+                y["p99_last"] = b["p99_ms"][:, -1]
+            return y
+
+        return self._program(("epoch", skey, passes, rec_mode), body)
+
+    def _epoch_full(self, ys_segs, N, S, passes, gen_s):
+        """Materialise a ``records="full"`` epoch by replaying
+        ``_materialise`` per (update, pass) chunk — record order, §2.4.1
+        replay order and chaos accounting match the sequential schedule
+        exactly."""
+        env = self.env
+        configs = self._epoch_configs
+        stats_list: list = []
+        recs: list = []
+        for k_seg, ys in ys_segs:
+            for i in range(k_seg):
+                for p in range(passes):
+                    sl = slice(p * N, (p + 1) * N)
+                    outs = {k2: v[i, sl] for k2, v in ys.items()
+                            if k2 not in ("pg_loss", "mean_return")}
+                    configs = self._materialise(
+                        {"outs": outs, "S": S}, configs, recs, gen_s)
+                stats_list.append(
+                    {"pg_loss": float(ys["pg_loss"][i]),
+                     "mean_return": float(ys["mean_return"][i]),
+                     "episodes": N * passes, "steps": N * passes * S})
+        env.configs = configs
+        env.invalidate()
+        return stats_list, recs
+
+    def _epoch_summary(self, ys_segs, counts, idx0, config_idx_f,
+                       N, S, passes):
+        """Host pass for ``records="summary"|"off"``: fold the per-update
+        scalars into ``ChaosCounters``, replay the device-side (lever, bin)
+        count tensor into the adaptive oracle in ONE pass, and rebuild
+        ``env.configs`` from the final integerised indices (levers still at
+        their initial index keep their original dict value).
+
+        The count tensor compresses away the assignment ORDER the §2.4.1
+        streak rules watch, so the replay reconstructs the maximum-entropy
+        order consistent with the counts: each bin's occurrences spread
+        evenly across the epoch. A same-bin streak then survives only when
+        one bin truly dominated the epoch's choices — a sorted
+        ``np.repeat`` replay would instead fabricate a run per bin and
+        fire spurious splits (halving ``_hits`` each time)."""
+        cfgr, env, table = self.cfgr, self.env, self._table
+        stats_list: list = []
+        for k_seg, ys in ys_segs:
+            ys = {k2: _np(v) for k2, v in ys.items()}
+            self.chaos.windows += k_seg * passes * N * S
+            self.chaos.reward_sum += float(ys["reward_sum"].sum())
+            self.chaos.p99_max_ms = max(self.chaos.p99_max_ms,
+                                        float(ys["p99_max"].max()))
+            if "breach_windows" in ys:
+                self.chaos.breached_windows += int(
+                    ys["breach_windows"].sum())
+            if "breach_frac_sum" in ys:
+                self.chaos.breach_frac_sum += float(
+                    ys["breach_frac_sum"].sum())
+            if "shield_clamped" in ys:
+                self.shield.clamped_actions += int(
+                    ys["shield_clamped"].sum())
+                self.shield.fallbacks += int(ys["shield_fallbacks"].sum())
+                self.shield.budget_exhaustions += int(
+                    ys["budget_exhaustions"].sum())
+            for i in range(k_seg):
+                st = {"pg_loss": float(ys["pg_loss"][i]),
+                      "mean_return": float(ys["mean_return"][i]),
+                      "episodes": N * passes, "steps": N * passes * S}
+                if "reward_mean" in ys:
+                    st["reward_mean"] = float(ys["reward_mean"][i].mean())
+                    st["p99_mean_ms"] = float(ys["p99_mean"][i].mean())
+                    st["p99_ms"] = float(ys["p99_last"][i][-1])
+                stats_list.append(st)
+        # ---- one-pass §2.4.1 replay from the device count tensor ----
+        bins = cfgr.disc.bins
+        counts_np = _np(counts)
+        names = table.names
+        for li in np.nonzero(counts_np.any(axis=1))[0]:
+            dyn = bins.get(names[li])
+            if dyn is not None:
+                c = counts_np[li]
+                reps = np.repeat(np.arange(c.size), c)
+                pos = np.concatenate([(np.arange(ci) + 0.5) / ci
+                                      for ci in c if ci])
+                dyn.record_many(reps[np.argsort(pos, kind="stable")])
+        # ---- final configs from the integerised indices ----
+        idx_f = _np(config_idx_f)
+        configs = [dict(c) for c in self._epoch_configs]
+        val_cache: dict = {}
+        for ci, li in zip(*np.nonzero(idx_f != idx0)):
+            kv = (int(li), int(idx_f[ci, li]))
+            val = val_cache.get(kv)
+            if val is None:
+                val = val_cache[kv] = table.value_of(*kv)
+            configs[ci][names[li]] = val
+        env.configs = configs
+        env.invalidate()
+        return stats_list
+
     def run_async(self, *, explore: bool = True, greedy: bool = False):
-        """Enqueue one fused episode batch and return its device-resident
-        (N, S) batch. Consecutive calls before ``finalize`` chain on the
-        device-carried loop state; ``finalize`` adopts the final state and
-        materialises every pending batch's host bookkeeping."""
+        """Enqueue one fused episode batch (its captured program) and return
+        its device-resident (N, S) batch. Consecutive calls before
+        ``finalize`` chain on the carry buffers; ``finalize`` adopts the
+        final state and materialises every pending batch's host
+        bookkeeping."""
         cfgr = self.cfgr
         if self._carry is None:
-            carry = self._fresh_inputs()
-            if self._R_max:
-                carry = carry + (self._hist,)  # survives while configs do
-            if cfgr.shield is not None:
-                # pre-batch indices: a fallback reverts whole rows to LKG,
-                # so finalize re-syncs the configs from index differences
-                self._idx0 = carry[0].cpu().numpy()
-                carry = carry + tuple(self._shield)
+            self._load_fresh()
             self._epoch_t0 = time.perf_counter()
-        else:
-            carry = self._carry
         exploit = cfgr.agent.exploit_ready(explore=explore)
         greedy = bool(greedy or not explore)
-        S = cfgr.steps_per_episode
-        carry, outs = self._episode(self.env._dev.draws.episode(), carry,
-                                    S=S, exploit=exploit, greedy=greedy)
-        self._carry = carry
-        self._inflight.append({"outs": outs, "S": S})
+        skey = self._skey(exploit, greedy)
+        prog = self._program(
+            ("episode", skey),
+            lambda draws: self._chained_episode(draws, skey))
+        # the outputs live in the program's memory: the next replay (a
+        # chained pass, a pipelined group) overwrites them
+        outs = {k: v.clone() for k, v in prog().items()}
+        self._inflight.append({"outs": outs, "S": cfgr.steps_per_episode})
         return {"states": outs["states"], "actions": outs["actions"],
                 "rewards": outs["rewards"]}
 
+    def _load_fresh(self) -> None:
+        """Fill the carry buffers for the first batch of an epoch: the
+        fresh inputs, the deploy ring (the pre-episode config at every depth
+        when none survives) and the shield carry."""
+        carry = self._fresh_inputs()
+        if self._R_max:
+            hist = self._hist      # survives while the configs do
+            if hist is None:
+                hist = carry[0][None].expand(self._R_max + 1, -1, -1)
+            carry = carry + (hist,)
+        if self.cfgr.shield is not None:
+            carry = carry + tuple(self._shield)
+        if self._bufs is None or [(b.shape, b.dtype) for b in self._bufs] \
+                != [(x.shape, x.dtype) for x in carry]:
+            # new addresses: the programs that read the old ones go too
+            self._bufs = tuple(x.clone(memory_format=torch.contiguous_format)
+                               for x in carry)
+            self._programs.clear()
+        else:
+            for buf, x in zip(self._bufs, carry):
+                buf.copy_(x)
+        if self.cfgr.shield is not None:
+            # pre-batch indices: a fallback reverts whole rows to LKG, so
+            # finalize re-syncs the configs from index differences
+            self._idx0 = self._bufs[0].cpu().numpy()
+        self._carry = self._bufs
+
     def _fresh_inputs(self) -> tuple:
         """Host-side packing for the first batch of an epoch: re-pack the
-        integerised lever table from the (possibly adapted) oracle, pack the
-        workload table, borrow the engine's queueing state."""
+        integerised lever table from the (possibly adapted) oracle into the
+        table tensors, pack the workload table, borrow the engine's
+        queueing state."""
         cfgr, env = self.cfgr, self.env
         dev = env._dev
         device = self.device
@@ -443,21 +827,30 @@ class DeviceEpisodeRunner:
         if repack:
             table = DeviceLeverTable.from_discretiser(cfgr.disc)
             self._table = table
+            # padded up the bin ladder, so a split inside a rung re-packs
+            # into the same tensors (and the same captured programs)
             B_pad = max(_bucket(table.max_bins, _BIN_BUCKETS), self._hw_B)
+            if B_pad != self._hw_B:
+                self._programs.clear()   # a new rung: new table shapes
             self._hw_B = B_pad
             packed_tabs = build_packed_tables(table, pad_to=B_pad)
             self._cc_pairs = tuple((k, li) for k, li, _ in packed_tabs)
-            self._tabs = {k: torch.as_tensor(tab, **f32)
+            # a split inside the rung re-packs into the same tensors, which
+            # the captured programs read at their addresses
+            old = self._tabs or {}
+            self._tabs = {k: _into(old.get(k), torch.as_tensor(tab, **f32))
                           for k, li, tab in packed_tabs}
-            self._kind_code = torch.as_tensor(table.kind_code, **i64)
-            self._n_valid = torch.as_tensor(table.n_valid, **i64)
-            self._reboot_f = torch.as_tensor(
-                [1.0 if s.reboot else 0.0 for s in table.specs], **f32)
-            self._rejit_f = torch.as_tensor(
+            self._kind_code = _into(self._kind_code, torch.as_tensor(
+                table.kind_code, **i64))
+            self._n_valid = _into(self._n_valid, torch.as_tensor(
+                table.n_valid, **i64))
+            self._reboot_f = _into(self._reboot_f, torch.as_tensor(
+                [1.0 if s.reboot else 0.0 for s in table.specs], **f32))
+            self._rejit_f = _into(self._rejit_f, torch.as_tensor(
                 [1.0 if s.group in ("kernel", "memory", "parallel") else 0.0
-                 for s in table.specs], **f32)
-            self._ranked = torch.as_tensor(
-                [table.index_of[n] for n in cfgr.levers], **i64)
+                 for s in table.specs], **f32))
+            self._ranked = _into(self._ranked, torch.as_tensor(
+                [table.index_of[n] for n in cfgr.levers], **i64))
         table = self._table
         if self._wl_dev is None:
             tbl = pack_device_workloads(env.workloads)
@@ -538,28 +931,7 @@ class DeviceEpisodeRunner:
         self.last_wall_s = time.perf_counter() - self._epoch_t0
         total_steps = sum(e["S"] for e in inflight) * env.n_clusters
         self.chaos.add_wall(self.last_wall_s)
-
-        (config_idx_f, backlog_f, sfree_f, clock_f, last_service_f,
-         reconfigs_f, lo_f, hi_f, per_node_f) = carry[:9]
-        pos = 9
-        self._hist = None
-        if self._R_max:
-            self._hist = carry[9]
-            pos = 10
-        sh_spec = cfgr.shield
-        if sh_spec is not None:
-            self._shield = tuple(carry[pos:pos + 4])
-            self.shield.trust_radius = float(
-                self._shield[1].cpu().numpy().mean())
-        env._dev.adopt_loop_state(backlog_f, sfree_f, clock_f)
-        env.reconfigs[:] = reconfigs_f.cpu().numpy().astype(np.int64)
-        env.last_service[:] = last_service_f.cpu().numpy().astype(np.float64)
-        rng_range = cfgr.encoder._range
-        rng_range.lo = lo_f.cpu().numpy().astype(np.float64)
-        rng_range.hi = hi_f.cpu().numpy().astype(np.float64)
-        self._per_node = per_node_f
-        self._config_idx = config_idx_f
-        self._clock_mark = env.clock.copy()
+        config_idx_f = self._adopt(carry)
 
         configs = self._epoch_configs
         records: list = []
@@ -568,7 +940,7 @@ class DeviceEpisodeRunner:
             configs = self._materialise(entry, configs, records, gen_s)
         env.configs = configs
         env.invalidate()
-        if sh_spec is not None:
+        if cfgr.shield is not None:
             N = env.n_clusters
             touched = np.zeros((N, self._table.n_levers), bool)
             rows = np.arange(N)[:, None]
@@ -577,6 +949,35 @@ class DeviceEpisodeRunner:
             self._sync_configs(self._idx0, config_idx_f.cpu().numpy(),
                                touched)
         return records
+
+    def _adopt(self, carry: tuple):
+        """Hand a finished epoch's final state (the carry buffers) back: the
+        queueing state to the engine (as copies: the buffers are the next
+        batch's), the host mirrors to the env and the encoder, the carried
+        leaves to the runner. Returns the final config indices."""
+        cfgr, env = self.cfgr, self.env
+        (config_idx_f, backlog_f, sfree_f, clock_f, last_service_f,
+         reconfigs_f, lo_f, hi_f, per_node_f) = carry[:9]
+        pos = 9
+        self._hist = None
+        if self._R_max:
+            self._hist = carry[9]
+            pos = 10
+        if cfgr.shield is not None:
+            self._shield = tuple(carry[pos:pos + 4])
+            self.shield.trust_radius = float(
+                self._shield[1].cpu().numpy().mean())
+        env._dev.adopt_loop_state(backlog_f.clone(), sfree_f.clone(),
+                                  clock_f)
+        env.reconfigs[:] = reconfigs_f.cpu().numpy().astype(np.int64)
+        env.last_service[:] = last_service_f.cpu().numpy().astype(np.float64)
+        rng_range = cfgr.encoder._range
+        rng_range.lo = lo_f.cpu().numpy().astype(np.float64)
+        rng_range.hi = hi_f.cpu().numpy().astype(np.float64)
+        self._per_node = per_node_f
+        self._config_idx = config_idx_f
+        self._clock_mark = env.clock.copy()
+        return config_idx_f
 
     def _sync_configs(self, idx0: np.ndarray, idx_f: np.ndarray,
                       touched: np.ndarray) -> None:

@@ -20,6 +20,13 @@ as the reference's do, so the same probabilities give the same actions;
 ``PhiloxDraws`` through ``_sample_actions``. ``update`` pads host
 ``Trajectory``s onto ``update_batch``.
 
+The update is one captured program per (episodes, steps) shape on the card
+(``repro_torch.core.graphs``): the parameters and the rmsprop state live in
+fixed buffers that every update overwrites in place, so the captured update
+and the captured episode batches read them at fixed addresses.
+``adopt_update`` takes leaves computed outside ``update_batch`` (the epoch
+program's) into those buffers.
+
 The reference keeps its weights as ``{"w1" (D, H), "b1", "w2" (H, A), "b2"}``;
 ``ReinforceAgent.load_reference_params`` carries such a dict (and
 optionally the rmsprop state) into the module, transposing the weights to
@@ -35,6 +42,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from repro_torch.core.graphs import Program
 from repro_torch.engine.draws import PhiloxDraws
 from repro_torch.optim import rmsprop
 
@@ -237,7 +245,11 @@ class ReinforceAgent:
         self.policy = PolicyNet(state_dim, self.n_actions, hidden,
                                 generator=gen).to(self.device)
         self.opt = rmsprop(lr=lr)
+        #: the rmsprop state's fixed buffers (written in place by updates)
         self.opt_state = self.opt.init(self.params)
+        #: (states shape, actions shape) -> (update program, its input
+        #: buffers: states, actions, rewards, mask)
+        self._updates: dict = {}
 
     @property
     def params(self) -> dict:
@@ -255,14 +267,14 @@ class ReinforceAgent:
                 v = torch.tensor(np.asarray(params[ref]), dtype=torch.float32)
                 own[name].copy_(v.T if transpose else v)
         if opt_state is not None:
-            nu = {}
-            for ref, (name, transpose) in _REF_NAMES.items():
-                v = torch.as_tensor(np.asarray(opt_state["nu"][ref]),
-                                    dtype=torch.float32, device=self.device)
-                nu[name] = v.T.contiguous() if transpose else v
-            self.opt_state = {"nu": nu, "count": torch.as_tensor(
-                int(np.asarray(opt_state["count"])), dtype=torch.int32,
-                device=self.device)}
+            nu = self.opt_state["nu"]
+            with torch.no_grad():
+                for ref, (name, transpose) in _REF_NAMES.items():
+                    v = torch.as_tensor(np.asarray(opt_state["nu"][ref]),
+                                        dtype=torch.float32)
+                    nu[name].copy_(v.T if transpose else v)
+                self.opt_state["count"].fill_(
+                    int(np.asarray(opt_state["count"])))
 
     # -- acting --------------------------------------------------------------
     def action_decode(self, a: int) -> tuple[str, int]:
@@ -335,10 +347,11 @@ class ReinforceAgent:
     # -- learning (Algorithm 1) -----------------------------------------------
     def update_batch_async(self, states, actions, rewards, mask=None):
         """One REINFORCE batch update from device-resident (N, T) episode
-        tensors. The update is enqueued on the device at once — the policy
-        module's parameters are overwritten IN PLACE with the new values —
-        and the returned thunk blocks on the reported scalars, so the
-        caller's host work between the two overlaps the device update."""
+        tensors. The update is enqueued on the device at once — its
+        program for this shape (captured on the card) overwrites the
+        parameters and the rmsprop state in place — and the returned thunk
+        blocks on the reported scalars, so the caller's host work between
+        the two overlaps the device update."""
         dev = self.device
         states = torch.as_tensor(states, dtype=torch.float32, device=dev)
         actions = torch.as_tensor(actions, device=dev).to(torch.int64)
@@ -347,21 +360,57 @@ class ReinforceAgent:
             mask = torch.ones(actions.shape, dtype=torch.float32, device=dev)
         else:
             mask = torch.as_tensor(mask, dtype=torch.float32, device=dev)
-        own = self.params
-        new, self.opt_state, loss, first = _update_step(
-            self.policy, own, self.opt_state, states, actions, rewards, mask,
-            opt=self.opt, gamma=self.gamma, entropy_beta=self.entropy_beta)
-        with torch.no_grad():
-            for k, p in own.items():
-                p.copy_(new[k])
+        key = (tuple(states.shape), tuple(actions.shape))
+        if key not in self._updates:
+            bufs = (torch.empty_like(states), torch.empty_like(actions),
+                    torch.empty_like(rewards), torch.empty_like(mask))
+            self._updates[key] = (Program(
+                ("update",) + key, lambda: self._update_in_place(*bufs),
+                dev), bufs)
+        prog, bufs = self._updates[key]
+        for buf, x in zip(bufs, (states, actions, rewards, mask)):
+            buf.copy_(x)
+        # the outputs live in the program's memory: copy them before the
+        # next update (a pipeline enqueues it before this thunk runs)
+        loss, first = (x.clone() for x in prog())
+        steps = mask.sum()
         self.n_updates += 1
         episodes = int(actions.shape[0])
 
         def stats() -> dict:
             return {"pg_loss": float(loss), "mean_return": float(first),
-                    "episodes": episodes, "steps": int(mask.sum().item())}
+                    "episodes": episodes, "steps": int(steps.item())}
 
         return stats
+
+    def _update_in_place(self, states, actions, rewards, mask):
+        """``_update_step`` with the new parameters and rmsprop state
+        written into the agent's own buffers. Returns (loss, first)."""
+        own = self.params
+        new, opt_state, loss, first = _update_step(
+            self.policy, own, self.opt_state, states, actions, rewards, mask,
+            opt=self.opt, gamma=self.gamma, entropy_beta=self.entropy_beta)
+        self._write_state(new, opt_state)
+        return loss, first
+
+    def _write_state(self, params: dict, opt_state: dict) -> None:
+        """Copy parameter and rmsprop leaves into the agent's buffers (a
+        leaf that already is the buffer is left as it is)."""
+        with torch.no_grad():
+            pairs = [(self.params[k], params[k]) for k in params]
+            pairs += [(self.opt_state["nu"][k], v)
+                      for k, v in opt_state["nu"].items()]
+            pairs.append((self.opt_state["count"], opt_state["count"]))
+            for dst, src in pairs:
+                if dst is not src:
+                    dst.copy_(src)
+
+    def adopt_update(self, params: dict, opt_state: dict, k: int = 1) -> None:
+        """Adopt post-update parameters and rmsprop state computed outside
+        ``update_batch`` (the epoch program runs ``k`` updates on the
+        device); the exploit warm-up bookkeeping advances by ``k``."""
+        self._write_state(params, opt_state)
+        self.n_updates += int(k)
 
     def update_batch(self, states, actions, rewards, mask=None) -> dict:
         """``update_batch_async`` and wait for its stats."""

@@ -12,9 +12,10 @@ and examples use:
 
 Every window of collect and tune is a ``fleet_tick`` kernel launch on the
 env's device; the k-means and the Lasso path (the ``lasso_cd`` kernel) run
-on ``device``, the env's device unless named. The serve handoff
-(``build_serve_controller``) and the epoch mega-scan (``run(epoch_k>1)``)
-raise ``NotImplementedError`` naming their ROADMAP items.
+on ``device``, the env's device unless named. ``run(epoch_k>1)`` tunes
+through the epoch mega-scan (``Configurator.tune_megascan``). The serve
+handoff (``build_serve_controller``) raises ``NotImplementedError`` naming
+its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -363,19 +364,23 @@ class AutoTuner:
 
     def run(self, n_updates: int, *, collect_windows: int = 120,
             configurator_kw: Optional[dict] = None, callback=None,
-            epoch_k: int = 1):
+            epoch_k: int = 1, records: str = "full"):
         """collect -> analyse -> tune, in one call (examples/launcher).
-        ``epoch_k > 1`` (the epoch mega-scan) is not ported and raises."""
-        if epoch_k > 1:
-            raise NotImplementedError(
-                "the epoch mega-scan is not ported yet (ROADMAP queue 1, "
-                "item 4: run_epoch and tune_megascan)")
+
+        ``epoch_k > 1`` switches the online loop to the epoch mega-scan
+        (DESIGN.md §15): updates run in epochs of ``epoch_k`` through
+        ``Configurator.tune_megascan`` — the callback still fires per
+        update, but only at epoch boundaries. Requires the fused device
+        loop."""
         if not self.matrix.metric_rows:
             self.collect(collect_windows)
         if not self.ranked_levers:
             self.analyse()
         if self.configurator is None:
             self.build_configurator(**(configurator_kw or {}))
+        if epoch_k > 1:
+            return self.configurator.tune_megascan(
+                n_updates, k=epoch_k, records=records, callback=callback)
         return self.configurator.tune(n_updates, callback=callback)
 
     # -- persistence -------------------------------------------------------------

@@ -22,6 +22,13 @@ source* for the same draws by the same addresses:
 CUDA) whose address tree collapses to a single stream. A test can pass any
 object with these methods — e.g. one that replays the reference's threefry
 draws — and nothing on the main path needs to know.
+
+A CUDA graph draws from a generator other than the default one only when
+the generator is registered with it (``PhiloxDraws.register``); each replay
+then takes the Philox offsets the eager calls would have taken, in the same
+order, so a replayed program and its eager run draw the same numbers. Only
+``PhiloxDraws`` can be captured: a source that draws on the host (the tests'
+threefry replay) runs eagerly, on the CPU.
 """
 from __future__ import annotations
 
@@ -41,6 +48,12 @@ class PhiloxDraws:
         self.device = torch.device(device)
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(int(seed))
+
+    def register(self, graph) -> None:
+        """Let ``graph`` (a ``torch.cuda.CUDAGraph`` before its capture)
+        draw from this source: every replay advances the stream by what the
+        captured calls take."""
+        graph.register_generator_state(self.gen)
 
     # the address tree (window / episode / step) is one stream here
     def window(self) -> "PhiloxDraws":

@@ -11,6 +11,10 @@ inputs.
   contiguity and shapes, allocates the outputs with ``torch.empty``, launches
   the kernel on the current stream and counts the launch in ``LAUNCHES``; a
   failed build or launch raises. On a CPU tensor it runs the plain version.
+  Under CUDA-graph capture it records the launch into the graph instead of
+  making it: the call counts in ``CAPTURED``, and the graph's owner
+  (``repro_torch.core.graphs.Program``) adds the launches a graph holds to
+  ``LAUNCHES`` at every replay.
 * ``fleet_tick_window_ref`` is the plain PyTorch version: the tick loop in
   torch ops, the lanes sorted with ``torch.sort`` (exact, so the order
   statistics equal the kernel's bitonic network value for value) and the
@@ -51,6 +55,8 @@ CONSTS_ROWS = 16
 
 #: kernel launches (the main path's proof that it ran on the kernel)
 LAUNCHES = 0
+#: launches recorded into CUDA graphs during their capture (made at replay)
+CAPTURED = 0
 
 SOURCE = "fleet_tick.cu"
 #: clusters a block takes (a tile: one 32-byte sector of every row), ticks
@@ -332,7 +338,7 @@ def fleet_tick_window(state, consts, rate, size, z, u_strag, u_raw, u_fail,
     ys rows = service, queue_delay, batch, processed, straggler, failure,
     backlog_after; stats rows = lane_sum, p50, p95, p99, max (seconds, valid
     at window ticks); head = ascending top-K window lane latencies."""
-    global LAUNCHES
+    global LAUNCHES, CAPTURED
     kw = dict(noise=noise, retention_s=retention_s,
               straggler_prob=straggler_prob, slo=slo, shi=shi)
     if not state.is_cuda:
@@ -371,7 +377,10 @@ def fleet_tick_window(state, consts, rate, size, z, u_strag, u_raw, u_fail,
             retention_s, straggler_prob, slo, shi - slo, stream)
     if rc != 0:
         raise RuntimeError(f"fleet_tick kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED += 1
+    else:
+        LAUNCHES += 1
     return state_out, ys, stats, head
 
 

@@ -209,5 +209,8 @@ def test_unported_paths_raise_instead_of_falling_back():
     tuner = AutoTuner(FleetEnv(n=2, backend="torch", device="cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tuner.build_serve_controller([])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tuner.run(1, epoch_k=2)
+    # the epoch mega-scan is ported: epoch_k=2 runs through tune_megascan
+    tuner.run(1, collect_windows=24, epoch_k=2,
+              configurator_kw=dict(steps_per_episode=2, device_loop="on"))
+    assert tuner.configurator.agent.n_updates == 1
+    assert len(tuner.configurator.history) == 2 * 2 * 2

@@ -17,7 +17,9 @@ time where the checkout's phase measures one, else its host loop), for
 ``phase_tuner`` one line per run with each ``lasso_cd`` case's device time
 and analyse's seconds, for ``phase_chaos`` one line per run with the chaos
 and clean arms' windows/s and the two shield arms' windows/s and breach
-rates, and the card's name and power limit. Example: the RWKV-6 path on
+rates, for ``phase_graphs`` one line per run with each schedule's
+windows/s (sequential, pipelined, the epoch in its three records modes),
+and the card's name and power limit. Example: the RWKV-6 path on
 another seed, ``--phase phase_rwkv --kwargs '{"seed": 1}' .``
 """
 from __future__ import annotations
@@ -54,6 +56,9 @@ CHAOS = re.compile(r"chaos summary: chaos ([\d.]+) windows/s, clean ([\d.]+) "
                    r"windows/s, unshielded ([\d.]+) windows/s breach rate "
                    r"([\d.]+), shielded ([\d.]+) windows/s breach rate "
                    r"([\d.]+)")
+#: phase_graphs's per-mode lines: mode, then its windows/s over the chunks
+GRAPHS = re.compile(r"^  (seq|pipe2|full|summary|off)\s*: \d+ windows in "
+                    r"[\d.]+ s = ([\d.]+) windows/s", re.M)
 ANALYSE = re.compile(r"  analyse: ([\d.]+) s \(FA ([\d.]+), k-means ([\d.]+), "
                      r"Lasso ([\d.]+)\)")
 
@@ -66,7 +71,7 @@ def main(argv: list[str]) -> int:
     args = ap.parse_args(argv)
     json.loads(args.kwargs)
     facts = cs._gpu_facts()
-    rows, ssd, tuner, chaos = [], [], [], []
+    rows, ssd, tuner, chaos, graphs = [], [], [], [], []
     for i, root in enumerate(args.roots):
         path = Path(root).resolve()
         env = dict(os.environ, PYTHONPATH=str(path / "src"))
@@ -96,6 +101,10 @@ def main(argv: list[str]) -> int:
                          f"{m.group(2)} windows/s; unshielded {m.group(3)} "
                          f"windows/s, breach rate {m.group(4)}; shielded "
                          f"{m.group(5)} windows/s, breach rate {m.group(6)}")
+        modes = [f"{m.group(1)} {m.group(2)}"
+                 for m in GRAPHS.finditer(proc.stdout)]
+        if modes:
+            graphs.append(f"  run {i + 1} {root}: " + ", ".join(modes))
         m = ANALYSE.search(proc.stdout)
         if cases or m:
             tuner.append(f"  run {i + 1} {root}: lasso_cd " + "; ".join(cases)
@@ -116,6 +125,9 @@ def main(argv: list[str]) -> int:
     if chaos:
         print(f"chaos and shield arms at N=1024 [{facts}]:")
         print("\n".join(chaos))
+    if graphs:
+        print(f"the fused loop's schedules at N=1024, windows/s [{facts}]:")
+        print("\n".join(graphs))
     print(f"[{facts}]")
     return 0
 
