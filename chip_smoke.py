@@ -114,8 +114,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
             recorded), a profiled chunk per mode (busy share, host
             kernel-launch and graph-launch calls an update, peak and
             reserved memory) and cProfile's host split of sequential updates
+14. serve   the serve control plane (shadow -> canary -> promote/rollback)
+            on the captured fused loop, in the reference's acceptance
+            configuration (tests/test_serve.py: launch/serve.py's switching
+            roster, 240 s windows, 2 steps, k_promote 2, margin 0.02, 20 s
+            SLO, 2 evaluation windows, the degraded-stationary incumbent,
+            frozen bins): a 3-cycle service at N=16 through the kernel and
+            through its plain version (the same decisions, gate log and
+            incumbent, rewards within RTOL); 20 cycles at shadow N=1024,
+            canary 64 pairs, live 256 (its fleet_tick launches as the code
+            counts them, at least 1 promotion, no served config breached
+            during its winning canary, captures flat after cycle 4;
+            cycles/s, wall by phase, a profiled cycle, peak memory);
+            crash-resume at those sizes, bitwise against the uninterrupted
+            run, from a fresh controller and in place into captured
+            programs; epoch_k=2 (one epoch a cycle)
 
-The tuning loop's episode batches and updates (phases 4, 11, 12, 13) run
+The tuning loop's episode batches and updates (phases 4, 11-14) run
 as captured CUDA graphs from their second call at a shape
 (``repro_torch.core.graphs``; the first is the capture's eager warm-up, so
 phase 5's single greedy batch runs eagerly); a graph adds the fleet_tick
@@ -2049,6 +2064,281 @@ def _host_split(cfgr, k: int, facts: str, top: int = 12) -> None:
               f"{cum / k * 1e3:8.3f}) x{calls // k:<7d} {fn} ({where})")
 
 
+#: the serve plane at tuning scale (phase 14): the reference's acceptance
+#: run (tests/test_serve.py::test_twenty_cycle_switching_acceptance) with
+#: launch/serve.py's roster, window and steps, raised to the gate size
+SERVE_N, SERVE_PAIRS, SERVE_LIVE, SERVE_CYCLES = 1024, 64, 256, 20
+SERVE_KW = dict(window_s=240.0, steps_per_episode=2, k_promote=2,
+                margin=0.02, slo_ms=20_000.0, eval_windows=2,
+                incumbent={"max_batch_events": 120_000.0}, bin_kw=FROZEN)
+#: counters a resumed service must equal (wall clocks and the process-wide
+#: capture gauge excepted)
+_SERVE_SKIP = ("windows_per_s", "retraces")
+
+
+def _serve_ctl(N: int, pairs: int, live: int, *, seed: int = 0, ckdir=None,
+               **kw):
+    from repro_torch.launch.serve import switching_fleet
+    from repro_torch.serve import ServeController
+
+    return ServeController(switching_fleet(N), metrics=QUICK_METRICS,
+                           levers=QUICK_LEVERS, backend="torch", seed=seed,
+                           canary_pairs=pairs, n_live=live,
+                           checkpoint_dir=ckdir, **dict(SERVE_KW, **kw))
+
+
+def _service_state(ctl, after: int = 0) -> dict:
+    """What a resumed service must replay bitwise (host copies)."""
+    ag = ctl.cfgr.agent
+    probe = np.linspace(-1.0, 1.0, 64 * ag.state_dim,
+                        dtype=np.float32).reshape(64, ag.state_dim)
+    envs = (ctl.shadow_env, ctl.canary_env, ctl.live_env)
+    return {"greedy": ctl.greedy_actions(probe).tolist(),
+            "params": {k: v.detach().cpu() for k, v in ag.params.items()},
+            "nu": {k: v.cpu() for k, v in ag.opt_state["nu"].items()},
+            "count": int(ag.opt_state["count"]), "n_updates": ag.n_updates,
+            "gate": ctl.gate.log, "incumbent": ctl.incumbent,
+            "clocks": [e.clock.copy() for e in envs],
+            "reconfigs": [e.reconfigs.copy() for e in envs],
+            "configs": [e.current_configs() for e in envs],
+            "draws": [e._dev.draws.gen.get_state() for e in envs],
+            "counters": {k: v for k, v in ctl.counters.as_dict().items()
+                         if not ("wall" in k or k.endswith("_s")
+                                 or k in _SERVE_SKIP)},
+            "history": [r for r in ctl.history.rows() if r["cycle"] > after]}
+
+
+def _same_service(label: str, a: dict, b: dict) -> None:
+    for k in a["params"]:
+        if not torch.equal(a["params"][k], b["params"][k]):
+            raise AssertionError(f"{label}: parameter {k} differs")
+        if not torch.equal(a["nu"][k], b["nu"][k]):
+            raise AssertionError(f"{label}: rmsprop state {k} differs")
+    for k in ("clocks", "reconfigs"):
+        if not all(np.array_equal(x, y) for x, y in zip(a[k], b[k])):
+            raise AssertionError(f"{label}: {k} differ")
+    if not all(torch.equal(x, y) for x, y in zip(a["draws"], b["draws"])):
+        raise AssertionError(f"{label}: generator states differ")
+    for k in ("greedy", "count", "n_updates", "gate", "incumbent", "configs",
+              "counters", "history"):
+        if a[k] != b[k]:
+            raise AssertionError(f"{label}: {k} differs")
+    print(f"  {label}: bitwise equal (greedy actions, params, rmsprop "
+          f"state, {len(a['gate'])} gate events, clocks, configs, counters, "
+          f"{len(a['history'])} history rows, generator states)")
+
+
+def _serve_rewards(summaries) -> np.ndarray:
+    return np.array([[np.nan if s[k] is None else s[k] for k in
+                      ("cand_reward", "inc_reward", "live_reward")]
+                     for s in summaries], float)
+
+
+def _serve_check(dev) -> None:
+    """14(a): a 3-cycle service at N=16 through the kernel (its programs
+    captured) and through fleet_tick's plain version (programs eager), on
+    the same seeds: the same decisions, gate log and incumbent, rewards
+    within RTOL."""
+    from repro_torch.core import graphs
+    from repro_torch.kernels import fleet_tick as ft
+
+    def run():
+        ctl = _serve_ctl(16, 4, 8, seed=3)
+        return ctl, ctl.run(3)
+
+    kern, ks = run()
+    saved_fn, saved_call = ft.fleet_tick_window, graphs.Program.__call__
+    ft.fleet_tick_window = ft.fleet_tick_window_ref
+    graphs.Program.__call__ = lambda self: self.fn()
+    try:
+        plain, ps = run()
+    finally:
+        ft.fleet_tick_window, graphs.Program.__call__ = saved_fn, saved_call
+    strip = lambda log: [{k: v for k, v in e.items() if "reward" not in k}
+                         for e in log]
+    if [s["decision"] for s in ks] != [s["decision"] for s in ps]:
+        raise AssertionError(f"decisions: kernel {[s['decision'] for s in ks]}"
+                             f" vs plain {[s['decision'] for s in ps]}")
+    if strip(kern.gate.log) != strip(plain.gate.log):
+        raise AssertionError("gate logs differ between kernel and plain")
+    if kern.incumbent != plain.incumbent:
+        raise AssertionError("incumbents differ between kernel and plain")
+    a, b = _serve_rewards(ks), _serve_rewards(ps)
+    if not np.array_equal(np.isnan(a), np.isnan(b)) or not np.allclose(
+            a, b, rtol=RTOL, atol=0.0, equal_nan=True):
+        raise AssertionError(f"rewards: kernel {a} vs plain {b}")
+    fin = ~np.isnan(a)
+    err = float(np.max(np.abs(a[fin] - b[fin]) / np.abs(b[fin])))
+    print(f"  N=16, 3 cycles, kernel vs plain: decisions "
+          f"{[s['decision'] for s in ks]} equal, gate log ({len(kern.gate.log)}"
+          f" events) and incumbent equal, canary/live rewards max_rel "
+          f"{err:.3e} (rtol {RTOL})")
+
+
+def _serve_resume(dev, facts: str, tmp: Path) -> None:
+    """14(c): crash-resume after capture at the card-scale sizes. A runs 6
+    cycles; B checkpoints at cycle 3 and runs one more; C, fresh, restores
+    step 3 and runs 4-6; D is B restoring step 3 in place, its programs
+    captured, and running 4-6. C and D must equal A bitwise."""
+    from repro_torch.core.graphs import CAPTURE_COUNTS
+
+    size = (SERVE_N, SERVE_PAIRS, SERVE_LIVE)
+    t0 = time.perf_counter()
+    A = _serve_ctl(*size)
+    A.run(6)
+    ref = _service_state(A, after=3)
+    B = _serve_ctl(*size, ckdir=tmp / "ck")
+    B.run(3)
+    B.checkpoint()
+    B.run(1)
+    C = _serve_ctl(*size, ckdir=tmp / "ck")
+    assert C.restore(step=3) == 3 and C.cycle == 3
+    C.run(3)
+    _same_service("14(c) fresh controller C restored at cycle 3 vs A",
+                  ref, _service_state(C, after=3))
+    runner = B.cfgr._runner
+    graphs_before = {k: p.graph for k, p in runner._programs.items()
+                     if p.graph is not None}
+    captures = dict(CAPTURE_COUNTS)
+    assert B.restore(step=3) == 3 and B.cycle == 3
+    B.run(3)
+    replayed = [k for k, g in graphs_before.items()
+                if k in runner._programs and runner._programs[k].graph is g]
+    if not replayed or dict(CAPTURE_COUNTS) != captures:
+        raise AssertionError("in-place restore recaptured its programs: "
+                             f"{len(replayed)} kept, captures "
+                             f"{captures} -> {dict(CAPTURE_COUNTS)}")
+    _same_service(f"14(c) in-place restore D ({len(replayed)} graphs "
+                  "captured before the restore, replayed after it) vs A",
+                  ref, _service_state(B, after=3))
+    print(f"  14(c) took {time.perf_counter() - t0:.1f} s [{facts}]")
+
+
+def _serve_epoch(dev, facts: str, cycles: int = 4) -> None:
+    """14(d): epoch_k=2 at the card-scale sizes: one epoch (2 body
+    replays) a cycle, captures flat from cycle 3."""
+    from repro_torch.core.device_loop import CAPTURE_COUNTS, EPOCH_DISPATCHES
+
+    ctl = _serve_ctl(SERVE_N, SERVE_PAIRS, SERVE_LIVE, epoch_k=2)
+    deltas, caps, times = [], [], []
+    for _ in range(cycles):
+        d0, t0 = EPOCH_DISPATCHES[0], time.perf_counter()
+        ctl.run_cycle()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        deltas.append(EPOCH_DISPATCHES[0] - d0)
+        caps.append(sum(CAPTURE_COUNTS.values()))
+    if deltas != [2] * cycles or ctl.cfgr.agent.n_updates != 2 * cycles:
+        raise AssertionError(f"epoch_k=2: body replays a cycle {deltas}, "
+                             f"{ctl.cfgr.agent.n_updates} updates")
+    if len(set(caps[1:])) != 1:
+        raise AssertionError(f"epoch_k=2: captures grew after cycle 2: {caps}")
+    print(f"  14(d) epoch_k=2 at N={SERVE_N}: one epoch of 2 body replays a "
+          f"cycle ({deltas}), {ctl.cfgr.agent.n_updates} updates, captures "
+          f"flat from cycle 3 ({caps}); cycles "
+          f"{', '.join(f'{x:.4f}' for x in times)} s [{facts}]")
+
+
+def phase_serve_plane(dev, facts: str) -> dict:
+    """The serve control plane (shadow -> canary -> promote/rollback) on
+    the captured fused loop: kernel against plain at N=16, the card-scale
+    acceptance service, crash-resume after capture (fresh and in place),
+    epoch_k=2."""
+    import tempfile
+
+    from repro_torch.core.graphs import CAPTURE_COUNTS
+    from repro_torch.kernels import fleet_tick as ft
+
+    t_start = time.perf_counter()
+    _serve_check(dev)
+
+    # ---- 14(b): the card-scale service, its launches counted ----
+    ctl = _serve_ctl(SERVE_N, SERVE_PAIRS, SERVE_LIVE)
+    envs = (ctl.shadow_env, ctl.canary_env, ctl.live_env)
+    assert all(e.device.type == "cuda" for e in envs), ctl.device
+    assert ctl.cfgr.device_loop_reason() is None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    walls, phases, caps, summaries = [], [], [], []
+    t0 = time.perf_counter()
+    for _ in range(SERVE_CYCLES):
+        t1 = time.perf_counter()
+        summaries.append(ctl.run_cycle())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+        phases.append(dict(ctl.phase_s))
+        caps.append(dict(CAPTURE_COUNTS))
+    wall = time.perf_counter() - t0
+    launches = ft.LAUNCHES
+    c = ctl.counters
+    M = ctl.canary_pairs
+    evals = c.canary_windows // (2 * M * ctl.eval_windows)
+    S = ctl.cfgr.steps_per_episode
+    expected = (1 + SERVE_CYCLES * S + evals * ctl.eval_windows
+                + SERVE_CYCLES)
+    print(f"  fleet_tick launches {launches} (expected {expected}: 1 first "
+          f"observe + {SERVE_CYCLES} cycles x {S} shadow steps + {evals} "
+          f"canary evaluations x {ctl.eval_windows} + {SERVE_CYCLES} live "
+          f"windows), {launches / SERVE_CYCLES:.2f} a cycle")
+    if launches != expected:
+        raise AssertionError(f"serve launches {launches} != {expected}")
+    # a program captures at its second call: the exploit flip (after the
+    # 2 warm-up updates) builds the last one at cycle 3, captured at 4
+    if any(cp != caps[3] for cp in caps[4:]):
+        raise AssertionError(f"captures grew after cycle 4: {caps[3]} -> "
+                             f"{caps[-1]}")
+    if c.promotions < 1:
+        raise AssertionError(f"no promotion in {SERVE_CYCLES} cycles: "
+                             f"{ctl.gate.log}")
+    promoted = ctl.history.rows(role="promote")
+    for p in promoted:
+        adopt = [e["cycle"] for e in ctl.gate.log
+                 if e["event"] == "adopt" and e["config"] == p["config"]
+                 and e["cycle"] <= p["cycle"]][-1]
+        window = [r for r in ctl.history.rows(role="canary")
+                  if r["config"] == p["config"]
+                  and adopt <= r["cycle"] <= p["cycle"]]
+        if not window or any(r["breached"] for r in window):
+            raise AssertionError(f"served a config that breached during its "
+                                 f"winning canary: {p['cycle']}")
+    if ctl.incumbent != promoted[-1]["config"] or any(
+            cfg != ctl.incumbent for cfg in ctl.live_env.current_configs()):
+        raise AssertionError("the live fleet does not serve the last "
+                             "promotion")
+    mem = torch.cuda.max_memory_allocated()
+    w = np.array(walls)
+    ph = {k: np.array([p[k] for p in phases]) for k in phases[0]}
+    print(f"  {SERVE_CYCLES} cycles at shadow N={SERVE_N}, canary "
+          f"{2 * M}, live {ctl.live_env.n_clusters}: {wall:.3f} s = "
+          f"{SERVE_CYCLES / wall:.4f} cycles/s; per cycle min "
+          f"{w.min():.6f}, median {np.median(w):.6f}, max {w.max():.6f} s "
+          f"(cycle 1 carries the set-up) [{facts}]")
+    for k, v in ph.items():
+        print(f"    {k:7s} median {np.median(v):.6f} s, min {v.min():.6f}, "
+              f"max {v.max():.6f} (cycles 2-{SERVE_CYCLES}: median "
+              f"{np.median(v[1:]):.6f})")
+    print(f"  decisions {[s['decision'] for s in summaries]}; promotions "
+          f"{c.promotions}, rollbacks {c.rollbacks}, demotions "
+          f"{c.demotions}, holds {c.holds}; canary breached "
+          f"{c.canary_breached}/{c.canary_windows}, live breached "
+          f"{c.live_breached}/{c.live_windows}; live p99 {c.live_p99_ms:.1f} "
+          f"ms; captures {sum(caps[-1].values())}, flat after cycle 4; peak "
+          f"device memory {mem / 2**20:.1f} MiB [{facts}]")
+    prof = _profile(ctl.run_cycle, "serve cycle", facts, top=5)
+    print(f"  a profiled cycle: device busy {prof['busy_ms']:.2f} of "
+          f"{prof['wall_ms']:.2f} ms ({100 * prof['busy_ms'] / prof['wall_ms']:.1f}"
+          f" %) [{facts}]")
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        _serve_resume(dev, facts, Path(tmp))
+    _serve_epoch(dev, facts)
+    print(f"  phase 14 took {time.perf_counter() - t_start:.1f} s")
+    return {"launches": launches}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2147,13 +2437,16 @@ def main() -> int:
     print("[13] graphs: the fused loop's captured programs, the pipeline "
           "and the epoch")
     graphs_row = phase_graphs(dev, facts)
+    print("[14] serve: the control plane on the captured fused loop")
+    serve_plane_row = phase_serve_plane(dev, facts)
     kernels = [
         {"name": "fleet_tick_window", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fleet_tick.cu",
          "replaces": "src/repro/kernels/fleet_tick.py:387",
          "launches": main_row["launches"], **row, "library_ms": None,
          "launches_chaos": chaos_row["launches"],
-         "launches_graphs": graphs_row["launches"]},
+         "launches_graphs": graphs_row["launches"],
+         "launches_serve": serve_plane_row["launches"]},
         {"name": "flash_attention_bhsd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:88",

@@ -1,0 +1,182 @@
+"""Atomic, async checkpointing of trees of tensors (DESIGN.md §4 fault
+tolerance) — the port of ``repro.checkpoint.store``, on one device.
+
+* **Layout** (the reference's, byte for byte): one ``.npy`` per tree leaf
+  and a JSON manifest (step, extra, and each leaf's file, shape and
+  dtype), so a checkpoint written by either package reads back bitwise
+  through the other's store.
+* **Atomicity**: everything lands in ``<dir>/.tmp-<step>``; the final
+  ``rename`` to ``step_<n>`` is the commit point. A crash mid-write leaves
+  only a tmp dir that the next writer garbage-collects; ``latest`` never
+  points at a torn checkpoint.
+* **Async**: ``save_async`` snapshots to host memory synchronously (cheap)
+  and writes on a background thread. ``wait()`` joins before the next save
+  (single writer).
+* **Leaves** may be torch tensors (any device), numpy arrays or Python
+  scalars. A tensor goes to the host as ``.detach().cpu().numpy()``: its
+  dtype is kept, so f64 and int64 leaves never round.
+* **Restore** returns numpy leaves exactly as saved with ``host=True``;
+  by default each leaf is a tensor on the store's ``device``. The
+  reference's ``shardings=`` (reshard onto a mesh) waits for the fleet
+  mesh (ROADMAP queue 1, item 7): one card has no mesh.
+"""
+from __future__ import annotations
+
+import json
+import shutil
+import threading
+import time
+from pathlib import Path
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+PyTree = Any
+_SEP = "/"
+
+
+def _flatten(tree: PyTree) -> dict[str, Any]:
+    flat = {}
+
+    def walk(path, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(path + [str(k)], v)
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(path + [str(i)], v)
+        else:
+            flat[_SEP.join(path)] = node
+
+    walk([], tree)
+    return flat
+
+
+def _unflatten_into(skeleton: PyTree, flat: dict[str, Any]) -> PyTree:
+    def walk(path, node):
+        if isinstance(node, dict):
+            return {k: walk(path + [str(k)], v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(path + [str(i)], v) for i, v in enumerate(node)]
+        if isinstance(node, tuple):
+            return tuple(walk(path + [str(i)], v) for i, v in enumerate(node))
+        return flat[_SEP.join(path)]
+
+    return walk([], skeleton)
+
+
+class CheckpointStore:
+    """Directory of step_<n> checkpoints with a single async writer.
+    ``device`` is where ``restore`` puts tensors by default (the CPU unless
+    given)."""
+
+    def __init__(self, directory: str | Path, *, keep: int = 3, device=None):
+        self.dir = Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.keep = keep
+        self.device = torch.device(device if device is not None else "cpu")
+        self._thread: Optional[threading.Thread] = None
+        self.last_write_s = 0.0
+
+    # ------------------------------------------------------------------ save
+    def save(self, step: int, tree: PyTree, *, extra: Optional[dict] = None) -> Path:
+        self.wait()
+        return self._write(step, _to_host(_flatten(tree)), extra or {})
+
+    def save_async(self, step: int, tree: PyTree, *, extra: Optional[dict] = None) -> None:
+        self.wait()
+        host_flat = _to_host(_flatten(tree))  # snapshot before returning
+
+        def run():
+            self._write(step, host_flat, extra or {})
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def _write(self, step: int, host_flat: dict[str, np.ndarray], extra: dict) -> Path:
+        t0 = time.perf_counter()
+        for stale in self.dir.glob(".tmp-*"):
+            shutil.rmtree(stale, ignore_errors=True)  # GC torn writes
+        tmp = self.dir / f".tmp-{step}"
+        tmp.mkdir(parents=True)
+        manifest = {"step": step, "extra": extra, "leaves": {}}
+        for i, (key, arr) in enumerate(sorted(host_flat.items())):
+            fname = f"leaf_{i:05d}.npy"
+            np.save(tmp / fname, arr)
+            manifest["leaves"][key] = {
+                "file": fname, "shape": list(arr.shape), "dtype": str(arr.dtype)}
+        (tmp / "manifest.json").write_text(json.dumps(manifest))
+        final = self.dir / f"step_{step:08d}"
+        if final.exists():
+            shutil.rmtree(final)
+        tmp.rename(final)  # commit point
+        self._gc()
+        self.last_write_s = time.perf_counter() - t0
+        return final
+
+    def _gc(self) -> None:
+        steps = sorted(self.all_steps())
+        for s in steps[: -self.keep]:
+            shutil.rmtree(self.dir / f"step_{s:08d}", ignore_errors=True)
+
+    # --------------------------------------------------------------- restore
+    def all_steps(self) -> list[int]:
+        return sorted(int(p.name.split("_")[1]) for p in self.dir.glob("step_*"))
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def leaf_keys(self, step: Optional[int] = None) -> set[str]:
+        """Flat key set of a saved checkpoint (no leaf data loaded) — lets a
+        caller trim optional template keys (e.g. §16 shield carry) before
+        ``restore`` when resuming from a checkpoint that predates them."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {self.dir}")
+        d = self.dir / f"step_{step:08d}"
+        manifest = json.loads((d / "manifest.json").read_text())
+        return set(manifest["leaves"])
+
+    def restore(self, skeleton: PyTree, *, step: Optional[int] = None,
+                shardings: Optional[PyTree] = None,
+                host: bool = False) -> tuple[PyTree, int, dict]:
+        """Load into the structure of ``skeleton``. ``host=True`` returns
+        the numpy leaves exactly as saved; the default returns each leaf as
+        a tensor on the store's device, of the saved dtype."""
+        if shardings is not None:
+            raise NotImplementedError(
+                "restore(shardings=...): resharding onto a fleet mesh is not "
+                "ported yet (ROADMAP queue 1, item 7)")
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {self.dir}")
+        d = self.dir / f"step_{step:08d}"
+        manifest = json.loads((d / "manifest.json").read_text())
+        flat = {}
+        for key, info in manifest["leaves"].items():
+            arr = np.load(d / info["file"])
+            flat[key] = arr if host else _to_device(arr, self.device)
+        tree = _unflatten_into(skeleton, flat)
+        return tree, manifest["step"], manifest.get("extra", {})
+
+
+def _to_numpy(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+def _to_host(flat: dict[str, Any]) -> dict[str, np.ndarray]:
+    return {k: _to_numpy(v) for k, v in flat.items()}
+
+
+def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A saved leaf as a tensor of its own dtype on ``device``."""
+    return torch.from_numpy(arr.copy()).to(device)

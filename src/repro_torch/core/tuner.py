@@ -13,9 +13,9 @@ and examples use:
 Every window of collect and tune is a ``fleet_tick`` kernel launch on the
 env's device; the k-means and the Lasso path (the ``lasso_cd`` kernel) run
 on ``device``, the env's device unless named. ``run(epoch_k>1)`` tunes
-through the epoch mega-scan (``Configurator.tune_megascan``). The serve
-handoff (``build_serve_controller``) raises ``NotImplementedError`` naming
-its ROADMAP item.
+through the epoch mega-scan (``Configurator.tune_megascan``);
+``build_serve_controller`` hands the analysis to the continuous control
+plane (``repro_torch.serve.ServeController``).
 """
 from __future__ import annotations
 
@@ -357,10 +357,18 @@ class AutoTuner:
         return self.configurator
 
     def build_serve_controller(self, workloads, **kw):
-        """The §13 handoff to the continuous control plane: not ported."""
-        raise NotImplementedError(
-            "the serve control plane is not ported yet (ROADMAP queue 1, "
-            "item 5: ServeController)")
+        """§13 handoff from offline analysis to the continuous control
+        plane: the tuner's selected metrics + ranked levers seed a
+        ``ServeController`` whose shadow fleet keeps training forever, on
+        the tuner's device. ``workloads`` is the serve-time workload roster
+        (one per shadow cluster); remaining kwargs pass through to the
+        controller."""
+        assert self.selected_metrics and self.ranked_levers, "run analyse() first"
+        from repro_torch.serve import ServeController
+        kw.setdefault("seed", self.seed)
+        kw.setdefault("device", self.device)
+        return ServeController(workloads, metrics=self.selected_metrics,
+                               levers=self.ranked_levers, **kw)
 
     def run(self, n_updates: int, *, collect_windows: int = 120,
             configurator_kw: Optional[dict] = None, callback=None,

@@ -1,6 +1,7 @@
 """The 90-metric registry, the per-node series store (a copy of the
 reference's; the torch engine summarises windows on the device and does not
-use it), the fused loop's counters and the launcher's metrics-dump guard."""
+use it), the fused loop's and the serve loop's counters and the
+launchers' metrics-dump guard."""
 from repro_torch.monitoring.metrics import (
     DRIVER_METRICS,
     METRIC_NAMES,
@@ -9,6 +10,7 @@ from repro_torch.monitoring.metrics import (
     ChaosCounters,
     FleetSeriesStore,
     MetricDef,
+    ServeCounters,
     ShieldCounters,
     build_registry,
     flush_guard,
@@ -23,6 +25,7 @@ __all__ = [
     "ChaosCounters",
     "FleetSeriesStore",
     "MetricDef",
+    "ServeCounters",
     "ShieldCounters",
     "build_registry",
     "flush_guard",

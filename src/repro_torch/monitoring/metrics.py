@@ -259,15 +259,23 @@ _CHAOS_COUNTER_KEYS = frozenset(
 _SHIELD_COUNTER_KEYS = frozenset(
     {"clamped_actions", "fallbacks", "budget_exhaustions"})
 
+_SERVE_COUNTER_KEYS = frozenset(
+    {"cycles", "shadow_windows", "canary_windows", "canary_breached",
+     "live_windows", "live_breached", "promotions", "rollbacks",
+     "demotions", "holds"})
+
 def retrace_counts() -> int:
-    """Total kernel builds across the port's hand-written kernels. PyTorch
-    runs eagerly, so the only compile on the hot loop is the one-time
-    ``nvcc`` build of each kernel library; a steady-state loop builds each
-    once per process, so this total going up cycle-over-cycle means a
-    kernel library is being rebuilt — the port's analogue of the
-    reference's retrace counter, exposed as the same ``retraces`` gauge."""
+    """Total program compilations on the hot loop: the one-time ``nvcc``
+    build of each kernel library plus every CUDA-graph capture of the
+    fused loop's and the policy update's programs
+    (``core.graphs.CAPTURE_COUNTS``; on the CPU, programs built) — the
+    port's twin of the reference's jit-trace total. A steady-state serve
+    loop captures its program set once, so this total going up
+    cycle-over-cycle means programs are being recaptured; ``ServeCounters``
+    exposes it as the ``retraces`` gauge."""
+    from repro_torch.core import graphs
     from repro_torch.kernels import build
-    return int(build.BUILDS)
+    return int(build.BUILDS) + sum(graphs.CAPTURE_COUNTS.values())
 
 
 def _prometheus_text(prefix: str, values: dict, counter_keys) -> str:
@@ -283,6 +291,79 @@ def _prometheus_text(prefix: str, values: dict, counter_keys) -> str:
         lines.append(f"# TYPE {name} {kind}")
         lines.append(f"{name} {float(v):g}")
     return "\n".join(lines) + "\n"
+
+
+@dataclass
+class ServeCounters:
+    """Control-plane bookkeeping for the serve loop (DESIGN.md §13).
+
+    Counters (monotone): cycles, per-role window counts, SLO breach counts
+    on the canary and live fleets, and the gate outcome tally
+    (promotions / rollbacks / demotions / holds). Gauges: the latest live
+    reward/p99, the canary p99 high-water of the most recent evaluation,
+    and ``retraces`` — the process-wide ``retrace_counts()`` total the
+    controller samples each cycle (flat in steady state; climbing means
+    the device programs are being recompiled). ``prometheus_text`` renders
+    the ``/metrics``-style dump the launcher writes on every cycle and on
+    shutdown (``flush_guard``)."""
+
+    cycles: int = 0
+    shadow_windows: int = 0
+    canary_windows: int = 0
+    canary_breached: int = 0
+    live_windows: int = 0
+    live_breached: int = 0
+    promotions: int = 0
+    rollbacks: int = 0
+    demotions: int = 0
+    holds: int = 0
+    wall_s: float = 0.0
+    live_reward: float = 0.0
+    live_p99_ms: float = 0.0
+    last_canary_p99_ms: float = 0.0
+    retraces: int = 0
+
+    def inc(self, name: str, n: int = 1) -> None:
+        setattr(self, name, getattr(self, name) + int(n))
+
+    def add_wall(self, seconds: float) -> None:
+        self.wall_s += float(seconds)
+
+    def observe_live(self, *, reward: float, p99_ms: float) -> None:
+        self.live_reward = float(reward)
+        self.live_p99_ms = float(p99_ms)
+
+    @property
+    def windows_per_s(self) -> float:
+        w = self.shadow_windows + self.canary_windows + self.live_windows
+        return w / self.wall_s if self.wall_s > 0.0 else 0.0
+
+    @property
+    def breach_rate(self) -> float:
+        w = self.canary_windows + self.live_windows
+        return (self.canary_breached + self.live_breached) / w if w else 0.0
+
+    @property
+    def cycle_latency_s(self) -> float:
+        return self.wall_s / self.cycles if self.cycles else 0.0
+
+    def as_dict(self) -> dict:
+        d = {f: getattr(self, f) for f in self.__dataclass_fields__}
+        d["windows_per_s"] = self.windows_per_s
+        d["breach_rate"] = self.breach_rate
+        d["cycle_latency_s"] = self.cycle_latency_s
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ServeCounters":
+        c = cls()
+        for f in cls.__dataclass_fields__:
+            if f in d:
+                setattr(c, f, type(getattr(c, f))(d[f]))
+        return c
+
+    def prometheus_text(self, prefix: str = "repro_serve") -> str:
+        return _prometheus_text(prefix, self.as_dict(), _SERVE_COUNTER_KEYS)
 
 
 @contextlib.contextmanager

@@ -207,10 +207,16 @@ def test_unported_paths_raise_instead_of_falling_back():
     from repro_torch.core import AutoTuner
 
     tuner = AutoTuner(FleetEnv(n=2, backend="torch", device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tuner.build_serve_controller([])
     # the epoch mega-scan is ported: epoch_k=2 runs through tune_megascan
     tuner.run(1, collect_windows=24, epoch_k=2,
               configurator_kw=dict(steps_per_episode=2, device_loop="on"))
     assert tuner.configurator.agent.n_updates == 1
     assert len(tuner.configurator.history) == 2 * 2 * 2
+    # the serve handoff is ported: a controller on the tuner's device; the
+    # fleet mesh it could take is not (ROADMAP queue 1, item 7)
+    wls = [TPoisson(10_000, 0.5) for _ in range(2)]
+    ctl = tuner.build_serve_controller(wls)
+    assert ctl.device == tuner.device and ctl.seed == tuner.seed
+    assert ctl.cfgr.hspec.metric_names == list(tuner.selected_metrics)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
+        tuner.build_serve_controller(wls, mesh=("data",))

@@ -19,8 +19,9 @@ and analyse's seconds, for ``phase_chaos`` one line per run with the chaos
 and clean arms' windows/s and the two shield arms' windows/s and breach
 rates, for ``phase_graphs`` one line per run with each schedule's
 windows/s (sequential, pipelined, the epoch in its three records modes),
-and the card's name and power limit. Example: the RWKV-6 path on
-another seed, ``--phase phase_rwkv --kwargs '{"seed": 1}' .``
+for ``phase_serve_plane`` one line per run with its cycles/s and median
+seconds a cycle, and the card's name and power limit. Example: the RWKV-6
+path on another seed, ``--phase phase_rwkv --kwargs '{"seed": 1}' .``
 """
 from __future__ import annotations
 
@@ -61,6 +62,9 @@ GRAPHS = re.compile(r"^  (seq|pipe2|full|summary|off)\s*: \d+ windows in "
                     r"[\d.]+ s = ([\d.]+) windows/s", re.M)
 ANALYSE = re.compile(r"  analyse: ([\d.]+) s \(FA ([\d.]+), k-means ([\d.]+), "
                      r"Lasso ([\d.]+)\)")
+#: phase_serve_plane's card-scale service line
+SERVE = re.compile(r"(\d+) cycles at shadow N=(\d+).*? = ([\d.]+) cycles/s; "
+                   r"per cycle min [\d.]+, median ([\d.]+)")
 
 
 def main(argv: list[str]) -> int:
@@ -71,7 +75,7 @@ def main(argv: list[str]) -> int:
     args = ap.parse_args(argv)
     json.loads(args.kwargs)
     facts = cs._gpu_facts()
-    rows, ssd, tuner, chaos, graphs = [], [], [], [], []
+    rows, ssd, tuner, chaos, graphs, serve = [], [], [], [], [], []
     for i, root in enumerate(args.roots):
         path = Path(root).resolve()
         env = dict(os.environ, PYTHONPATH=str(path / "src"))
@@ -105,6 +109,11 @@ def main(argv: list[str]) -> int:
                  for m in GRAPHS.finditer(proc.stdout)]
         if modes:
             graphs.append(f"  run {i + 1} {root}: " + ", ".join(modes))
+        m = SERVE.search(proc.stdout)
+        if m is not None:
+            serve.append(f"  run {i + 1} {root}: {m.group(3)} cycles/s over "
+                         f"{m.group(1)} cycles at N={m.group(2)}, median "
+                         f"{m.group(4)} s a cycle")
         m = ANALYSE.search(proc.stdout)
         if cases or m:
             tuner.append(f"  run {i + 1} {root}: lasso_cd " + "; ".join(cases)
@@ -128,6 +137,9 @@ def main(argv: list[str]) -> int:
     if graphs:
         print(f"the fused loop's schedules at N=1024, windows/s [{facts}]:")
         print("\n".join(graphs))
+    if serve:
+        print(f"the serve control plane [{facts}]:")
+        print("\n".join(serve))
     print(f"[{facts}]")
     return 0
 
