@@ -128,13 +128,30 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
             cycles/s, wall by phase, a profiled cycle, peak memory);
             crash-resume at those sizes, bitwise against the uninterrupted
             run, from a fresh controller and in place into captured
-            programs; epoch_k=2 (one epoch a cycle)
+            programs; epoch_k=2 (one epoch a cycle); every fleet of this
+            phase names window_impl="kernel"
+15. scan    the lean tick scan (window_impl="scan", the reference's
+            backend="jax"): the fleet_scan kernel bitwise against its plain
+            version at N=1024 with T=48, 768 and 3328 and at N=80 and
+            N=1000, each with and without fmult and a partial active, with
+            the kernel's device time (a CUDA graph of 100 launches),
+            host-loop time, the plain version's time and the bound; one
+            N=1024 fleet observed with both windows (the two estimators'
+            median mean and p99 within the stated tolerance); the
+            kernel-vs-scan calibration at N=1024 and N=80; a 16-cluster
+            greedy batch on the scan through the kernel and its plain
+            version; phase 4's main path on the scan (fleet_scan launches as
+            the code counts them, no fleet_tick launch, steady windows/s, a
+            profiled update); the epoch "summary" of 8 updates captured,
+            bitwise against its eager twin, and its windows/s; the serve
+            plane at its default window (cycles/s at phase 14's sizes, then
+            crash-resume after capture, fresh and in place, bitwise)
 
-The tuning loop's episode batches and updates (phases 4, 11-14) run
+The tuning loop's episode batches and updates (phases 4, 11-15) run
 as captured CUDA graphs from their second call at a shape
 (``repro_torch.core.graphs``; the first is the capture's eager warm-up, so
 phase 5's single greedy batch runs eagerly); a graph adds the fleet_tick
-launches it holds to the count at every replay.
+and fleet_scan launches it holds to their counts at every replay.
 
 Each path's kernel launches are counted from 0 just before the path runs
 and read just after. The last two lines are the kernels JSON and the
@@ -400,11 +417,13 @@ def phase_main(dev, facts: str) -> dict:
     return {"launches": launches}
 
 
-def _steady_rate(cfgr, N: int, S: int, facts: str, updates: int = 10) -> None:
+def _steady_rate(cfgr, N: int, S: int, facts: str, updates: int = 10,
+                 kernel: str = "fleet_tick") -> None:
     """Training windows/s after warm-up: all N·S windows of ``updates`` more
     outer iterations over their whole wall time (after the main path's launch
-    count was read), with the spread of the per-update times."""
-    from repro_torch.kernels import fleet_tick as ft
+    count was read), with the spread of the per-update times; ``kernel``
+    names the window kernel whose launches are checked."""
+    ft = _kernel_mods()[kernel]
 
     before = ft.LAUNCHES
     times = []
@@ -847,7 +866,7 @@ def _prefill_agreement(eng, cfg, toks, engine_tok) -> None:
 
 
 KERNEL_MODULES = ("fleet_tick", "flash_attention", "rwkv6_wkv", "mamba2_ssd",
-                  "lasso_cd")
+                  "lasso_cd", "fleet_scan")
 
 
 def _kernel_mods():
@@ -1811,13 +1830,15 @@ GRAPH_K, GRAPH_PASSES = 8, 3
 PIPE_GATE, MEGA_GATE = 1.3, 1.5
 
 
-def _graph_cfgr(N: int, *, warm: int = 3, steps: int = 5, seed: int = 0):
+def _graph_cfgr(N: int, *, warm: int = 3, steps: int = 5, seed: int = 0,
+                window_impl: str = "kernel"):
     from repro_torch.core import Configurator
     from repro_torch.data.workloads import PoissonWorkload
     from repro_torch.engine import FleetEnv
 
     env = FleetEnv([PoissonWorkload(10_000, 0.5) for _ in range(N)],
-                   seeds=[seed + i for i in range(N)], backend="torch")
+                   seeds=[seed + i for i in range(N)], backend="torch",
+                   window_impl=window_impl)
     cfgr = Configurator(env, TRAIN_METRICS, TRAIN_LEVERS, seed=seed,
                         steps_per_episode=steps, window_s=240.0,
                         device_loop="on", bin_kw=FROZEN)
@@ -2077,14 +2098,17 @@ _SERVE_SKIP = ("windows_per_s", "retraces")
 
 
 def _serve_ctl(N: int, pairs: int, live: int, *, seed: int = 0, ckdir=None,
-               **kw):
+               window_impl: str = "kernel", **kw):
+    """Phase 14's service names the fleet_tick path; phase 15 passes the
+    controller's default, ``window_impl="scan"``."""
     from repro_torch.launch.serve import switching_fleet
     from repro_torch.serve import ServeController
 
     return ServeController(switching_fleet(N), metrics=QUICK_METRICS,
                            levers=QUICK_LEVERS, backend="torch", seed=seed,
                            canary_pairs=pairs, n_live=live,
-                           checkpoint_dir=ckdir, **dict(SERVE_KW, **kw))
+                           checkpoint_dir=ckdir, window_impl=window_impl,
+                           **dict(SERVE_KW, **kw))
 
 
 def _service_state(ctl, after: int = 0) -> dict:
@@ -2175,7 +2199,8 @@ def _serve_check(dev) -> None:
           f"{err:.3e} (rtol {RTOL})")
 
 
-def _serve_resume(dev, facts: str, tmp: Path) -> None:
+def _serve_resume(dev, facts: str, tmp: Path, window_impl: str = "kernel",
+                  tag: str = "14(c)") -> None:
     """14(c): crash-resume after capture at the card-scale sizes. A runs 6
     cycles; B checkpoints at cycle 3 and runs one more; C, fresh, restores
     step 3 and runs 4-6; D is B restoring step 3 in place, its programs
@@ -2184,17 +2209,17 @@ def _serve_resume(dev, facts: str, tmp: Path) -> None:
 
     size = (SERVE_N, SERVE_PAIRS, SERVE_LIVE)
     t0 = time.perf_counter()
-    A = _serve_ctl(*size)
+    A = _serve_ctl(*size, window_impl=window_impl)
     A.run(6)
     ref = _service_state(A, after=3)
-    B = _serve_ctl(*size, ckdir=tmp / "ck")
+    B = _serve_ctl(*size, ckdir=tmp / "ck", window_impl=window_impl)
     B.run(3)
     B.checkpoint()
     B.run(1)
-    C = _serve_ctl(*size, ckdir=tmp / "ck")
+    C = _serve_ctl(*size, ckdir=tmp / "ck", window_impl=window_impl)
     assert C.restore(step=3) == 3 and C.cycle == 3
     C.run(3)
-    _same_service("14(c) fresh controller C restored at cycle 3 vs A",
+    _same_service(f"{tag} fresh controller C restored at cycle 3 vs A",
                   ref, _service_state(C, after=3))
     runner = B.cfgr._runner
     graphs_before = {k: p.graph for k, p in runner._programs.items()
@@ -2208,10 +2233,10 @@ def _serve_resume(dev, facts: str, tmp: Path) -> None:
         raise AssertionError("in-place restore recaptured its programs: "
                              f"{len(replayed)} kept, captures "
                              f"{captures} -> {dict(CAPTURE_COUNTS)}")
-    _same_service(f"14(c) in-place restore D ({len(replayed)} graphs "
+    _same_service(f"{tag} in-place restore D ({len(replayed)} graphs "
                   "captured before the restore, replayed after it) vs A",
                   ref, _service_state(B, after=3))
-    print(f"  14(c) took {time.perf_counter() - t0:.1f} s [{facts}]")
+    print(f"  {tag} took {time.perf_counter() - t0:.1f} s [{facts}]")
 
 
 def _serve_epoch(dev, facts: str, cycles: int = 4) -> None:
@@ -2339,6 +2364,266 @@ def phase_serve_plane(dev, facts: str) -> dict:
     return {"launches": launches}
 
 
+#: phase 15's kernel shapes (N, T): the main path's window, windows of 768
+#: and 3328 ticks, and fleets that are not a multiple of 32
+SCAN_SHAPES = ((1024, 48), (1024, 768), (1024, 3328), (80, 48), (1000, 48))
+#: the two estimators of one mixture (15(b)): the kernel path's lane
+#: statistics against the scan's analytic mean and sampled p99, their
+#: medians over the fleet within tests/chaos_harness.py's median reward
+#: and median p99 tolerances
+ESTIMATOR_TOL = {"mean_ms": 0.10, "p99_ms": 0.15}
+
+
+def _scan_inputs(N: int, T: int, seed: int, dev, fmult: bool) -> tuple:
+    """fleet_scan's operands at (N, T): phase 3's (real packed constants,
+    seeded noise, a ragged ``active``), without the lane tiles."""
+    ops, kw = _kernel_inputs(N, T, 1, seed=seed, dev=dev)
+    names = ("state", "consts", "rate", "size", "z", "u_strag", "u_raw",
+             "u_fail", "active")
+    args = [ops[k] for k in names] + [ops["fmult"] if fmult else None]
+    return args, kw
+
+
+def _scan_kernel_cases(dev, facts: str) -> dict:
+    """15(a): fleet_scan bitwise against tick_scan_ref at SCAN_SHAPES, each
+    with and without fmult; times at each shape with fmult."""
+    from repro_torch.kernels import fleet_scan as fs
+
+    main, worst = None, 0.0
+    for N, T in SCAN_SHAPES:
+        for fmult in (True, False):
+            args, kw = _scan_inputs(N, T, seed=N + T, dev=dev, fmult=fmult)
+            assert float(args[8].min()) == 0.0, "active is not partial"
+            got = fs.fleet_scan(*args, **kw)
+            want = fs.tick_scan_ref(*args, **kw)
+            torch.cuda.synchronize()
+            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            exact = all(torch.equal(a, b) for a, b in zip(got, want))
+            fin = all(bool(torch.isfinite(a).all()) for a in got)
+            worst = max(worst, err)
+            print(f"  N={N} T={T} fmult={fmult}: max_abs={err:.3e} "
+                  f"bitwise={exact} finite={fin}")
+            if not (exact and fin):
+                raise AssertionError(f"fleet_scan differs from its plain "
+                                     f"version at N={N} T={T} fmult={fmult}")
+        args, kw = _scan_inputs(N, T, seed=N + T, dev=dev, fmult=True)
+        run = lambda: fs.fleet_scan(*args, **kw)
+        ms, host_ms = _graph_ms(run, reps=100), _time_ms(run, reps=100)
+        plain_ms = _time_ms(lambda: fs.tick_scan_ref(*args, **kw),
+                            reps=max(2, min(50, 2400 // T)), warmup=1)
+        nbytes, nops = fs.scan_cost(T, N, fmult=True)
+        bound_ms, by = _bound(nbytes, nops, F32_OPS_S)
+        print(f"  N={N} T={T}: kernel device {ms * 1e3:.3f} us (host loop "
+              f"{host_ms * 1e3:.3f} us, a CUDA graph of 100 for the device "
+              f"figure), {ms * 1e6 / T:.1f} ns a tick, plain "
+              f"{plain_ms:.3f} ms, bound {bound_ms * 1e3:.3f} us by {by} "
+              f"({nbytes / 1e6:.3f} MB, {nops / 1e6:.2f} Mop), "
+              f"{bound_ms / ms:.4f} of the bound; chain {fs.CHAIN_OPS} "
+              f"dependent ops a tick [{facts}]")
+        if main is None:
+            main = {"ms": ms, "ms_host_loop": host_ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": by}
+    return dict(main, max_abs_err=worst)
+
+
+def _scan_estimators(dev, facts: str, N: int = 1024,
+                     windows: int = 3) -> None:
+    """15(b): one N=1024 fleet observed with the kernel path and with the
+    scan (same seeds, the default config): the window mean and p99 are two
+    estimators of the same latency mixture."""
+    from repro_torch.engine import FleetEnv
+
+    med = {}
+    for impl in ("kernel", "scan"):
+        env = FleetEnv.heterogeneous(N, seed=0, mix=MIX, backend="torch",
+                                     window_impl=impl)
+        env.observe_stats(240.0)                     # settle the backlog
+        rows = [env.observe_stats(240.0) for _ in range(windows)]
+        med[impl] = {k: float(np.median(torch.stack(
+            [r[k] for r in rows]).cpu().numpy())) for k in ESTIMATOR_TOL}
+        assert all(bool(torch.isfinite(r[k]).all()) for r in rows
+                   for k in ESTIMATOR_TOL), impl
+    for k, tol in ESTIMATOR_TOL.items():
+        a, b = med["kernel"][k], med["scan"][k]
+        rel = abs(b - a) / abs(a)
+        print(f"  N={N}, {windows} windows after one: median {k} kernel "
+              f"{a:.3f} / scan {b:.3f} ms, relative {rel:.5f} (tol {tol})")
+        if rel > tol:
+            raise AssertionError(f"the scan's {k} strays from the kernel "
+                                 f"path's: {b} vs {a}")
+
+
+def _scan_calibration(dev, facts: str) -> None:
+    """15(c): the kernel-vs-scan probe at N=1024 and N=80."""
+    from repro_torch.engine import fleet_torch as fj
+
+    for N in (1024, 80):
+        fj._IMPL_CACHE.pop(("cuda", fj._bucket(N)), None)
+        verdict, t = fj.calibrate_window_impl(N, device=dev)
+        print(f"  calibrate_window_impl({N}): kernel {t['kernel'] * 1e3:.4f}"
+              f" ms, scan {t['scan'] * 1e3:.4f} ms (medians of 5 interleaved "
+              f"reps, T=32) -> {verdict!r}; preferred "
+              f"{fj.preferred_window_impl(N, device=dev)!r} [{facts}]")
+
+
+def _scan_greedy_check(dev) -> None:
+    """A 16-cluster greedy batch on the scan through the kernel and through
+    its plain version, on the same Philox draws (phase 5's criterion)."""
+    from repro_torch.core import Configurator
+    from repro_torch.engine import FleetEnv
+    from repro_torch.engine.draws import PhiloxDraws
+    from repro_torch.kernels import fleet_scan as fs
+
+    def run():
+        env = FleetEnv.heterogeneous(16, seed=3, backend="torch", mix=MIX,
+                                     window_impl="scan")
+        env._dev.draws = PhiloxDraws(1234, dev)
+        cfgr = Configurator(env, QUICK_METRICS, QUICK_LEVERS,
+                            device_loop="on", window_s=240.0,
+                            steps_per_episode=3)
+        batch, recs = cfgr.run_fleet_episodes_device(explore=False)
+        return (batch["actions"].cpu().numpy(), batch["rewards"].cpu().numpy(),
+                np.array([x.p99_ms for x in recs]), env.clock.copy())
+
+    kern = run()
+    saved = fs.fleet_scan
+    fs.fleet_scan = fs.tick_scan_ref
+    try:
+        plain = run()
+    finally:
+        fs.fleet_scan = saved
+    if not all(np.array_equal(a, b) for a, b in zip(kern, plain)):
+        raise AssertionError("greedy scan batch: kernel and plain differ")
+    print("  greedy N=16 batch on the scan, kernel vs plain: actions, "
+          "rewards, p99 and clocks bitwise equal")
+
+
+def _scan_main(dev, facts: str) -> dict:
+    """15(d): phase 4's main path on window_impl="scan": launch counts of
+    both window kernels, steady windows/s, a profiled update."""
+    from repro_torch.core import Configurator
+    from repro_torch.engine import FleetEnv
+
+    N, S, updates = 1024, 5, 3
+    env = FleetEnv.heterogeneous(N, seed=0, backend="torch", mix=MIX,
+                                 window_impl="scan")
+    cfgr = Configurator(env, QUICK_METRICS, QUICK_LEVERS, device_loop="on",
+                        window_s=240.0, steps_per_episode=S, bin_kw=FROZEN)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    for _ in range(updates):
+        stats = cfgr.run_update()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    expected = 1 + updates * S
+    print(f"  main path on the scan: fleet_scan launches "
+          f"{counts['fleet_scan']} (expected {expected}), fleet_tick "
+          f"{counts['fleet_tick']} (expected 0); {updates} run_updates in "
+          f"{wall:.3f} s")
+    if counts["fleet_scan"] != expected or counts["fleet_tick"] != 0:
+        raise AssertionError(f"scan main path launches {counts}")
+    r = np.array([rec.reward for rec in cfgr.history])
+    if r.shape != (updates * N * S,) or not np.isfinite(r).all() \
+            or not np.isfinite(stats["pg_loss"]):
+        raise AssertionError("scan main path: bad rewards or loss")
+    _steady_rate(cfgr, N, S, facts, kernel="fleet_scan")
+    prof = _profile_update(cfgr, facts)
+    print(f"  a profiled update on the scan: device busy "
+          f"{prof['busy_ms']:.2f} of {prof['wall_ms']:.2f} ms "
+          f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f} %) [{facts}]")
+    return {"launches": counts["fleet_scan"]}
+
+
+def _scan_epoch(dev, facts: str, N: int = 1024) -> int:
+    """15(e): the epoch "summary" of K=8 updates on the scan, captured,
+    bitwise against its eager twin; windows/s of a replayed epoch."""
+    from repro_torch.core import graphs
+    from repro_torch.kernels import fleet_scan as fs
+
+    K, S = GRAPH_K, 5
+    a = _graph_cfgr(N, window_impl="scan")
+    a.run_epoch(K, records="summary")
+    ref = _run_state(a)
+    saved = graphs.Program.__call__
+    graphs.Program.__call__ = lambda self: self.fn()
+    try:
+        b = _graph_cfgr(N, window_impl="scan")
+        b.run_epoch(K, records="summary")
+    finally:
+        graphs.Program.__call__ = saved
+    _same_state(f"15(e) run_epoch({K}, summary) on the scan from graphs vs "
+                "eager", ref, _run_state(b))
+    torch.cuda.synchronize()
+    before = fs.LAUNCHES
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        a.run_epoch(K, records="summary")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = fs.LAUNCHES - before
+    if launches != 2 * K * S:
+        raise AssertionError(f"epoch on the scan: {launches} fleet_scan "
+                             f"launches, expected {2 * K * S}")
+    t = np.array(times)
+    print(f"  15(e) replayed epochs of {K} on the scan: "
+          f"{2 * N * S * K / t.sum():.1f} windows/s (chunks "
+          f"{', '.join(f'{x:.6f}' for x in t)} s), fleet_scan launches "
+          f"{launches} counted at the replays [{facts}]")
+    return launches
+
+
+def _scan_serve(dev, facts: str, tmp: Path, cycles: int = 6) -> int:
+    """15(f): the serve plane at its default window, the scan, at phase
+    14's sizes: cycles/s, launches, then crash-resume after capture."""
+    ctl = _serve_ctl(SERVE_N, SERVE_PAIRS, SERVE_LIVE, window_impl="scan")
+    assert ctl.live_env.window_impl == "scan"
+    before = _counts()
+    walls = []
+    for _ in range(cycles):
+        t0 = time.perf_counter()
+        ctl.run_cycle()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    after = _counts()
+    launches = after["fleet_scan"] - before["fleet_scan"]
+    if after["fleet_tick"] != before["fleet_tick"] or not launches:
+        raise AssertionError(f"serve on the scan: launches {before} -> "
+                             f"{after}")
+    w = np.array(walls)
+    c = ctl.counters
+    print(f"  15(f) {cycles} cycles on the scan at shadow N={SERVE_N}: "
+          f"{cycles / w.sum():.4f} cycles/s (median over cycles 2-{cycles} "
+          f"{np.median(w[1:]):.6f} s), fleet_scan launches {launches}, "
+          f"fleet_tick 0; promotions {c.promotions}, rollbacks "
+          f"{c.rollbacks} [{facts}]")
+    _serve_resume(dev, facts, tmp, window_impl="scan", tag="15(f)")
+    return launches
+
+
+def phase_scan(dev, facts: str) -> dict:
+    """The lean tick scan on the card: the fleet_scan kernel against its
+    plain version, the two window estimators side by side, the calibration,
+    the main path, the epoch and the serve plane on window_impl="scan"."""
+    import tempfile
+
+    t_start = time.perf_counter()
+    row = _scan_kernel_cases(dev, facts)
+    _scan_estimators(dev, facts)
+    _scan_calibration(dev, facts)
+    _scan_greedy_check(dev)
+    row["launches"] = _scan_main(dev, facts)["launches"]
+    row["launches_epoch"] = _scan_epoch(dev, facts)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        row["launches_serve"] = _scan_serve(dev, facts, Path(tmp))
+    print(f"  phase 15 took {time.perf_counter() - t_start:.1f} s")
+    return row
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2439,6 +2724,8 @@ def main() -> int:
     graphs_row = phase_graphs(dev, facts)
     print("[14] serve: the control plane on the captured fused loop")
     serve_plane_row = phase_serve_plane(dev, facts)
+    print("[15] scan: the lean tick scan on the card")
+    scan_row = phase_scan(dev, facts)
     kernels = [
         {"name": "fleet_tick_window", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fleet_tick.cu",
@@ -2461,6 +2748,10 @@ def main() -> int:
         {"name": "lasso_cd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lasso_cd.cu",
          "replaces": "src/repro/core/lasso.py:61", **lasso_row},
+        {"name": "fleet_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/fleet_scan.cu",
+         "replaces": "src/repro/engine/fleet_jax.py:194", **scan_row,
+         "library_ms": None},
     ]
     for row in kernels:
         row["bound_frac"] = row["bound_ms"] / row["ms"]

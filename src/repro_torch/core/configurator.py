@@ -13,8 +13,8 @@ graphs on the card), as do ``tune_pipelined`` (§14) and ``run_epoch`` /
 ``tune_megascan`` (§15), which need it; otherwise,
 or with ``device_loop="off"``, the per-step host loops: ``run_episode``
 (serial) and ``run_fleet_episodes`` (N parallel episodes, acting on the
-device). Every observation window is a ``fleet_tick`` kernel launch either
-way. ``safe=True`` (DESIGN.md §16) runs the safety shield on both fleet
+device). Every observation window is one kernel launch either way:
+``fleet_tick``, or ``fleet_scan`` on a ``window_impl="scan"`` fleet. ``safe=True`` (DESIGN.md §16) runs the safety shield on both fleet
 paths: inside the fused loop's episode, and as its numpy twin in
 ``run_fleet_episodes``, which walks the same integerised lever table with
 the same mask, clamp, fallback and budget recurrence.
@@ -307,7 +307,7 @@ class Configurator:
         actions on the device (``act_batch_device``), applies the moves
         through the host ``LeverDiscretiser``, and observes the whole fleet
         with the §4.2 stabilisation wait fused into the window (one
-        ``fleet_tick`` launch a step). ``neg_mean``/``neg_p99`` rewards read
+        window kernel launch a step). ``neg_mean``/``neg_p99`` rewards read
         the window's device statistic; other modes draw each cluster's
         latency sample on the host.
 

@@ -14,7 +14,8 @@ card with no host round-trip inside it:
                 buffering, reconfiguration accounting
       stabilise paper-§4.2 wait from the on-device service-term delta
       observe   ``repro_torch.engine.fleet_torch.build_step_window`` — one
-                ``fleet_tick`` kernel launch per window, rate grids from the
+                kernel launch per window (``fleet_tick``, or ``fleet_scan``
+                on a ``window_impl="scan"`` fleet), rate grids from the
                 packed ``DeviceWorkloadTable`` at the carried clock
       reward    the window's device-computed mean (``neg_mean``), p99
                 (``neg_p99``) or SLO-shaped penalty (``slo``)
@@ -50,7 +51,7 @@ epoch boundary.
 **Fault scenarios (§12).** When the fleet carries a ``DeviceFaultTable``
 (``FleetEnv(..., faults=...)``), its device copy rides into every window
 step: straggler/failure/backlog-shock events are evaluated on the device
-(``fault_effect_grid``) and reach the ``fleet_tick`` kernel through its
+(``fault_effect_grid``) and reach the window's kernel through its
 ``fmult`` operand, and ``DeployLatencyFault`` clusters run the config they
 requested ``delays[i]`` steps ago — a carried (R_max+1, N, L) ring of
 config indices — while the encoder still shows the requested knobs.
@@ -234,17 +235,19 @@ class DeviceEpisodeRunner:
                     (1, 2, 4, 6, 8, 12, 16, 24, 32))
         return T, E
 
-    def _step_window(self, T: int, E: int, slo_ms: float):
-        key = (T, E, self._sel_cols, slo_ms)
+    def _step_window(self, T: int, E: int, slo_ms: float, impl: str):
+        key = (T, E, self._sel_cols, slo_ms, impl)
         if key not in self._step_windows:
             self._step_windows[key] = build_step_window(
-                self.env, self._sel_cols, T, E, slo_ms=slo_ms)
+                self.env, self._sel_cols, T, E, slo_ms=slo_ms,
+                window_impl=impl)
         return self._step_windows[key]
 
     def _skey(self, exploit: bool, greedy: bool) -> tuple:
         """The static bundle of one episode batch (the reference's ``skey``
-        without its mesh and pallas entries, plus N, the table rung and
-        the exploitation factor, which the captured batch bakes in)."""
+        without its mesh entry, plus N, the table rung and the exploitation
+        factor, which the captured batch bakes in; the env's resolved
+        window impl, last, stands for the reference's pallas entry)."""
         cfgr = self.cfgr
         T, E = self._tick_budget()
         slo_sig = ((cfgr.slo_ms, cfgr.slo_hinge_w, cfgr.slo_breach_w)
@@ -252,7 +255,8 @@ class DeviceEpisodeRunner:
         return (cfgr.steps_per_episode, T, E, self._sel_cols, exploit,
                 greedy, cfgr.reward_mode, float(cfgr.window_s), slo_sig,
                 self._R_max, self._ft_dev is not None, cfgr.shield,
-                self.env.n_clusters, self._hw_B, float(cfgr.agent.f))
+                self.env.n_clusters, self._hw_B, float(cfgr.agent.f),
+                self.env.window_impl)
 
     # -------------------------------------------------------------- episode
     def _episode(self, draws, carry: tuple, skey: tuple) -> tuple:
@@ -267,7 +271,7 @@ class DeviceEpisodeRunner:
         S, T, E, _, exploit, greedy = skey[:6]
         slo = cfgr.reward_mode == "slo"
         slo_ms, hinge_w, breach_w = skey[8] if slo else (0.0, 0.0, 0.0)
-        step_window = self._step_window(T, E, slo_ms)
+        step_window = self._step_window(T, E, slo_ms, skey[15])
         nodes = env.n_nodes
         r, c = node_grid_shape(nodes)
         rc = r * c

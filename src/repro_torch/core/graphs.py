@@ -22,15 +22,19 @@ On a CUDA device:
   keep.
 
 A failed capture raises; there is no eager fallback on the card. The
-``fleet_tick`` launches a graph records are added to
-``fleet_tick.LAUNCHES`` at each replay, so a path's launch count reads the
-same whether it ran eagerly or from graphs.
+``fleet_tick`` and ``fleet_scan`` launches a graph records are added to
+each kernel's ``LAUNCHES`` at each replay, so a path's launch count reads
+the same whether it ran eagerly or from graphs.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import fleet_scan as _fs
 from repro_torch.kernels import fleet_tick as _ft
+
+#: the window kernels a captured program may hold
+_KERNELS = (_ft, _fs)
 
 #: program key -> captures made under it (the twin of the reference's
 #: ``TRACE_COUNTS``; on the CPU, programs built): outer iterations at a
@@ -52,6 +56,8 @@ class Program:
         self.out = None
         #: fleet_tick launches the graph holds (added at every replay)
         self.launches = 0
+        #: fleet_scan launches the graph holds (added at every replay)
+        self.scan_launches = 0
         if self.device.type != "cuda":
             CAPTURE_COUNTS[key] = CAPTURE_COUNTS.get(key, 0) + 1
 
@@ -65,6 +71,7 @@ class Program:
             self._capture()
         self.graph.replay()
         _ft.LAUNCHES += self.launches
+        _fs.LAUNCHES += self.scan_launches
         return self.out
 
     def _warm_up(self):
@@ -86,9 +93,10 @@ class Program:
         graph = torch.cuda.CUDAGraph()
         for d in self.draws:
             d.register(graph)
-        n0 = _ft.CAPTURED
+        n0 = [k.CAPTURED for k in _KERNELS]
         with torch.cuda.graph(graph):
             out = self.fn()
-        self.launches = _ft.CAPTURED - n0
+        self.launches, self.scan_launches = (
+            k.CAPTURED - n for k, n in zip(_KERNELS, n0))
         self.graph, self.out = graph, out
         CAPTURE_COUNTS[self.key] = CAPTURE_COUNTS.get(self.key, 0) + 1

@@ -10,8 +10,8 @@ and examples use:
     tuner.analyse()                  # §2.2 + §2.3
     tuner.configurator.tune(50)      # §2.4 online REINFORCE loop
 
-Every window of collect and tune is a ``fleet_tick`` kernel launch on the
-env's device; the k-means and the Lasso path (the ``lasso_cd`` kernel) run
+Every window of collect and tune is a kernel launch on the env's device
+(``fleet_tick``, or ``fleet_scan`` under ``window_impl="scan"``); the k-means and the Lasso path (the ``lasso_cd`` kernel) run
 on ``device``, the env's device unless named. ``run(epoch_k>1)`` tunes
 through the epoch mega-scan (``Configurator.tune_megascan``);
 ``build_serve_controller`` hands the analysis to the continuous control
@@ -360,13 +360,16 @@ class AutoTuner:
         """§13 handoff from offline analysis to the continuous control
         plane: the tuner's selected metrics + ranked levers seed a
         ``ServeController`` whose shadow fleet keeps training forever, on
-        the tuner's device. ``workloads`` is the serve-time workload roster
-        (one per shadow cluster); remaining kwargs pass through to the
+        the tuner's device and, when the tuner's env is a fleet, on its
+        window impl. ``workloads`` is the serve-time workload roster (one
+        per shadow cluster); remaining kwargs pass through to the
         controller."""
         assert self.selected_metrics and self.ranked_levers, "run analyse() first"
         from repro_torch.serve import ServeController
         kw.setdefault("seed", self.seed)
         kw.setdefault("device", self.device)
+        if hasattr(self.env, "window_impl"):
+            kw.setdefault("window_impl", self.env.window_impl)
         return ServeController(workloads, metrics=self.selected_metrics,
                                levers=self.ranked_levers, **kw)
 

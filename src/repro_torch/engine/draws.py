@@ -4,15 +4,17 @@ random draws separate").
 
 The reference derives every draw from a threefry key tree: one key per
 engine window (``DeviceFleetEngine._next_key``), split three ways for the
-tick, lane and emission draws; one key per episode batch, folded per step
-and split into act / load / window keys. The port's consumers ask a *draw
+tick, lane and emission draws (the scan path draws its p99 lanes from the
+lane key, in its own (T, N, Sp) layout); one key per episode batch, folded
+per step and split into act / load / window keys. The port's consumers ask a *draw
 source* for the same draws by the same addresses:
 
     src.window()            -> WindowDraws      one engine observe window
     src.episode().step(t)   -> StepDraws        step t of one episode batch
 
     WindowDraws.tick_bits(T, N)      (T, 2, N) uint32 values, as int64
-    WindowDraws.lane_bits(T, S, N)   (T, S, N)
+    WindowDraws.lane_bits(T, S, N)   (T, S, N)       the kernel path's lanes
+    WindowDraws.p99_bits(T, N, Sp)   (T, N, Sp)      the scan path's p99 lanes
     WindowDraws.emit_bits(shape)     ``shape`` (pairs of 16-bit normals)
     StepDraws.act(N, A)              (gumbel (N, A), gumbel (N, 2), U(0,1) (N,))
     StepDraws.load(N)                (N,) standard normals
@@ -77,6 +79,9 @@ class PhiloxDraws:
 
     def lane_bits(self, T: int, S: int, N: int) -> torch.Tensor:
         return self._bits((T, S, N))
+
+    def p99_bits(self, T: int, N: int, Sp: int) -> torch.Tensor:
+        return self._bits((T, N, Sp))
 
     def emit_bits(self, shape) -> torch.Tensor:
         return self._bits(shape)

@@ -5,9 +5,13 @@ parallel. ``FleetEnv`` reproduces that shape in simulation: N independent
 cluster states — heterogeneous workloads, models and seeds — stepped in a
 single batched call. All queueing/performance maths are vectorised over the
 cluster axis (``repro_torch.engine.simcluster.FleetCore``), and every window
-runs through the hand-written CUDA ``fleet_tick`` kernel on ``device``
-(DESIGN.md §9): *statistically* equivalent to the reference's bit-for-bit
-numpy oracle, and the only way to 1024-cluster fleets.
+is one launch of a hand-written CUDA kernel on ``device`` (DESIGN.md §9):
+``fleet_tick`` with its latency lanes under ``window_impl="kernel"`` (the
+default; the reference's ``backend="pallas"``), the lane-free
+``fleet_scan`` under ``"scan"`` (its ``backend="jax"``), or the one a timed
+probe picks under ``"auto"``. *Statistically* equivalent to the
+reference's bit-for-bit numpy oracle, and the only way to 1024-cluster
+fleets.
 
 API shape (the plural twin of ``TuningEnv``; the reference's
 ``repro.core.configurator.FleetTuningEnv`` protocol). ``device=None``
@@ -52,6 +56,7 @@ class FleetEnv(FleetCore):
         backend: str = "torch",
         faults=None,
         device=None,
+        window_impl: str = "kernel",
     ):
         from repro_torch import configs
 
@@ -67,7 +72,8 @@ class FleetEnv(FleetCore):
         assert len(models) == n and len(list(seeds)) == n
         super().__init__(workloads, list(models), spec or SimSpec(),
                          list(lever_specs or LEVER_SPECS), list(seeds),
-                         backend=backend, faults=faults, device=device)
+                         backend=backend, faults=faults, device=device,
+                         window_impl=window_impl)
 
     # ------------------------------------------------------------ constructors
     @classmethod

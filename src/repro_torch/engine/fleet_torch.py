@@ -1,36 +1,47 @@
 """Device-resident fleet engine on PyTorch: the ``backend="torch"`` engine of
-``FleetCore`` (DESIGN.md §9) — the port of ``repro.engine.fleet_jax``'s
-fused-kernel (``pallas``) path.
+``FleetCore`` (DESIGN.md §9) — the port of ``repro.engine.fleet_jax``.
 
-Every observation window is ONE launch of the hand-written CUDA kernel
-``repro_torch.kernels.fleet_tick.fleet_tick_window``: the T-tick queueing
-recurrence and the latency-lane statistics (per-tick lane sums and
-quantiles plus a streaming top-K head), with the lanes reduced in place.
-Around it, plain torch ops on the card do what the reference's jitted
-program did around its kernel: the 16-bit RNG transforms, the in-trace
-workload rate grid, the window mean/p99 and the metric emission.
+Every observation window is ONE launch of a hand-written CUDA kernel, by
+the engine's ``window_impl``:
+
+* ``"kernel"`` (the reference's ``backend="pallas"``): the ``fleet_tick``
+  kernel (``repro_torch.kernels.fleet_tick``) runs the T-tick queueing
+  recurrence and the latency-lane statistics (per-tick lane sums and
+  quantiles plus a streaming top-K head), with the lanes reduced in place;
+* ``"scan"`` (the reference's ``backend="jax"``, its lean ``_tick_body``
+  scan): the lane-free ``fleet_scan`` kernel
+  (``repro_torch.kernels.fleet_scan``) runs the recurrence alone; the window
+  mean is the analytic mixture expectation, the p99 is sampled over
+  ``p99_lanes(T)`` lanes a tick through ``torch.topk``, and the emitted
+  latency columns are the mixture's analytic quantiles;
+* ``"auto"`` picks one of the two once, at engine construction, from a
+  timed probe cached per (device type, fleet-size bucket)
+  (``preferred_window_impl``); ``REPRO_FLEET_IMPL=pallas|scan`` overrides
+  the probe, ``pallas`` meaning ``"kernel"``.
+
+Around the kernel, plain torch ops on the card do what the reference's
+jitted program did around its kernel or scan: the 16-bit RNG transforms,
+the in-trace workload rate grid, the window mean/p99 and the metric
+emission.
 
 * Random draws come from a draw source (``repro_torch.engine.draws``), by
   the reference's addresses, so a test can replay the reference's threefry
   bits through the port; the default is a ``torch.Generator``.
 * State lives on the device between calls; the host keeps an exact clock
   shadow (the clock advances by ``n_ticks · T_b``), like the reference.
-* Lanes per tick follow the reference's tiers: the kernel's full tile
-  (``lane_budget``) on CUDA, the compiled tier's ~1k-sample budget
-  (``compiled_lane_budget``) on CPU, so CPU tests see the reference's CPU
-  shapes.
+* Lanes per tick on the kernel path follow the reference's tiers: the
+  kernel's full tile (``lane_budget``) on CUDA, the compiled tier's
+  ~1k-sample budget (``compiled_lane_budget``) on CPU, so CPU tests see the
+  reference's CPU shapes.
 * PyTorch runs eagerly, so there is no jit cache and no shape ladder to
   compile; the padded tick and emission counts still follow the reference's
   buckets, which keeps the shapes (and the statistics) equal to its own.
 
 * Chaos tables (``repro_torch.core.faults``, DESIGN.md §12): rate shocks
-  premultiply the arrival grid and service faults ride the kernel's
+  premultiply the arrival grid and service faults ride the kernels'
   ``fmult`` operand — evaluated host-side in f64 on the observe path, as
   the reference does, and on the device (``fault_effect_grid``) in the
   fused loop's window step.
-
-Not ported yet: the lean ``_tick_body`` scan arm with the kernel-vs-scan
-calibration (ROADMAP queue 1, item 6).
 """
 from __future__ import annotations
 
@@ -115,6 +126,19 @@ def window_lanes(T: int, device: torch.device) -> int:
     """Lanes per tick on ``device``: the kernel's tile on CUDA, the
     reference's CPU-tier budget elsewhere."""
     return lane_budget(T) if device.type == "cuda" else compiled_lane_budget(T)
+
+
+def p99_lanes(T: int, cap: int = _MAX_LAT_SAMPLES, budget: int = 768) -> int:
+    """Latency lanes per tick backing the scan path's window p99 (its mean is
+    analytic): ~768 samples a window at any tick length, 4 to ``cap``
+    lanes a tick."""
+    return max(4, min(cap, budget // max(T, 1)))
+
+
+def p99_topk(T: int, Sp: int) -> int:
+    """The scan path's top-k depth over T·Sp sampled lanes (the p99's
+    interpolation needs the top 1 % and two more)."""
+    return min(T * Sp, int(np.ceil(0.01 * (T * Sp - 1))) + 2)
 
 
 def p99_depth(T: int, S: int) -> int:
@@ -229,7 +253,10 @@ class _Emission:
                                 if c == emc["queue_col"]]
 
     def __call__(self, wdraws, *, cc, mc, F, rg, sg, ys, reconfigs, etick,
-                 evalid, n_s, lane_sum_ms, tickq_ms, node_noise):
+                 evalid, stats5, node_noise):
+        """``stats5(g)``: the (E, N, 5) latency stats (mean, p50, p95, p99,
+        max in ms) at the emission ticks, ``g`` the gather of a (T, N)
+        tensor at them (``_lane_stats5`` or ``_analytic_stats5``)."""
         service, qd, batch, _, smask_f, fmask_f, blg_e = ys
         E, N = etick.shape
         g = lambda a: torch.gather(a, 0, etick)                 # (E, N)
@@ -259,11 +286,7 @@ class _Emission:
             / ecnt[:, None, None]                               # (N, nodes|1, M)
         per_node = F * emean
         if self.lat_overwrite or self.queue_overwrite:
-            n_s_e = g(n_s)
-            st = [g(lane_sum_ms) / n_s_e]
-            st += [g(tickq_ms[i]) for i in range(4)]
-            stats5 = torch.stack(st, dim=-1)                    # (E, N, 5)
-            ew = torch.where(evalid[:, :, None], stats5, 0.0).sum(dim=0) \
+            ew = torch.where(evalid[:, :, None], stats5(g), 0.0).sum(dim=0) \
                 / ecnt[:, None]                                 # (N, 5)
             for j, stat_i in self.lat_overwrite:
                 per_node[:, :, j] = ew[:, stat_i][:, None]
@@ -272,6 +295,23 @@ class _Emission:
                 for j in self.queue_overwrite:
                     per_node[:, :, j] = qmean[:, None]
         return per_node
+
+
+def _tick_draws(wdraws, T: int, N: int) -> tuple:
+    """The window's tick draws, two uint32 a (tick, cluster): the arrival
+    normal z and the straggler / slow / failure uniforms, each a
+    contiguous (T, N) f32 tensor."""
+    tick = wdraws.tick_bits(T, N)
+    u0, l0 = split16(tick[:, 0])
+    u1, l1 = split16(tick[:, 1])
+    return (norm16(u0).contiguous(), l0.contiguous(), u1.contiguous(),
+            l1.contiguous())
+
+
+def _tick_kw(spec) -> dict:
+    slo, shi = spec.straggler_slow
+    return dict(noise=spec.noise, retention_s=spec.retention_s,
+                straggler_prob=spec.straggler_prob, slo=slo, shi=shi)
 
 
 def _window_core(wdraws, T, S, backlog, sfree_rel, consts, rg, sg, tmask,
@@ -284,19 +324,12 @@ def _window_core(wdraws, T, S, backlog, sfree_rel, consts, rg, sg, tmask,
     from repro_torch.kernels.fleet_tick import window_recurrence
 
     N = backlog.shape[0]
-    tick = wdraws.tick_bits(T, N)
-    u0, l0 = split16(tick[:, 0])
-    u1, l1 = split16(tick[:, 1])
-    z = norm16(u0)
+    z, u_strag, u_raw, u_fail = _tick_draws(wdraws, T, N)
     u_wait, z2a = split_lane_bits(wdraws.lane_bits(T, S, N))
-    slo, shi = spec.straggler_slow
     (backlog, sfree_rel), ys, kstats, head = window_recurrence(
-        backlog, sfree_rel, consts, rg.contiguous(), sg.contiguous(),
-        z.contiguous(), l0.contiguous(), u1.contiguous(), l1.contiguous(),
-        tmask.to(torch.float32), u_wait, z2a, fmult,
-        wmask.to(torch.float32), noise=spec.noise,
-        retention_s=spec.retention_s, straggler_prob=spec.straggler_prob,
-        slo=slo, shi=shi, p99_k=p99_depth(T, S))
+        backlog, sfree_rel, consts, rg.contiguous(), sg.contiguous(), z,
+        u_strag, u_raw, u_fail, tmask.to(torch.float32), u_wait, z2a, fmult,
+        wmask.to(torch.float32), p99_k=p99_depth(T, S), **_tick_kw(spec))
     n_s = torch.clamp(ys[2].to(torch.int32), 1, S)              # (T, N)
     cnt = (n_s * wmask).sum(dim=0)                              # (N,)
     return ((backlog, sfree_rel), ys, kstats[0] * 1000.0,
@@ -311,6 +344,78 @@ def _window_summary(ys, wmask, lane_sum_ms, head_ms, cnt):
     top = torch.flip(head_ms.T, dims=(-1,))                     # descending
     p99 = _lerp_quantile(top, cnt, 99.0, descending=True)
     return mean_ms, p99, processed_sum
+
+
+def _lane_stats5(lane_sum_ms, tickq_ms, n_s):
+    """The kernel path's emitted latency stats: its per-tick lane mean and
+    quantile rows, gathered at the emission ticks (always window ticks)."""
+    def stats5(g):
+        st = [g(lane_sum_ms) / g(n_s)] + [g(tickq_ms[i]) for i in range(4)]
+        return torch.stack(st, dim=-1)                          # (E, N, 5)
+    return stats5
+
+
+def _scan_core(wdraws, T, backlog, sfree_rel, consts, rg, sg, tmask, spec,
+               fmult=None):
+    """Draw the window's tick noise and run the lane-free ``fleet_scan``
+    kernel. Returns the carry, ys (7 × (T, N)) and n_s, the lanes a tick
+    of the latency mixture (``clip(batch, 1, _MAX_LAT_SAMPLES)``)."""
+    from repro_torch.kernels.fleet_scan import fleet_scan
+
+    N = backlog.shape[0]
+    z, u_strag, u_raw, u_fail = _tick_draws(wdraws, T, N)
+    state, ys = fleet_scan(
+        torch.stack([backlog, sfree_rel]), consts, rg.contiguous(),
+        sg.contiguous(), z, u_strag, u_raw, u_fail, tmask.to(torch.float32),
+        fmult, **_tick_kw(spec))
+    n_s = torch.clamp(ys[2].to(torch.int32), 1, _MAX_LAT_SAMPLES)
+    return (state[0], state[1]), ys, n_s
+
+
+def _scan_summary(wdraws, T, ys, wmask, n_s, T_b):
+    """The scan path's window statistics: the mean is the exact expectation
+    of each tick's latency mixture base + a·U + c·|Z| weighted by its
+    lanes, the p99 is sampled over ``p99_lanes(T)`` lanes a tick (the top
+    ``p99_topk`` through ``torch.topk``), plus processed events."""
+    service, qd = ys[0], ys[1]
+    N = service.shape[1]
+    processed_sum = (ys[3] * wmask).sum(dim=0)
+    base_ms = (qd + service) * 1000.0                           # (T, N)
+    a_ms = (T_b * 1000.0)[None, :]
+    c_ms = 100.0 * service
+    w_t = n_s.to(torch.float32) * wmask
+    mean_ms = (w_t * (base_ms + 0.5 * a_ms + _R2PI * c_ms)).sum(dim=0) \
+        / torch.clamp(w_t.sum(dim=0), min=1e-9)
+    Sp = p99_lanes(T)
+    u_p, z_p = split_lane_bits(wdraws.p99_bits(T, N, Sp))
+    lat_p = base_ms[:, :, None] + a_ms[:, :, None] * u_p \
+        + c_ms[:, :, None] * z_p
+    n_sp = torch.clamp(n_s, max=Sp)
+    lane = torch.arange(Sp, device=service.device)[None, None, :]
+    lv = (lane < n_sp[:, :, None]) & wmask[:, :, None]
+    cnt = lv.sum(dim=(0, 2))
+    flat = torch.where(lv, lat_p, float("-inf")).permute(1, 0, 2) \
+        .reshape(N, T * Sp)
+    top = torch.topk(flat, p99_topk(T, Sp), dim=-1).values     # descending
+    p99 = _lerp_quantile(top, cnt, 99.0, descending=True)
+    return mean_ms, p99, processed_sum
+
+
+def _analytic_stats5(service, qd, T_b, n_s):
+    """The scan path's emitted latency stats: the analytic mean, quantiles
+    and expected maximum of base + a·U + c·|Z| at the emission ticks (the
+    wait term dominates, so the quantiles are the uniform's, shifted by
+    the jitter's mean)."""
+    def stats5(g):
+        base_e = (g(qd) + g(service)) * 1000.0
+        c_e = 100.0 * g(service)
+        a_e = T_b[None, :] * 1000.0
+        q = lambda al: base_e + al * a_e + _R2PI * c_e
+        n_f = g(n_s).to(torch.float32)
+        mx = base_e + a_e * n_f / (n_f + 1.0) \
+            + c_e * torch.sqrt(2.0 * torch.log(torch.clamp(n_f, min=2.0)))
+        return torch.stack([q(0.5), q(0.5), q(0.95), q(0.99), mx], dim=-1)
+    return stats5
 
 
 # --------------------------------------------------------------------------
@@ -405,14 +510,33 @@ class DeviceMetricsWindow:
 # the engine
 # --------------------------------------------------------------------------
 
+#: the engine's window implementations: the reference's ``backend``
+#: "pallas", "jax" and "auto"
+WINDOW_IMPLS = ("kernel", "scan", "auto")
+
+
+def check_window_impl(window_impl: str) -> str:
+    if window_impl not in WINDOW_IMPLS:
+        raise ValueError(f"window_impl={window_impl!r}: one of "
+                         f"{WINDOW_IMPLS} (the reference's backend "
+                         "'pallas', 'jax' and 'auto')")
+    return window_impl
+
+
 class DeviceFleetEngine:
     """Owns the device-resident state of one ``FleetCore`` (DESIGN.md §9).
     Host-side concerns — config dicts, the allow-list, stabilisation, the
-    clock shadow — stay on the core."""
+    clock shadow — stay on the core. ``window_impl`` is resolved here, once
+    (``"auto"`` through ``preferred_window_impl``)."""
 
-    def __init__(self, core, *, device: torch.device):
+    def __init__(self, core, *, device: torch.device,
+                 window_impl: str = "kernel"):
         self.core = core
         self.device = device
+        if check_window_impl(window_impl) == "auto":
+            window_impl = preferred_window_impl(core.n, device=device)
+        #: "kernel" (fleet_tick) or "scan" (fleet_scan), never "auto"
+        self.window_impl = window_impl
         # per-node metric noise matches the oracle's iid draw at tuning
         # scales; huge exploration fleets share the draw across nodes (the
         # tuner mean-reduces the node axis anyway) — DESIGN.md §9
@@ -532,9 +656,10 @@ class DeviceFleetEngine:
                       preroll_s: Optional[np.ndarray] = None):
         """Advance every cluster by (an optional stabilisation preroll +)
         its window and summarise the window on device: ONE ``fleet_tick``
-        kernel launch. ``preroll_s`` fuses the paper-§4.2 post-
-        reconfiguration wait into the same launch — those ticks evolve state
-        but emit nothing and are excluded from the window statistics."""
+        or ``fleet_scan`` kernel launch (``window_impl``). ``preroll_s``
+        fuses the paper-§4.2 post-reconfiguration wait into the same
+        launch — those ticks evolve state but emit nothing and are excluded
+        from the window statistics."""
         core = self.core
         N = core.n
         packed = core.packed()
@@ -571,7 +696,6 @@ class DeviceFleetEngine:
             f_slow, f_rate = ft.effects(times)
             rate_g = rate_g * f_rate            # broadcasts (1,N) -> (T,N)
             fmult = self._tensor(f_slow)
-        S = window_lanes(T, self.device)
         backlog, sfree = self._device_state()
         sfree = torch.clamp(sfree, min=0.0)      # server_free = max(·, clock)
         cc = self._cc()
@@ -587,21 +711,33 @@ class DeviceFleetEngine:
         sg = self._tensor(size_g).expand(T, N)
         wdraws = self.draws.window()
         self._windows += 1
-        ((backlog, sfree), ys, lane_sum_ms, tickq_ms, head_ms, n_s,
-         cnt) = _window_core(wdraws, T, S, backlog, sfree, consts, rg, sg,
-                             tmask, wmask, core.spec, fmult)
+        scan = self.window_impl == "scan"
+        if scan:
+            (backlog, sfree), ys, n_s = _scan_core(
+                wdraws, T, backlog, sfree, consts, rg, sg, tmask, core.spec,
+                fmult)
+        else:
+            ((backlog, sfree), ys, lane_sum_ms, tickq_ms, head_ms, n_s,
+             cnt) = _window_core(wdraws, T, window_lanes(T, self.device),
+                                 backlog, sfree, consts, rg, sg, tmask, wmask,
+                                 core.spec, fmult)
         core.clock += n_ticks * T_b        # exact host shadow
         self._backlog, self._sfree_rel = backlog, sfree
         if not summarise:
             return None
-        mean_ms, p99, processed = _window_summary(ys, wmask, lane_sum_ms,
-                                                  head_ms, cnt)
+        if scan:
+            mean_ms, p99, processed = _scan_summary(wdraws, T, ys, wmask,
+                                                    n_s, consts[0])
+            stats5 = _analytic_stats5(ys[0], ys[1], consts[0], n_s)
+        else:
+            mean_ms, p99, processed = _window_summary(ys, wmask, lane_sum_ms,
+                                                      head_ms, cnt)
+            stats5 = _lane_stats5(lane_sum_ms, tickq_ms, n_s)
         per_node = self._emission(
             wdraws, cc=cc, mc=self._mc_dev, F=self._emit_F, rg=rg, sg=sg,
             ys=ys, reconfigs=self._tensor(core.reconfigs),
             etick=self._tensor(etick, torch.int64),
-            evalid=self._tensor(evalid, torch.bool), n_s=n_s,
-            lane_sum_ms=lane_sum_ms, tickq_ms=tickq_ms,
+            evalid=self._tensor(evalid, torch.bool), stats5=stats5,
             node_noise=self.node_noise)
         self.last_stats = {"mean_ms": mean_ms, "p99_ms": p99,
                            "processed": processed, "per_node": per_node,
@@ -621,7 +757,7 @@ class DeviceFleetEngine:
 # --------------------------------------------------------------------------
 
 def build_step_window(core, sel_cols: tuple, T: int, E: int,
-                      *, slo_ms: float = 0.0):
+                      *, slo_ms: float = 0.0, window_impl: str = None):
     """Build the window step of the fused training loop: one observation
     window (stabilisation preroll + window + selected metric emission)
     that carries the queueing state, derives its tick geometry from the
@@ -645,11 +781,18 @@ def build_step_window(core, sel_cols: tuple, T: int, E: int,
     device tensors: its events are evaluated at the same tick times
     (``fault_effect_grid``) — rate shocks premultiply the arrival grid,
     service faults ride the kernel's ``fmult`` operand. The window itself
-    is one ``fleet_tick`` kernel launch."""
+    is one kernel launch: ``fleet_tick`` under ``window_impl="kernel"``,
+    ``fleet_scan`` (analytic mean, sampled p99, analytic emitted latency
+    columns) under ``"scan"``; None takes the engine's resolved impl."""
     from repro_torch.kernels.fleet_tick import pack_tick_consts
 
     dev = core._dev
     device = dev.device
+    window_impl = dev.window_impl if window_impl is None else window_impl
+    if window_impl not in ("kernel", "scan"):
+        raise ValueError(f"build_step_window: window_impl={window_impl!r} "
+                         "(resolve 'auto' at engine construction)")
+    scan = window_impl == "scan"
     spec, chips = core.spec, core.chips
     emission = _Emission(core, sel_cols, device)
     F_sel = torch.as_tensor(core._emit_factor[:, :, np.asarray(sel_cols)],
@@ -680,11 +823,20 @@ def build_step_window(core, sel_cols: tuple, T: int, E: int,
         if ft is not None:
             f_slow, f_rate = fault_effect_grid(ft, times)
             rg = rg * f_rate
-        ((backlog, sfree_rel), ys, lane_sum_ms, tickq_ms, head_ms, n_s,
-         cnt) = _window_core(wdraws, T, S, backlog, sfree_rel, consts, rg,
-                             sg, tmask, wmask, spec, f_slow)
-        mean_ms, p99, processed = _window_summary(ys, wmask, lane_sum_ms,
-                                                  head_ms, cnt)
+        if scan:
+            (backlog, sfree_rel), ys, n_s = _scan_core(
+                wdraws, T, backlog, sfree_rel, consts, rg, sg, tmask, spec,
+                f_slow)
+            mean_ms, p99, processed = _scan_summary(wdraws, T, ys, wmask,
+                                                    n_s, T_b)
+            stats5 = _analytic_stats5(ys[0], ys[1], T_b, n_s)
+        else:
+            ((backlog, sfree_rel), ys, lane_sum_ms, tickq_ms, head_ms, n_s,
+             cnt) = _window_core(wdraws, T, S, backlog, sfree_rel, consts,
+                                 rg, sg, tmask, wmask, spec, f_slow)
+            mean_ms, p99, processed = _window_summary(ys, wmask, lane_sum_ms,
+                                                      head_ms, cnt)
+            stats5 = _lane_stats5(lane_sum_ms, tickq_ms, n_s)
         # ---- metric emission, selected columns only (device etick) ----
         forced = n_win < ee
         n_emit = n_win // ee + forced
@@ -695,8 +847,7 @@ def build_step_window(core, sel_cols: tuple, T: int, E: int,
         evalid = e_ax < n_emit[None, :]
         per_node = emission(
             wdraws, cc=cc, mc=mc_dev, F=F_sel, rg=rg, sg=sg, ys=ys,
-            reconfigs=reconfigs, etick=etick, evalid=evalid, n_s=n_s,
-            lane_sum_ms=lane_sum_ms, tickq_ms=tickq_ms,
+            reconfigs=reconfigs, etick=etick, evalid=evalid, stats5=stats5,
             node_noise=node_noise)
         clock = clock + n_ticks.to(torch.float32) * T_b
         stats = {"mean_ms": mean_ms, "p99_ms": p99, "processed": processed,
@@ -712,3 +863,131 @@ def build_step_window(core, sel_cols: tuple, T: int, E: int,
         return (backlog, sfree_rel, clock), stats
 
     return step_window
+
+
+# --------------------------------------------------------------------------
+# kernel-vs-scan calibration (window_impl="auto", DESIGN.md §14)
+# --------------------------------------------------------------------------
+
+#: (device type, fleet-size bucket) -> "kernel" | "scan"
+_IMPL_CACHE: dict = {}
+
+
+def _probe_window_fns(T: int, N: int, device: torch.device):
+    """The two window implementations' divergent halves at (T, N) on
+    ``device``: the ``fleet_tick`` kernel with its head/mean reductions, and
+    the ``fleet_scan`` kernel with the analytic mean and the sampled-lane
+    p99. The tick draws, emission and summary gathers are shared by the
+    real paths, so the comparison leaves them out. Each takes (draws,
+    state, consts, rate, size) and returns (state', mean, p99)."""
+    from repro_torch.kernels.fleet_scan import fleet_scan
+    from repro_torch.kernels.fleet_tick import fleet_tick_window
+
+    S = window_lanes(T, device)
+    kw = dict(noise=0.05, retention_s=60.0, straggler_prob=0.05, slo=1.5,
+              shi=3.0)
+    active = torch.ones((T, N), dtype=torch.float32, device=device)
+    wmask = torch.ones((T, N), dtype=torch.bool, device=device)
+
+    def kern(draws, state, consts, rate, size):
+        z, u_s, u_r, u_f = _tick_draws(draws, T, N)
+        u_wait, z2a = split_lane_bits(draws.lane_bits(T, S, N))
+        state_out, ys, stats, head = fleet_tick_window(
+            state, consts, rate, size, z, u_s, u_r, u_f, active, u_wait, z2a,
+            p99_k=p99_depth(T, S), **kw)
+        cnt = torch.clamp(ys[2].to(torch.int32), 1, S).sum(dim=0)
+        mean = stats[0].sum(dim=0) / torch.clamp(cnt, min=1)
+        p99 = _lerp_quantile(torch.flip(head.T, dims=(-1,)), cnt, 99.0,
+                             descending=True)
+        return state_out, mean, p99
+
+    def scan(draws, state, consts, rate, size):
+        z, u_s, u_r, u_f = _tick_draws(draws, T, N)
+        state_out, ys = fleet_scan(state, consts, rate, size, z, u_s, u_r,
+                                   u_f, active, **kw)
+        n_s = torch.clamp(ys[2].to(torch.int32), 1, _MAX_LAT_SAMPLES)
+        mean, p99, _ = _scan_summary(draws, T, ys, wmask, n_s, consts[0])
+        return state_out, mean, p99
+
+    return kern, scan
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def window_impl_timings(N: int, T: int = 32, reps: int = 5, device=None):
+    """Interleaved median wall times of the two window implementations'
+    divergent halves (``_probe_window_fns``) at N's fleet-size bucket on
+    ``device`` (None: the card). Returns ``({"kernel": s, "scan": s},
+    Nb)``. Each timed call is fenced by a synchronize; the reps alternate
+    kernel and scan, so a drift of the clock or the host hits both
+    alike."""
+    import time
+
+    from repro_torch.kernels.fleet_tick import CONSTS_ROWS
+    from repro_torch.utils import resolve_device
+
+    device = resolve_device(device, "window_impl_timings")
+    Nb = _bucket(max(int(N), 1))
+    rng = np.random.default_rng(0)
+    f32 = dict(dtype=torch.float32, device=device)
+    rows = np.tile(np.array([8.0, 1e4, 2e-5, 2e-6, 1e-9, 0.1, 0.05, 3.0,
+                             0.0, 0.02, 16.0], np.float32)[:, None], (1, Nb))
+    consts = torch.as_tensor(np.vstack([rows, np.zeros(
+        (CONSTS_ROWS - rows.shape[0], Nb), np.float32)]), **f32)
+    state = torch.zeros((2, Nb), **f32)
+    rate = torch.as_tensor(rng.uniform(50.0, 500.0, (T, Nb)), **f32)
+    size = torch.as_tensor(rng.uniform(0.5, 2.0, (T, Nb)), **f32)
+    kern, scan = _probe_window_fns(T, Nb, device)
+    fns = (("kernel", kern), ("scan", scan))
+    draws = PhiloxDraws(7, device)
+    for _, fn in fns:          # builds the kernels, warms the allocator
+        fn(draws, state, consts, rate, size)
+    _sync(device)
+    ts: dict = {"kernel": [], "scan": []}
+    for _ in range(reps):
+        for name, fn in fns:
+            t0 = time.perf_counter()
+            fn(draws, state, consts, rate, size)
+            _sync(device)
+            ts[name].append(time.perf_counter() - t0)
+    return {name: float(np.median(v)) for name, v in ts.items()}, Nb
+
+
+def calibrate_window_impl(N: int, T: int = 32, reps: int = 5, device=None):
+    """Measure the probe at N's bucket, cache the verdict for the process
+    and return ``(verdict, timings)``: the verdict and its timings are the
+    same sample."""
+    from repro_torch.utils import resolve_device
+
+    device = resolve_device(device, "calibrate_window_impl")
+    timings, _ = window_impl_timings(N, T, reps, device=device)
+    best = "kernel" if timings["kernel"] <= timings["scan"] else "scan"
+    _IMPL_CACHE[(device.type, _bucket(max(int(N), 1)))] = best
+    return best, timings
+
+
+def preferred_window_impl(N: int, T: int = 32, reps: int = 5,
+                          device=None) -> str:
+    """The window implementation for an N-cluster fleet on ``device``:
+    ``"kernel"`` (fleet_tick) or ``"scan"`` (fleet_scan). One timed probe
+    per (device type, fleet-size bucket), cached for the process.
+    ``REPRO_FLEET_IMPL=pallas|scan`` overrides it without measuring
+    (``pallas``, the reference's name, and ``kernel`` mean ``"kernel"``);
+    any other value falls through to the probe."""
+    import os
+
+    from repro_torch.utils import resolve_device
+
+    override = os.environ.get("REPRO_FLEET_IMPL", "")
+    if override in ("pallas", "kernel"):
+        return "kernel"
+    if override == "scan":
+        return "scan"
+    device = resolve_device(device, "preferred_window_impl")
+    hit = _IMPL_CACHE.get((device.type, _bucket(max(int(N), 1))))
+    if hit is not None:
+        return hit
+    return calibrate_window_impl(N, T, reps, device=device)[0]

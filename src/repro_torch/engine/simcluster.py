@@ -33,9 +33,10 @@ every model term is computed for all N clusters in one vectorised pass
 
 Device-resident form (DESIGN.md §9): ``FleetCore`` steps every observation
 window through ``repro_torch.engine.fleet_torch``'s ``DeviceFleetEngine``,
-one launch of the hand-written CUDA ``fleet_tick`` kernel
-(``repro_torch.kernels.fleet_tick``; its plain torch version on CPU
-tensors). The reference's numpy tick loop is not copied: it stays the
+one launch of a hand-written CUDA kernel: ``fleet_tick``
+(``repro_torch.kernels.fleet_tick``) or, under ``window_impl="scan"``, the
+lane-free ``fleet_scan`` (``repro_torch.kernels.fleet_scan``); their plain
+torch versions on CPU tensors. The reference's numpy tick loop is not copied: it stays the
 oracle in ``repro.engine.simcluster``. ``service_terms_arrays`` runs on
 numpy arrays (stabilisation, the allow-list) and, through its ``xp``
 namespace parameter (``xp=repro_torch.utils.txp``), on torch tensors.
@@ -280,8 +281,13 @@ class FleetCore:
 
     The tick engine is the device-resident
     ``repro_torch.engine.fleet_torch.DeviceFleetEngine`` on ``device``
-    (counter RNG; each window runs the ``fleet_tick`` kernel, DESIGN.md §9).
-    ``backend`` keeps the reference's keyword and takes only ``"torch"``.
+    (counter RNG; each window is one kernel launch, DESIGN.md §9).
+    ``backend`` keeps the reference's keyword and takes only ``"torch"``;
+    ``window_impl`` picks the window: ``"kernel"`` (the ``fleet_tick``
+    kernel, the reference's ``backend="pallas"``), ``"scan"`` (the lean
+    lane-free ``fleet_scan`` kernel, its ``backend="jax"``) or ``"auto"``
+    (a timed choice made once, at construction); the resolved value is
+    ``self.window_impl``.
     ``device=None`` resolves to ``cuda`` and raises when there is no card —
     pass ``device="cpu"`` to run the kernels' plain torch versions.
     Config management, the allow-list guard and stabilisation stay
@@ -291,7 +297,7 @@ class FleetCore:
     def __init__(self, workloads: Sequence[Workload], models: Sequence[ModelConfig],
                  spec: SimSpec, lever_specs: Sequence[LeverSpec],
                  seeds: Sequence[int], backend: str = "torch",
-                 faults=None, device=None):
+                 faults=None, device=None, window_impl: str = "kernel"):
         assert len(workloads) == len(models) == len(seeds)
         if backend != "torch":
             raise ValueError(f"backend={backend!r}: the port runs only the "
@@ -344,7 +350,13 @@ class FleetCore:
         from repro_torch.utils import resolve_device
 
         self.device = resolve_device(device, "backend='torch'")
-        self._dev = DeviceFleetEngine(self, device=self.device)
+        self._dev = DeviceFleetEngine(self, device=self.device,
+                                      window_impl=window_impl)
+
+    @property
+    def window_impl(self) -> str:
+        """The engine's resolved window: ``"kernel"`` or ``"scan"``."""
+        return self._dev.window_impl
 
     # ------------------------------------------------------------- config
     def _default_config(self) -> dict:

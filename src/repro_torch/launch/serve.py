@@ -61,6 +61,14 @@ def main(argv=None):
     ap.add_argument("--backend", choices=["torch"], default="torch",
                     help="fleet tick engine: the torch engine on the "
                          "fleet_tick kernel (the port has no other)")
+    ap.add_argument("--window-impl", choices=["kernel", "scan", "auto"],
+                    default="scan",
+                    help="the fleets' observation window: 'scan' (the "
+                         "default, as the reference's --backend jax) runs "
+                         "the lean lane-free fleet_scan kernel, 'kernel' the "
+                         "fleet_tick kernel with its latency lanes (its "
+                         "--backend pallas), 'auto' the faster of the two "
+                         "by a timed probe")
     ap.add_argument("--device", default=None,
                     help="torch device of the fleets and the policy "
                          "(default: the CUDA card; 'cpu' runs the kernels' "
@@ -109,7 +117,8 @@ def main(argv=None):
     out.mkdir(parents=True, exist_ok=True)
     workloads = switching_fleet(args.fleet)
 
-    kw = dict(backend=args.backend, seed=args.seed, window_s=args.window,
+    kw = dict(backend=args.backend, window_impl=args.window_impl,
+              seed=args.seed, window_s=args.window,
               steps_per_episode=args.steps_per_episode,
               reward_mode=args.reward, slo_ms=args.slo_ms,
               k_promote=args.k_promote, margin=args.margin,
@@ -126,7 +135,7 @@ def main(argv=None):
         from repro_torch.engine import FleetEnv
 
         probe = FleetEnv(workloads, seed=args.seed, backend=args.backend,
-                         device=args.device)
+                         device=args.device, window_impl=args.window_impl)
         tuner = AutoTuner(probe, seed=args.seed, window_s=args.window)
         print(f"[collect] {args.collect} windows …")
         tuner.collect(args.collect)
@@ -140,7 +149,8 @@ def main(argv=None):
               f"(cycle {ctl.cycle}, incumbent {ctl.incumbent})")
 
     reason = ctl.cfgr.device_loop_reason()
-    print(f"[serve] fleets on {ctl.device}; fused device loop (§10): "
+    print(f"[serve] fleets on {ctl.device}, window "
+          f"{ctl.shadow_env.window_impl}; fused device loop (§10): "
           + ("ACTIVE" if reason is None else f"off — {reason}"))
     if args.safe:
         print(f"[serve] safe exploration (§16): shield ACTIVE — trust "

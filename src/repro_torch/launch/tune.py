@@ -45,6 +45,13 @@ def main(argv=None):
     ap.add_argument("--backend", choices=["torch"], default="torch",
                     help="fleet tick engine: the torch engine on the "
                          "fleet_tick kernel (the port has no other)")
+    ap.add_argument("--window-impl", choices=["kernel", "scan", "auto"],
+                    default="kernel",
+                    help="a fleet's observation window: 'kernel' runs the "
+                         "fleet_tick kernel with its latency lanes (the "
+                         "reference's --backend pallas), 'scan' the lean "
+                         "lane-free fleet_scan kernel (its --backend jax), "
+                         "'auto' the faster of the two by a timed probe")
     ap.add_argument("--device", default=None,
                     help="torch device of the simulation, the k-means, the "
                          "Lasso and the policy (default: the CUDA card; "
@@ -104,10 +111,11 @@ def main(argv=None):
         wls = (fleet_workloads(args.fleet, seed=args.seed) if args.fleet_mix
                else [get_workload(args.workload) for _ in range(args.fleet)])
         env = FleetEnv(wls, seed=args.seed, backend=args.backend,
-                       device=args.device)
+                       device=args.device, window_impl=args.window_impl)
         print(f"[fleet] {args.fleet} clusters "
               f"({'mixed roster' if args.fleet_mix else args.workload}, "
-              f"{args.backend} engine on {env.device})")
+              f"{args.backend} engine, {env.window_impl} window on "
+              f"{env.device})")
     else:
         env = SimCluster(get_workload(args.workload), seed=args.seed,
                          device=args.device)

@@ -14,7 +14,7 @@ all on one ``device`` (the card unless the caller asks for the CPU):
   the challenger config runs on the first half, the incumbent on the
   matched second half, and both are scored with the SLO-shaped reward over
   the same evaluation windows. A ``FleetEnv(faults=...)`` table here makes
-  outages hit the canary through ``fleet_tick``'s ``fmult`` operand.
+  outages hit the canary through the window kernel's ``fmult`` operand.
 * **live** — the serving fleet. It only ever runs the incumbent; configs
   reach it exclusively through ``CanaryGate`` promotions.
 
@@ -88,9 +88,11 @@ class ServeController:
     """Always-on control loop around the fused device loop (DESIGN.md §13).
 
     The reference's keywords, with ``backend="torch"`` only (as
-    ``FleetEnv``) and ``device`` for the three fleets and the policy;
-    ``mesh`` is kept for the signature: ``"auto"``, ``"off"`` and None run
-    on the one device."""
+    ``FleetEnv``), ``window_impl`` for the three fleets' windows (default
+    ``"scan"``, the lean ``fleet_scan`` kernel, as the reference defaults
+    to ``backend="jax"``; ``"kernel"`` is its ``"pallas"``) and ``device``
+    for the three fleets and the policy; ``mesh`` is kept for the
+    signature: ``"auto"``, ``"off"`` and None run on the one device."""
 
     def __init__(
         self,
@@ -99,6 +101,7 @@ class ServeController:
         metrics: Sequence[str],
         levers: Sequence[str],
         backend: str = "torch",
+        window_impl: str = "scan",
         seed: int = 0,
         window_s: float = 240.0,
         steps_per_episode: int = 2,
@@ -152,19 +155,22 @@ class ServeController:
 
         # the three fleets: seeds are part of the service identity (the
         # generators derive from them), so a resumed controller must be
-        # constructed with the same (workloads, seed, backend) triple
+        # constructed with the same (workloads, seed, backend, window_impl)
         self.shadow_env = FleetEnv(
             workloads, seeds=[seed + i for i in range(n)], backend=backend,
-            device=device)
+            device=device, window_impl=window_impl)
         self.device = self.shadow_env.device
+        # "auto" is resolved once, by the shadow fleet; the others follow it
+        impl = self.shadow_env.window_impl
         cw = [workloads[i % n] for i in range(M)]
         self.canary_env = FleetEnv(
             cw + cw, seeds=[seed + 101 + i for i in range(2 * M)],
-            backend=backend, faults=canary_faults, device=self.device)
+            backend=backend, faults=canary_faults, device=self.device,
+            window_impl=impl)
         self.live_env = FleetEnv(
             [workloads[i % n] for i in range(int(n_live))],
             seeds=[seed + 211 + i for i in range(int(n_live))],
-            backend=backend, device=self.device)
+            backend=backend, device=self.device, window_impl=impl)
 
         # safe exploration (DESIGN.md §16): the shadow Configurator runs
         # its fused loop under the trust-region shield; the controller

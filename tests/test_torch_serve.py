@@ -19,6 +19,13 @@ the median seed of ``SEED_MATRIX``); a permanent ``FailureFault`` on the
 challenger slice gives 0 promotions, at least 1 rollback and the
 incumbent back bit for bit on both.
 
+The controller defaults to ``window_impl="scan"`` (the lean ``fleet_scan``
+window, the twin of the reference's default ``backend="jax"``); the pins
+above name ``window_impl="kernel"`` (the ``fleet_tick`` path they were
+measured on), and their scan twins run the default: the paired canary
+slices against the reference's jax controller, the degraded promotion,
+the fault rollback and the acceptance run.
+
 The port's own pins: ``CAPTURE_COUNTS`` and ``retrace_counts()`` flat from
 cycle 3 (on the CPU programs run eagerly, so this pins the counters'
 wiring: the card pins the capture, chip_smoke.py phase 14); ``epoch_k=2``
@@ -82,6 +89,9 @@ def _kw(kw):
 
 
 def _controller(n=3, **kw):
+    """The port's controller; the pins name the kernel path unless the test
+    passes ``window_impl`` (the controller's default is the scan)."""
+    kw.setdefault("window_impl", "kernel")
     return ServeController([_wl(i) for i in range(n)], metrics=METRICS,
                            levers=LEVERS, backend="torch", device="cpu",
                            **_kw(kw))
@@ -296,14 +306,45 @@ def test_paired_canary_slices_statistically_equivalent():
                      "incumbent slice, port vs reference")
 
 
-@pytest.mark.parametrize("side", ["port", "reference"])
+def test_paired_canary_slices_on_the_scan_match_the_jax_backend():
+    """The port's default controller runs the lean scan: its paired canary
+    slices agree with each other and with the reference's default
+    (``backend="jax"``) controller's, each side on its own draws."""
+    ctl = ServeController([_wl(i) for i in range(3)], metrics=METRICS,
+                          levers=LEVERS, device="cpu",
+                          **_kw({"slo_ms": 400_000.0}))
+    assert all(e.window_impl == "scan" for e in
+               (ctl.shadow_env, ctl.canary_env, ctl.live_env))
+    cand_r, inc_r, breached = ctl._canary_eval(dict(ctl.incumbent))
+    assert not breached
+    assert_rel_close(cand_r, inc_r, DEFAULT_TOL.median_reward,
+                     "paired canary slices (port, scan)")
+    ref = _ref_controller(slo_ms=400_000.0)
+    rc, ri, rb = ref._canary_eval(dict(ref.incumbent))
+    assert not rb
+    assert_rel_close(cand_r, rc, DEFAULT_TOL.median_reward,
+                     "challenger slice, port scan vs reference jax")
+    assert_rel_close(inc_r, ri, DEFAULT_TOL.median_reward,
+                     "incumbent slice, port scan vs reference jax")
+
+
+def _maker(side):
+    """The controller factory of a parametrised side: the port's kernel
+    path, the reference's jax backend, or the port's scan."""
+    if side == "port-scan":
+        return lambda **kw: _controller(window_impl="scan", **kw)
+    return _controller if side == "port" else _ref_controller
+
+
+@pytest.mark.parametrize("side", ["port", "reference", "port-scan"])
 def test_challenger_beats_degraded_incumbent_and_promotes(side):
     """A degraded incumbent is promoted within 8 cycles on the harness's
     seed matrix: at the median seed on each side (first promotions over
-    seeds 0-31: the port 28 of 32 within 8 cycles, the reference 8 of 10
-    over seeds 0-7, 11 and 23 — each misses some seeds, the port seed 0),
-    and every promotion beats the incumbent and reaches the live fleet."""
-    make = _controller if side == "port" else _ref_controller
+    seeds 0-31: the port 28 of 32 within 8 cycles, on the scan 29 of 32,
+    the reference 8 of 10 over seeds 0-7, 11 and 23 — each misses some
+    seeds, the port seed 0 on both windows), and every promotion beats the
+    incumbent and reaches the live fleet."""
+    make = _maker(side)
     first = []
     for seed in SEED_MATRIX:
         ctl = make(seed=seed, k_promote=2, margin=0.02, slo_ms=400_000.0,
@@ -324,14 +365,14 @@ def test_challenger_beats_degraded_incumbent_and_promotes(side):
     assert sum(f is not None for f in first) * 2 > len(SEED_MATRIX), first
 
 
-@pytest.mark.parametrize("side", ["port", "reference"])
+@pytest.mark.parametrize("side", ["port", "reference", "port-scan"])
 def test_failure_fault_on_canary_triggers_rollback_bit_for_bit(side):
     # a permanent outage on the CHALLENGER slice only (clusters 0..M-1):
     # every canary evaluation breaches, so nothing may ever be promoted and
     # the incumbent must come back on the canary fleet bit-for-bit
     M = 2
-    Fault, make = ((FailureFault, _controller) if side == "port"
-                   else (RefFailureFault, _ref_controller))
+    Fault = RefFailureFault if side == "reference" else FailureFault
+    make = _maker(side)
     faults = [[Fault(t0_s=0.0, duration_s=1e9, slow_mult=8.0)]
               for _ in range(M)] + [[] for _ in range(M)]
     ctl = make(k_promote=1, margin=0.0, slo_ms=12_000.0,
@@ -415,11 +456,21 @@ def test_twenty_cycle_switching_acceptance():
     at the median seed, 20 cycles promote at least one candidate (the port
     promotes at 31 of seeds 0-31, all but seed 0, whose shadow policy walks
     ``max_batch_events`` down; the reference at 10 of 10)."""
+    _acceptance(_controller)
+
+
+def test_twenty_cycle_switching_acceptance_on_the_scan():
+    """The same acceptance run on the controller's default window, the
+    lean scan (it promotes at 29 of seeds 0-31, seed 0 not among them)."""
+    _acceptance(_maker("port-scan"))
+
+
+def _acceptance(make):
     promotions = []
     for seed in SEED_MATRIX:
-        ctl = _controller(seed=seed, k_promote=2, margin=0.02,
-                          slo_ms=20_000.0, eval_windows=2,
-                          incumbent=DEGRADED_STATIONARY)
+        ctl = make(seed=seed, k_promote=2, margin=0.02,
+                   slo_ms=20_000.0, eval_windows=2,
+                   incumbent=DEGRADED_STATIONARY)
         ctl.run(20)
         assert ctl.counters.cycles == 20
         promotions.append(ctl.counters.promotions)

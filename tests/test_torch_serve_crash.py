@@ -46,8 +46,11 @@ def _wl(i):
 
 def _controller(ckdir=None, **kw):
     # resumed controllers MUST be constructed with the same workloads /
-    # seed / backend: the generators derive from the fleet seeds
+    # seed / backend / window impl: the generators derive from the fleet
+    # seeds. The pins below name the kernel path; the *_on_the_scan twins
+    # run the controller's default, the lean scan
     kw.setdefault("slo_ms", 20_000.0)
+    kw.setdefault("window_impl", "kernel")
     return ServeController([_wl(i) for i in range(3)],
                            metrics=METRICS, levers=LEVERS, backend="torch",
                            seed=0, window_s=240.0, steps_per_episode=2,
@@ -103,33 +106,33 @@ def assert_same_service(A, C, rows_after=None):
     assert C.history.rows() == rows
 
 
-def test_serve_crash_resume_is_bitwise(tmp_path):
+def _crash_resume(tmp_path, window_impl, step=None):
+    """``step``: the checkpoint C restores (None: the latest, which must be
+    B's mid-run checkpoint; a promotion in cycles 3-4 checkpoints too)."""
     # A: the uninterrupted reference run
-    A = _controller()
+    A = _controller(window_impl=window_impl)
     A.run(4)
 
     # B: same service, killed after a mid-run checkpoint at cycle 2
-    B = _controller(tmp_path / "ck")
+    B = _controller(tmp_path / "ck", window_impl=window_impl)
     B.run(2)
     B.checkpoint()
     B.run(2)        # work after the checkpoint — lost in the crash
 
     # C: a fresh process resumes from the store and replays cycles 3-4
-    C = _controller(tmp_path / "ck")
-    assert C.restore() == 2 and C.cycle == 2
+    C = _controller(tmp_path / "ck", window_impl=window_impl)
+    assert C.restore(step=step) == 2 and C.cycle == 2
     C.run(2)
+    assert C.shadow_env.window_impl == window_impl
     assert_same_service(A, C, rows_after=2)
     # not vacuous: the service trained, canaried and moved its clocks
     assert A.cfgr.agent.n_updates == 4 and A.counters.canary_windows > 0
 
 
-def test_in_place_restore_replays_the_same_cycles(tmp_path):
-    """The same controller restores its own earlier checkpoint — its runner
-    already holds carry buffers and built programs, and its generators
-    have run on — and replays cycles 3-4 bitwise."""
-    A = _controller()
+def _in_place(tmp_path, window_impl):
+    A = _controller(window_impl=window_impl)
     A.run(4)
-    B = _controller(tmp_path / "ck")
+    B = _controller(tmp_path / "ck", window_impl=window_impl)
     B.run(2)
     B.checkpoint()
     B.run(2)
@@ -140,6 +143,27 @@ def test_in_place_restore_replays_the_same_cycles(tmp_path):
     # the programs and the buffers they read were kept, not rebuilt
     assert runner._bufs is bufs and runner._programs == progs
     assert_same_service(A, B)
+
+
+def test_serve_crash_resume_is_bitwise(tmp_path):
+    _crash_resume(tmp_path, "kernel")
+
+
+def test_serve_crash_resume_is_bitwise_on_the_scan(tmp_path):
+    """The same pin on the controller's default window, the lean scan
+    (whose run promotes in cycles 3-4: C restores B's step 2 by number)."""
+    _crash_resume(tmp_path, "scan", step=2)
+
+
+def test_in_place_restore_replays_the_same_cycles(tmp_path):
+    """The same controller restores its own earlier checkpoint — its runner
+    already holds carry buffers and built programs, and its generators
+    have run on — and replays cycles 3-4 bitwise."""
+    _in_place(tmp_path, "kernel")
+
+
+def test_in_place_restore_replays_the_same_cycles_on_the_scan(tmp_path):
+    _in_place(tmp_path, "scan")
 
 
 def test_restore_host_mode_preserves_wide_dtypes(tmp_path):

@@ -93,6 +93,10 @@ class JaxWindow:
     def lane_bits(self, T, S, N):
         return _draw_bits(self.k_lane, (T, S, N))
 
+    def p99_bits(self, T, N, Sp):
+        # the jax backend's sampled p99 lanes: the lane key, (T, N, Sp)
+        return _draw_bits(self.k_lane, (T, N, Sp))
+
     def emit_bits(self, shape):
         return _draw_bits(self.k_emit, shape)
 

@@ -5,6 +5,8 @@ statistical checks that one seed cannot settle.
         --seeds 0-31
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/seed_matrix.py serve \\
         --seeds 0-7 --side ref
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/seed_matrix.py serve \\
+        --seeds 0-31 --side port --window-impl scan
 
 ``megascan``: the exploring K=4 "full" epoch mega-scan on the 24-cluster
 stable fleet of tests/test_torch_slice.py (3 steps, 240 s windows, frozen
@@ -18,7 +20,10 @@ test of the per-seed trimmed means of updates 3 and 4 (scipy, if present).
 ``serve``: per seed, the cycle of the first promotion of the saturated
 degraded incumbent within 8 cycles, and the promotions and rollbacks of
 the 20-cycle switching acceptance run (tests/test_serve.py's
-configurations, 3 shadow clusters). ``--side`` picks the package(s).
+configurations, 3 shadow clusters). ``--side`` picks the package(s);
+``--window-impl`` the port controllers' window (``kernel``, what the
+tests' pins name, or ``scan``, the controller's default and the twin of
+the reference's jax backend).
 
 The reference's megascan runs its pallas backend on the compiled CPU tier
 (as tests/test_torch_epoch.py does), its serve controllers the jax backend
@@ -143,11 +148,14 @@ def _megascan_report(runs: dict, seeds: list[int]) -> None:
               f"{res.statistic:.1f}, p {res.pvalue:.4f}")
 
 
-def _serve(side: str, seed: int) -> dict:
+def _serve(side: str, seed: int, window_impl: str = "kernel") -> dict:
+    import functools
+
     from test_torch_serve import (DEGRADED, DEGRADED_STATIONARY, _controller,
                                   _ref_controller)
 
-    make = _controller if side == "port" else _ref_controller
+    make = (functools.partial(_controller, window_impl=window_impl)
+            if side == "port" else _ref_controller)
     ctl = make(seed=seed, k_promote=2, margin=0.02, slo_ms=400_000.0,
                incumbent=DEGRADED)
     first = None
@@ -168,6 +176,9 @@ def main(argv=None) -> None:
     ap.add_argument("--seeds", default="0-15", help="e.g. 0-31 or 0,11,23")
     ap.add_argument("--side", choices=["both", "ref", "port"],
                     default="both")
+    ap.add_argument("--window-impl", choices=["kernel", "scan"],
+                    default="kernel",
+                    help="serve: the port controllers' window")
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
     import torch
@@ -175,7 +186,8 @@ def main(argv=None) -> None:
 
     seeds = _seeds(args.seeds)
     sides = ["ref", "port"] if args.side == "both" else [args.side]
-    run = _megascan if args.what == "megascan" else _serve
+    run = (_megascan if args.what == "megascan" else
+           lambda side, s: _serve(side, s, args.window_impl))
     runs = {side: {} for side in sides}
     for side in sides:
         for s in seeds:
