@@ -146,6 +146,31 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
             bitwise against its eager twin, and its windows/s; the serve
             plane at its default window (cycles/s at phase 14's sizes, then
             crash-resume after capture, fresh and in place, bitwise)
+16. local   LocalEngine on the card in the reference's configuration
+            (examples/serve_autotune.py: the reduced smollm-135m, Poisson
+            30 events/s of 0.5 MB, seed 0) on 2 s wall-clock windows:
+            events/s, p50/p99, batch service ms, jit_compiles and their
+            time; the mean latency at batch_interval_s 0.1 must be below
+            that at 1.0; the reboot lever attn_chunk 32 re-"compiles"; then
+            AutoTuner's collect(16) -> analyse -> 1 host-loop update (6
+            windows), the wall by stage; one lasso_cd launch (analyse's
+            Lasso path) and no other kernel launch
+17. train   the training step at full SmolLM-135M width (30 layers,
+            d_model 576, 9/3 heads, d_ff 1536, vocab 49152, tied
+            embeddings, bf16 params, f32 AdamW moments, scan_layers,
+            remat "block"): (a) the reduced f32 step on the card against
+            the host from the same state, with the stated tolerance; (b)
+            launch/train.main at the reference launcher's defaults (--full
+            --batch 8 --seq 128), 60 steps, --ckpt-every 20
+            --inject-failure 30: resumed at step 20, the restored tree
+            bitwise equal to the saved one, every loss finite, the final
+            loss within the stated tolerance of an uninterrupted run; (c)
+            tokens/s and ms/step (median, min, max) over 20 steps at
+            8 x 1024 after 3, peak memory, and the peak and step of remat
+            "none" and "full"; (d) a profiled step; (e) the step's
+            operations counted from the code beside the bf16 and f32
+            peaks; (f) accum_steps 2 against 1 on an f32 copy; no kernel
+            launches
 
 The tuning loop's episode batches and updates (phases 4, 11-15) run
 as captured CUDA graphs from their second call at a shape
@@ -230,6 +255,26 @@ LASSO_TOL = 1e-4
 #: signs, so the mean moves far less than one ulp; 1e-3 of the loss would
 #: take a systematic quarter-ulp shift of every logit
 RWKV_LOSS_RTOL = 1e-3
+#: phase 17(a): the reduced SmolLM f32 train step on the card against the
+#: same step on the host from the same state. The two sum the matmuls and
+#: the softmax in other orders (~1e-6 relative a layer, as the CPU tests'
+#: port-vs-reference gradients); AdamW divides each gradient element by its
+#: own size, so an element whose gradient is as small as that rounding moves
+#: by a share of lr: the loss within TRAIN_RTOL, each leaf within TRAIN_RTOL
+#: of its scale (1 + max |leaf| for a parameter, the leaf's own max |leaf|
+#: for an AdamW moment, whose elements are ~1e-3 and ~1e-7) but for fewer
+#: than TRAIN_FAR of its elements, and those within a quarter of the leaf's
+#: largest step
+TRAIN_RTOL, TRAIN_FAR = 1e-5, 1e-3
+#: phase 17(b): the failure drill against an uninterrupted run: each step's
+#: loss relative to the uninterrupted run's at that step, and each final
+#: parameter and moment leaf relative to its own max |leaf|. Both runs take
+#: the same steps from the same bits (the restored tree is checked bitwise
+#: against the saved one) through the same kernels, and the embedding's
+#: backward (index_put_ with accumulate on a sorted index) adds its rows in
+#: a fixed order: measured 0 on an H100 for both. The limit is ~10 f32 ulps
+#: of the ~10.9 loss; a resume from any other state shows at 1e-2
+DRILL_RTOL = 1e-6
 
 
 def _gpu_facts() -> str:
@@ -1388,7 +1433,7 @@ def _lasso_case(A, b, lams, n: int, label: str, facts: str,
     g, w = got.cpu().numpy(), want.cpu().numpy()
     order_k, order_p = entry_order(g, lams)[0], entry_order(w, lams)[0]
     ms = _time_ms(run, reps=reps, warmup=1)
-    nbytes, flops = lc.cd_cost(p, len(lams), upd, moves)
+    nbytes, flops = lc.cd_cost(p, len(lams), upd, moves, cnt["terms"])
     bound_ms, by = _bound(nbytes, flops, F32_OPS_S)
     print(f"  lasso_cd {label} p={p} ({'shared' if lc.a_in_smem(p) else 'global'}"
           f" A, c in {'registers' if p <= 32 * lc.MAX_REG_CHUNKS else 'shared'}"
@@ -2624,6 +2669,445 @@ def phase_scan(dev, facts: str) -> dict:
     return row
 
 
+def _local_window(env, label: str, window_s: float, facts: str):
+    """One observed window of ``env``, timed on the host clock, printed."""
+    t0 = time.perf_counter()
+    w = env.observe(window_s)
+    wall = time.perf_counter() - t0
+    pn = w.per_node
+    print(f"  {label}: {w.latencies_ms.size} events in {wall:.3f} s "
+          f"({w.latencies_ms.size / wall:.3f} events/s; cumulative "
+          f"events_per_s {pn['events_per_s'][0]:.3f}), latency mean "
+          f"{w.mean_ms:.3f} / p50 {pn['latency_p50_ms'][0]:.3f} / p99 "
+          f"{w.p99_ms:.3f} ms, batch service {pn['batch_service_ms'][0]:.3f} "
+          f"ms, {pn['batches_per_s'][0]:.3f} batches/s, padding "
+          f"{pn['padding_waste_frac'][0]:.4f}, jit_compiles "
+          f"{pn['jit_compiles'][0]:.0f} (jit_time_s "
+          f"{pn['jit_time_s'][0]:.6f}) [{facts}]")
+    return w
+
+
+def _launches_as(label: str, **expect: int) -> dict:
+    """The launch counts since the last ``_zero_counts``, which must be
+    ``expect`` (0 for a kernel not named)."""
+    counts = _counts()
+    print(f"  kernel launches over {label}: {counts}")
+    want = {n: expect.get(n, 0) for n in counts}
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+    return counts
+
+
+def phase_local(dev, facts: str, window_s: float = 2.0) -> dict:
+    """LocalEngine on the card in the reference's configuration (the reduced
+    smollm-135m, Poisson 30 events/s of 0.5 MB, seed 0): windows of real
+    seconds, the batch interval's effect on latency, a reboot lever, then
+    AutoTuner's collect -> analyse -> one host-loop update. One lasso_cd
+    launch (analyse), no other; that launch's inputs, recorded at its
+    wrapper, then go through ``_lasso_case``, and its output is held
+    bitwise to the mirror."""
+    from unittest import mock
+
+    from repro_torch.core import AutoTuner
+    from repro_torch.core import lasso as lasso_mod
+    from repro_torch.kernels import lasso_cd as lc
+    from repro_torch.data.workloads import PoissonWorkload
+    from repro_torch.engine import LOCAL_LEVERS, LocalEngine
+
+    t_start = time.perf_counter()
+    _zero_counts()
+    env = LocalEngine(PoissonWorkload(lam=30.0, event_size_mb=0.5), seed=0)
+    torch.cuda.synchronize()
+    cfg = env.engine.model_cfg
+    assert env.device.type == env.engine.device.type == dev.type
+    print(f"  LocalEngine({cfg.name} reduced: {cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.dtype}, attn {cfg.attn_impl}) on "
+          f"{env.device}, up in {time.perf_counter() - t_start:.3f} s")
+    _local_window(env, "default (batch_interval_s 0.5)", window_s, facts)
+    c = env.current_config()
+    means = {}
+    for interval in (1.0, 0.1):
+        c["batch_interval_s"] = interval
+        env.apply_config(c)
+        means[interval] = _local_window(env, f"batch_interval_s {interval}",
+                                        window_s, facts).mean_ms
+    print(f"  lever: mean latency {means[0.1]:.3f} ms at 0.1 s against "
+          f"{means[1.0]:.3f} ms at 1.0 s")
+    if not means[0.1] < means[1.0]:
+        raise AssertionError("batch_interval_s 0.1 is not faster than 1.0")
+    before = env.engine.jit_compiles
+    c["attn_chunk"] = 32
+    rep = env.apply_config(c)
+    _local_window(env, "attn_chunk 32", 1.0, facts)
+    print(f"  reboot lever attn_chunk 32: rebooted {rep['rebooted']}, load "
+          f"{rep['load_s']:.3f} s, jit_compiles {before} -> "
+          f"{env.engine.jit_compiles}")
+    if not rep["rebooted"] or env.engine.jit_compiles <= before:
+        raise AssertionError("attn_chunk did not reboot and re-compile")
+
+    env.reset()
+    tuner = AutoTuner(env, seed=0, window_s=window_s, top_levers=5)
+    walls = {}
+    t0 = time.perf_counter()
+    tuner.collect(16, windows_per_cluster=8)
+    walls["collect(16)"] = time.perf_counter() - t0
+    launch, path = lasso_mod.lasso_cd, []
+
+    def spy(xtx, xty, w0, lams, n, *, epochs):
+        out = launch(xtx, xty, w0, lams, n, epochs=epochs)
+        path.append(((xtx.clone(), xty.clone(), w0.clone(), lams.clone(), n,
+                      epochs), out.clone()))
+        return out
+
+    t0 = time.perf_counter()
+    with mock.patch.object(lasso_mod, "lasso_cd", spy):
+        mets, levs = tuner.analyse()
+    walls["analyse"] = time.perf_counter() - t0
+    print(f"  analyse: metrics k={tuner.selection.k}: {mets}; levers {levs}")
+    env.reset()
+    cfgr = tuner.build_configurator(steps_per_episode=3,
+                                    episodes_per_update=2, window_s=window_s,
+                                    f_exploit=0.8)
+    reason = cfgr.device_loop_reason()
+    t0 = time.perf_counter()
+    stats = cfgr.run_update()
+    walls["1 host-loop update (6 windows)"] = time.perf_counter() - t0
+    ps = [r.p99_ms for r in cfgr.history]
+    print(f"  update: host loop ({reason}); {len(ps)} windows, p99 "
+          f"{', '.join(f'{p:.3f}' for p in ps)} ms, return "
+          f"{stats['mean_return']:.4f}")
+    if len(ps) != 6 or not np.isfinite(ps).all():
+        raise AssertionError(f"host-loop update gave {ps}")
+    e = env.engine
+    print(f"  tuner wall by stage: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+          + f"; engine: {e.buffer.stats.total_out} events served, "
+          f"{e.jit_compiles} first calls ({e.jit_time_s:.3f} s), "
+          f"{e.replays} replays [{facts}]")
+    # analyse's Lasso path is one lasso_cd launch on the card; the engine's
+    # attention is the plain chunked / naive one (LOCAL_LEVERS offers no
+    # other), so nothing else launches
+    counts = _launches_as("phase 16", lasso_cd=1)
+    # that launch at the shape the local path gives it: as many rows as
+    # collected windows, fewer than the features (the levers and their
+    # squares)
+    if len(path) != 1:
+        raise AssertionError(f"analyse made {len(path)} lasso_cd calls")
+    (A, b, w0, lt, n, epochs), out = path[0]
+    if epochs != 60 or bool(w0.any()) or not A.is_cuda:
+        raise AssertionError(f"analyse's lasso_cd: epochs {epochs}, w0 "
+                             f"nonzero {bool(w0.any())}, on {A.device}")
+    mirror, _ = lc.lasso_cd_mirror(A, b, w0, lt, n, epochs=epochs)
+    print(f"  analyse's lasso_cd launch: {n:.0f} rows, p = {A.shape[0]} "
+          f"({len(LOCAL_LEVERS)} levers and their squares), "
+          f"{lt.numel()} lambdas; its output bitwise equal to the mirror: "
+          f"{torch.equal(out.cpu(), mirror.cpu())}")
+    if not torch.equal(out.cpu(), mirror.cpu()):
+        raise AssertionError("phase 16: analyse's lasso_cd differs from its "
+                             "mirror")
+    _lasso_case(A, b, lt.cpu().numpy(), int(n), "on the local path", facts)
+    print(f"  phase 16 took {time.perf_counter() - t_start:.1f} s")
+    return counts
+
+
+def _train_flops(cfg, B: int, S: int) -> dict:
+    """The operations one train step does, counted from the code: the
+    weight products (``x @ W`` and the tied head) forward, and twice that
+    backward, in the params' dtype; attention's two batched products over
+    every (query, key) pair (the chunked path masks, it does not skip) in
+    f32, forward, backward twice, and once more recomputed under
+    remat "block" or "full"; "full" recomputes the weight products too."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    per_layer = (d * cfg.num_heads * hd * 2 + 2 * d * cfg.num_kv_heads * hd
+                 + 3 * d * cfg.d_ff)
+    fwd_w = 2 * B * S * (cfg.num_layers * per_layer
+                         + d * cfg.vocab_size)
+    fwd_a = cfg.num_layers * 2 * (2 * B * cfg.num_heads * S * S * hd)
+    recompute = cfg.remat in ("block", "full")
+    return {"weights": fwd_w * (3 + (cfg.remat == "full")),
+            "attention_f32": fwd_a * (3 + recompute)}
+
+
+def _train_run(cfg, dev, B: int, S: int, steps: int, warm: int) -> dict:
+    """``steps`` timed train steps (after ``warm``) of the full model at
+    (B, S), each ended by reading its loss; peak memory over the timed
+    steps."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.distribution import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt = adamw()
+    fn = make_train_step(cfg, opt, InputShape("t", S, B, "train")).fn
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    state = opt.init(params)
+    batches = [make_batch(cfg, B, S, seed=i, device=dev) for i in range(4)]
+    for i in range(warm):
+        params, state, m = fn(params, state, batches[i % 4])
+        float(m["ce_loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        params, state, m = fn(params, state, batches[i % 4])
+        losses.append(float(m["ce_loss"]))
+        walls.append(time.perf_counter() - t0)
+    return {"walls": np.array(walls), "losses": losses,
+            "peak": torch.cuda.max_memory_allocated(),
+            "step": lambda: fn(params, state, batches[0])}
+
+
+def _tree_err(got, want, own: bool = False) -> tuple[float, float, float]:
+    """(max |got - want| over the scale 1 + max |want| (``own``: max |want|,
+    or 1 where want is all zero), the share of elements beyond TRAIN_RTOL of
+    that scale, max |got - want|)."""
+    g, w = got.detach().float().cpu(), want.detach().float().cpu()
+    d = (g - w).abs()
+    scale = float(w.abs().max())
+    scale = (scale or 1.0) if own else 1.0 + scale
+    return (float(d.max()) / scale,
+            float((d > TRAIN_RTOL * scale).float().mean()), float(d.max()))
+
+
+def _train_card_vs_host(dev, facts: str) -> None:
+    """17(a): one reduced f32 step on the card and on the host from the
+    same state (3 host steps from a seeded init, so AdamW's moments are
+    live)."""
+    from repro_torch import configs
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.distribution import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.utils import tree_leaves, tree_map
+
+    cfg = configs.get("smollm_135m", reduced=True)
+    assert cfg.dtype == "float32" and not torch.backends.cuda.matmul.allow_tf32
+    opt, shape = adamw(), InputShape("t", 128, 8, "train")
+    host = make_train_step(cfg, opt, shape, device="cpu").fn
+    card = make_train_step(cfg, opt, shape, device=dev).fn
+    p = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    o = opt.init(p)
+    for i in range(3):
+        p, o, _ = host(p, o, make_batch(cfg, 8, 128, seed=i, device="cpu"))
+    b = make_batch(cfg, 8, 128, seed=3, device="cpu")
+    to = lambda t: tree_map(lambda x: x.to(dev), t)
+    want_p, want_o, want_m = host(p, o, b)
+    got_p, got_o, got_m = card(to(p), to(o), to(b))
+    lw, lg = float(want_m["ce_loss"]), float(got_m["ce_loss"])
+    worst = {"params": (0.0, 0.0, 0.0), "moments": (0.0, 0.0, 0.0)}
+    trees = [("params", got_p, want_p, p)] + [
+        ("moments", got_o[k], want_o[k], o[k]) for k in ("mu", "nu")]
+    for kind, gt, wt, w0t in trees:
+        for g, w, w0 in zip(tree_leaves(gt), tree_leaves(wt),
+                            tree_leaves(w0t)):
+            err, far, dmax = _tree_err(g, w, own=kind == "moments")
+            worst[kind] = tuple(max(a, b) for a, b in
+                                zip(worst[kind], (err, far, dmax)))
+            step = float((w - w0).abs().max())
+            if far >= TRAIN_FAR or dmax > 0.25 * step:
+                raise AssertionError(
+                    f"17(a) {kind} leaf {tuple(w.shape)}: {far} of it beyond "
+                    f"{TRAIN_RTOL} of its scale, max {dmax} against a step "
+                    f"of {step}")
+    print(f"  (a) reduced f32 step, card vs host: loss {lg:.7f} / {lw:.7f} "
+          f"(rel {abs(lg - lw) / lw:.3e}); "
+          + "; ".join(f"{k}: worst leaf {v[0]:.3e} of its scale, {v[1]:.3e} "
+                      f"of a leaf beyond {TRAIN_RTOL} (limit {TRAIN_FAR}), "
+                      f"max |diff| {v[2]:.3e}" for k, v in worst.items()))
+    if abs(lg - lw) > TRAIN_RTOL * lw:
+        raise AssertionError("17(a) loss card vs host")
+
+
+def _train_drill(dev, facts: str, tmp: Path) -> None:
+    """17(b): launch/train.py at the reference launcher's defaults on the
+    full model, 60 steps with a failure at 30, against an uninterrupted
+    run. The checkpoint written at step 20 and the tree restored from it
+    are held bitwise equal."""
+    from unittest import mock
+
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.checkpoint.store import _flatten, _to_host
+    from repro_torch.launch import train as ltrain
+
+    seen = {}
+    write, restore = CheckpointStore._write, CheckpointStore.restore
+
+    def spy_write(self, step, host_flat, extra):
+        if step == 20 and "saved" not in seen:
+            seen["saved"] = {k: v.copy() for k, v in host_flat.items()}
+        if step == 60:
+            seen[self.dir.parent.name] = {k: v.copy()
+                                          for k, v in host_flat.items()}
+        return write(self, step, host_flat, extra)
+
+    def spy_restore(self, skeleton, **kw):
+        out = restore(self, skeleton, **kw)
+        seen["restored"] = (out[1], _to_host(_flatten(out[0])))
+        return out
+
+    args = ["--full", "--batch", "8", "--seq", "128", "--steps", "60",
+            "--ckpt-every", "20", "--log-every", "20"]
+    t0 = time.perf_counter()
+    with mock.patch.object(CheckpointStore, "_write", spy_write), \
+            mock.patch.object(CheckpointStore, "restore", spy_restore):
+        drill = ltrain.main(args + ["--inject-failure", "30", "--ckpt-dir",
+                                    str(tmp / "drill")])
+        t_drill = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain = ltrain.main(args + ["--ckpt-dir", str(tmp / "plain")])
+        t_plain = time.perf_counter() - t0
+    step, got = seen["restored"]
+    saved = seen["saved"]
+    same = (step == 20 and set(got) == set(saved) and all(
+        got[k].dtype == saved[k].dtype and got[k].tobytes() == saved[k].tobytes()
+        for k in saved))
+    # the drill's steps are 0-29, then 20-59 again from the checkpoint
+    d_loss = np.array(drill["losses"], np.float64)
+    p_loss = np.array(plain["losses"], np.float64)
+    if len(d_loss) != 70 or len(p_loss) != 60:
+        raise AssertionError(f"17(b) {len(d_loss)} drill / {len(p_loss)} "
+                             f"uninterrupted losses, expected 70 / 60")
+    at = np.r_[np.arange(30), np.arange(20, 60)]
+    rel = np.abs(d_loss - p_loss[at]) / np.abs(p_loss[at])
+    move = abs(p_loss[20] - p_loss[59]) / p_loss[59]
+    fin_d, fin_p = seen["drill"], seen["plain"]
+    leaf_rel = {}
+    for k, v in fin_p.items():
+        a, c = fin_d[k], v
+        if c.dtype.kind == "V":             # bf16, stored as 2-byte records
+            a = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+            c = torch.from_numpy(c.view(np.int16)).view(torch.bfloat16)
+        a, c = torch.as_tensor(a).double(), torch.as_tensor(c).double()
+        leaf_rel[k] = float((a - c).abs().max()) / (float(c.abs().max())
+                                                    or 1.0)
+    worst_leaf = max(leaf_rel, key=leaf_rel.get)
+    ms = 1e3 * np.median(plain["step_s"][5:])
+    print(f"  (b) launch/train.main --full --batch 8 --seq 128, 60 steps: "
+          f"drill resumed at {drill['resumed_at']}, restored tree of step "
+          f"{step} bitwise equal to the saved one: {same} ({len(saved)} "
+          f"leaves); each step's loss vs the uninterrupted run's: max rel "
+          f"{rel.max():.3e} (steps 20-59 after the resume {rel[30:].max():.3e},"
+          f" limit {DRILL_RTOL}); final loss {d_loss[-1]:.7f} / "
+          f"{p_loss[-1]:.7f}; the loss moves {move:.3e} from step 20 to 59; "
+          f"final params and moments, {len(fin_p)} leaves: worst "
+          f"{leaf_rel[worst_leaf]:.3e} of its max ({worst_leaf}), bitwise "
+          f"equal {all(fin_d[k].tobytes() == v.tobytes() for k, v in fin_p.items())}"
+          f"; losses {p_loss[0]:.4f} -> {p_loss[-1]:.4f}; median step "
+          f"{ms:.3f} ms; wall {t_drill:.1f} s (drill) / {t_plain:.1f} s, "
+          f"checkpoints included [{facts}]")
+    if drill["resumed_at"] != [20] or not same:
+        raise AssertionError("17(b) drill did not resume bitwise at step 20")
+    if not (np.isfinite(d_loss).all() and np.isfinite(p_loss).all()):
+        raise AssertionError("17(b) non-finite loss")
+    if rel.max() > DRILL_RTOL or leaf_rel[worst_leaf] > DRILL_RTOL:
+        raise AssertionError(f"17(b) drill vs uninterrupted: loss rel "
+                             f"{rel.max()}, leaf {worst_leaf} "
+                             f"{leaf_rel[worst_leaf]}")
+    if not move > DRILL_RTOL:
+        raise AssertionError(f"17(b) the loss moved {move} over steps 20-59")
+
+
+def _train_accum(dev, cfg) -> None:
+    """17(f): accum_steps=2 against 1 at the same global batch (8 x 128),
+    on an f32 copy of the full model, one step from the same init."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.distribution import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.utils import tree_leaves
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    opt, shape = adamw(), InputShape("t", 128, 8, "train")
+    params = init_params(cfg32, torch.Generator(device=dev).manual_seed(0))
+    b = make_batch(cfg32, 8, 128, seed=0, device=dev)
+    outs = [make_train_step(cfg32, opt, shape, accum_steps=k).fn(
+        params, opt.init(params), b) for k in (1, 2)]
+    (p1, o1, m1), (p2, o2, m2) = outs
+    l1, l2 = float(m1["ce_loss"]), float(m2["ce_loss"])
+    worst_m = max(_tree_err(a, c, own=True)[0] for a, c in zip(
+        tree_leaves([o2["mu"], o2["nu"]]), tree_leaves([o1["mu"], o1["nu"]])))
+    far = max(_tree_err(a, c)[1] for a, c in zip(tree_leaves(p2),
+                                                 tree_leaves(p1)))
+    print(f"  (f) accum_steps 2 vs 1, f32 full width, 8 x 128: loss "
+          f"{l2:.7f} / {l1:.7f} (rel {abs(l2 - l1) / l1:.3e}); moments worst "
+          f"{worst_m:.3e} of their leaf's max (limit {TRAIN_RTOL}); params beyond {TRAIN_RTOL} of scale: "
+          f"{far:.3e} of a leaf at most (limit {TRAIN_FAR})")
+    if abs(l2 - l1) > TRAIN_RTOL * l1 or worst_m > TRAIN_RTOL \
+            or far >= TRAIN_FAR:
+        raise AssertionError("17(f) accum_steps 2 against 1")
+
+
+def phase_train(dev, facts: str) -> dict:
+    """The training step at full SmolLM-135M width: the card against the
+    host on the reduced model, the launcher's failure drill, throughput at
+    8 x 1024 by remat mode, a profiled step, the FLOP count, gradient
+    accumulation. No kernel launches."""
+    import tempfile
+
+    from repro_torch.configs import smollm_135m
+
+    t_start = time.perf_counter()
+    cfg = smollm_135m.CONFIG
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.d_ff, cfg.vocab_size, cfg.tie_embeddings, cfg.dtype,
+            cfg.scan_layers, cfg.remat, cfg.attn_chunk) == (
+        30, 576, 9, 3, 1536, 49152, True, "bfloat16", True, "block", 1024)
+    _zero_counts()
+    _train_card_vs_host(dev, facts)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        _train_drill(dev, facts, Path(tmp))
+
+    B, S = 8, 1024
+    n_params = cfg.param_count()
+    fl = _train_flops(cfg, B, S)
+    t_w, t_a = fl["weights"] / BF16_OPS_S, fl["attention_f32"] / F32_OPS_S
+    run = _train_run(cfg, dev, B, S, steps=20, warm=3)
+    w = run["walls"]
+    tok_s = 20 * B * S / w.sum()
+    print(f"  (c) {cfg.name} full ({n_params} parameters, bf16, f32 AdamW "
+          f"moments, remat block), {B} x {S}: {tok_s:.1f} tokens/s over 20 "
+          f"steps after 3; ms/step median {1e3 * np.median(w):.3f}, min "
+          f"{1e3 * w.min():.3f}, max {1e3 * w.max():.3f}; losses "
+          f"{run['losses'][0]:.4f} -> {run['losses'][-1]:.4f}; peak "
+          f"{run['peak'] / 2**30:.3f} GiB [{facts}]")
+    if not np.isfinite(run["losses"]).all():
+        raise AssertionError("non-finite training loss")
+    prof = _profile(run["step"], "train step (8 x 1024, remat block)", facts,
+                    top=10)
+    print(f"  (d) profiled step: busy {prof['busy_ms']:.3f} of "
+          f"{prof['wall_ms']:.3f} ms ({100 * prof['busy_ms'] / prof['wall_ms']:.1f}"
+          f" %), {prof['kernel_calls']} kernel-launch calls")
+    med = float(np.median(w))
+    print(f"  (e) operations a step (from the code): weight products "
+          f"{fl['weights'] / 1e12:.4f} TFLOP (bf16, {t_w * 1e3:.3f} ms at "
+          f"989 TFLOP/s), attention {fl['attention_f32'] / 1e12:.4f} TFLOP "
+          f"(f32 CUDA cores, {t_a * 1e3:.3f} ms at 67 TFLOP/s): "
+          f"{(fl['weights'] + fl['attention_f32']) / (B * S) / 1e9:.4f} "
+          f"GFLOP a token; the step at {med * 1e3:.3f} ms is "
+          f"{(t_w + t_a) / med:.4f} of that bound, {t_w / med:.4f} of the "
+          f"bf16 weight products' alone [{facts}]")
+    del run, prof
+    for remat in ("none", "full"):
+        r = _train_run(dataclasses.replace(cfg, remat=remat), dev, B, S,
+                       steps=3, warm=1)
+        print(f"  (c) remat {remat}: peak {r['peak'] / 2**30:.3f} GiB, "
+              f"ms/step median {1e3 * np.median(r['walls']):.3f} (3 steps "
+              f"after 1)")
+        del r
+    _train_accum(dev, cfg)
+    counts = _launches_as("phase 17")
+    print(f"  phase 17 took {time.perf_counter() - t_start:.1f} s")
+    return counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2726,6 +3210,10 @@ def main() -> int:
     serve_plane_row = phase_serve_plane(dev, facts)
     print("[15] scan: the lean tick scan on the card")
     scan_row = phase_scan(dev, facts)
+    print("[16] local: LocalEngine and the tuner on wall-clock windows")
+    local_counts = phase_local(dev, facts)
+    print("[17] train: the training step at full SmolLM-135M width")
+    train_counts = phase_train(dev, facts)
     kernels = [
         {"name": "fleet_tick_window", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fleet_tick.cu",
@@ -2755,6 +3243,9 @@ def main() -> int:
     ]
     for row in kernels:
         row["bound_frac"] = row["bound_ms"] / row["ms"]
+        mod = row["source"].rsplit("/", 1)[1].split(".")[0]
+        row["launches_local"] = local_counts[mod]
+        row["launches_train"] = train_counts[mod]
     print(facts)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

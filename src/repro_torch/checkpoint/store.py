@@ -14,7 +14,10 @@ tolerance) — the port of ``repro.checkpoint.store``, on one device.
   (single writer).
 * **Leaves** may be torch tensors (any device), numpy arrays or Python
   scalars. A tensor goes to the host as ``.detach().cpu().numpy()``: its
-  dtype is kept, so f64 and int64 leaves never round.
+  dtype is kept, so f64 and int64 leaves never round. numpy has no
+  bfloat16, so a bf16 tensor is written as the reference writes its
+  ``ml_dtypes`` bf16 arrays: 2-byte void records holding the bits, with
+  ``"bfloat16"`` in the manifest; it restores as a bf16 tensor.
 * **Restore** returns numpy leaves exactly as saved with ``host=True``;
   by default each leaf is a tensor on the store's ``device``. The
   reference's ``shardings=`` (reshard onto a mesh) waits for the fleet
@@ -110,7 +113,9 @@ class CheckpointStore:
             fname = f"leaf_{i:05d}.npy"
             np.save(tmp / fname, arr)
             manifest["leaves"][key] = {
-                "file": fname, "shape": list(arr.shape), "dtype": str(arr.dtype)}
+                "file": fname, "shape": list(arr.shape),
+                "dtype": "bfloat16" if arr.dtype == _BF16_BITS
+                else str(arr.dtype)}
         (tmp / "manifest.json").write_text(json.dumps(manifest))
         final = self.dir / f"step_{step:08d}"
         if final.exists():
@@ -162,14 +167,22 @@ class CheckpointStore:
         flat = {}
         for key, info in manifest["leaves"].items():
             arr = np.load(d / info["file"])
-            flat[key] = arr if host else _to_device(arr, self.device)
+            flat[key] = arr if host else _to_device(arr, self.device,
+                                                    info["dtype"])
         tree = _unflatten_into(skeleton, flat)
         return tree, manifest["step"], manifest.get("extra", {})
 
 
+#: how a bf16 leaf lies in numpy: its bits as 2-byte void records
+_BF16_BITS = np.dtype("V2")
+
+
 def _to_numpy(v) -> np.ndarray:
     if isinstance(v, torch.Tensor):
-        return v.detach().cpu().numpy()
+        v = v.detach().cpu()
+        if v.dtype == torch.bfloat16:
+            return v.view(torch.int16).numpy().view(_BF16_BITS)
+        return v.numpy()
     return np.asarray(v)
 
 
@@ -177,6 +190,10 @@ def _to_host(flat: dict[str, Any]) -> dict[str, np.ndarray]:
     return {k: _to_numpy(v) for k, v in flat.items()}
 
 
-def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+def _to_device(arr: np.ndarray, device: torch.device,
+               dtype: str) -> torch.Tensor:
     """A saved leaf as a tensor of its own dtype on ``device``."""
+    if dtype == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
     return torch.from_numpy(arr.copy()).to(device)

@@ -1,0 +1,17 @@
+"""The port's train step (one device; meshes wait for ROADMAP queue 1,
+item 7)."""
+from repro_torch.distribution.steps import (
+    StepBundle,
+    make_decode_step,
+    make_prefill_step,
+    make_step_for_cell,
+    make_train_step,
+)
+
+__all__ = [
+    "StepBundle",
+    "make_decode_step",
+    "make_prefill_step",
+    "make_step_for_cell",
+    "make_train_step",
+]

@@ -45,7 +45,7 @@ from repro_torch.data.workloads import Event
 from repro_torch.engine.queue import EventBuffer, IdempotentSink
 from repro_torch.models import init_params
 from repro_torch.models.lm import score_last
-from repro_torch.utils import resolve_device, round_up
+from repro_torch.utils import resolve_device, round_up, tree_map
 
 
 @dataclass
@@ -73,11 +73,8 @@ class BatchReport:
 
 
 def _cast_floats(tree, dtype: torch.dtype):
-    if isinstance(tree, dict):
-        return {k: _cast_floats(v, dtype) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_cast_floats(v, dtype) for v in tree]
-    return tree.to(dtype) if tree.is_floating_point() else tree
+    return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t,
+                    tree)
 
 
 class StreamEngine:

@@ -98,6 +98,25 @@ class LazyPerNode(Mapping):
 
 
 @dataclass
+class MetricsWindowData:
+    per_node: Mapping
+    latencies_ms: np.ndarray
+    p99_ms: float
+    clock_s: float
+    # (n_nodes, n_metrics) window average in registry order — the dense twin
+    # of per_node, letting consumers reduce all 90 metrics in one array op
+    # instead of 90 dict lookups (None for envs that don't provide it)
+    node_matrix: Optional[np.ndarray] = None
+    # events processed during the window (true sim throughput, not the noisy
+    # emitted events_per_s metric); NaN for envs that don't track it
+    processed_events: float = float("nan")
+
+    @property
+    def mean_ms(self) -> float:
+        return float(np.mean(self.latencies_ms)) if self.latencies_ms.size else float("nan")
+
+
+@dataclass
 class SimSpec:
     """Cluster geometry + calibration constants."""
 

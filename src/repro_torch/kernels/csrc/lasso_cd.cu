@@ -18,15 +18,20 @@
 // microseconds at the f32 peak) but the chain of updates: each reads the w
 // the one before it wrote. So the design makes an update's chain short.
 //
-// * A carried gradient. c = b - A w is formed once, from w0, at the launch
-//   start (a zero w0_m adds nothing and is skipped, so w0 = 0 gives c = b
-//   exactly). An update then reads r_j = c_j + A_jj w_j, and only when it
-//   moves w_j by delta != 0 does every lane apply c_k -= delta A[j, k] to
-//   its own k: row j of A, which is column j since A is symmetric, read
-//   contiguously across the lanes. No dot, no reduction: one shuffle
-//   broadcasts delta. c is never refreshed, so after the start every step
-//   is elementwise and the kernel is bitwise equal to a CPU mirror of its
-//   order (kernels/lasso_cd.py: lasso_cd_mirror).
+// * A carried gradient. c = b - A w is formed afresh at the start of each
+//   lambda, from the w it starts from (w0 at the first): one shuffle
+//   broadcasts each w_m, and a zero w_m adds nothing and is skipped, so w0
+//   = 0 gives c = b exactly. An update then reads r_j = c_j + A_jj w_j, and
+//   only when it moves w_j by delta != 0 does every lane apply c_k -= delta
+//   A[j, k] to its own k: row j of A, which is column j since A is
+//   symmetric, read contiguously across the lanes. No dot, no reduction:
+//   one shuffle broadcasts delta. Every step is elementwise, so the kernel
+//   is bitwise equal to a CPU mirror of its order (kernels/lasso_cd.py:
+//   lasso_cd_mirror). The refresh keeps the carry's rounding from piling up
+//   over the path: carried from the launch start alone, c drifted from b -
+//   A w by enough to move the coefficients by 3.5e-4 of their scale on a
+//   16-row design of 24 features (more features than rows), against 1.5e-5
+//   refreshed a lambda; it costs p products a nonzero w_m a lambda.
 // * One warp; lane l owns the coordinates k = l + 32 q: their c_k, w_k and
 //   A_kk. Up to p = 256 (8 chunks) they sit in registers: the chunk count
 //   is a template constant and every loop over q unrolls, so q is a
@@ -87,6 +92,36 @@ __device__ __forceinline__ float row_at(const float* A, int row, int q,
   return (q < nq - 1 || k < p) ? A[(size_t)row * p + k] : 0.0f;
 }
 
+// c = b - A w, for w as it stands: coordinate k sums A[m, k] w_m over the
+// nonzero w_m in order of m, each w_m broadcast from the lane that owns it
+template <int NQ>
+__device__ __forceinline__ void refresh_c(Owned<NQ>& c, Owned<NQ>& w,
+                                          const float* A,
+                                          const float* __restrict__ xty,
+                                          int p, int lane) {
+  const int nq = NQ > 0 ? NQ : (p + 31) / 32;
+#pragma unroll
+  for (int q = 0; q < nq; ++q) c[q] = 0.0f;
+#pragma unroll
+  for (int qm = 0; qm < nq; ++qm) {
+    const int end = min(32, p - 32 * qm);
+    const float wq = w[qm];
+    for (int s = 0; s < end; ++s) {
+      const float wm = __shfl_sync(FULL, wq, s);
+      if (wm == 0.0f) continue;  // warp-uniform: every lane got this wm
+      const int m = 32 * qm + s;
+#pragma unroll
+      for (int q = 0; q < nq; ++q)
+        c[q] = c[q] + row_at(A, m, q, nq, p, lane) * wm;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < nq; ++q) {
+    const int k = 32 * q + lane;
+    c[q] = k < p ? xty[k] - c[q] : 0.0f;
+  }
+}
+
 template <int NQ, bool A_SMEM>
 __global__ void __launch_bounds__(32, 1)
 lasso_cd_kernel(const float* __restrict__ xtx, const float* __restrict__ xty,
@@ -112,31 +147,16 @@ lasso_cd_kernel(const float* __restrict__ xtx, const float* __restrict__ xty,
     A = a_sm;
   }
 
-  // c = b - A w0: coordinate k sums row k's A_km w0_m over m in order
 #pragma unroll
   for (int q = 0; q < nq; ++q) {
     const int k = 32 * q + lane;
     w[q] = k < p ? w0[k] : 0.0f;
     d[q] = k < p ? A[(size_t)k * p + k] : 0.0f;
-    c[q] = 0.0f;
-  }
-  for (int m = 0; m < p; ++m) {
-    const float wm = w0[m];
-    if (wm == 0.0f) continue;
-#pragma unroll
-    for (int q = 0; q < nq; ++q) {
-      const int k = 32 * q + lane;
-      if (k < p) c[q] = c[q] + A[(size_t)k * p + m] * wm;
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < nq; ++q) {
-    const int k = 32 * q + lane;
-    c[q] = k < p ? xty[k] - c[q] : 0.0f;
   }
 
   for (int l = 0; l < n_lam; ++l) {
     const float nl = n * lams[l];
+    refresh_c(c, w, A, xty, p, lane);
     for (int e = 0; e < epochs; ++e) {
       bool moved = false;
 #pragma unroll

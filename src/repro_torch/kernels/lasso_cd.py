@@ -19,8 +19,8 @@ update, ~9.4 M for the tuner's path.
   taken afresh, with the update's scalar arithmetic in f32 in the
   reference's order.
 * ``lasso_cd_mirror`` runs the kernel's own order in numpy f32: the
-  gradient c = b - A w carried from the start and changed by a row of A
-  only when a coordinate moves. The kernel is bitwise equal to it (the
+  gradient c = b - A w formed afresh at each lambda's start and changed by
+  a row of A only when a coordinate moves. The kernel is bitwise equal to it (the
   tests and chip_smoke.py hold it so); it also counts the epochs run and
   the updates that moved. The main path never calls it.
 
@@ -78,13 +78,16 @@ def a_in_smem(p: int) -> bool:
     return smem_bytes(p, True) <= kbuild.MAX_SMEM
 
 
-def cd_cost(p: int, n_lam: int, updates: int, moves: int) -> tuple[int, int]:
+def cd_cost(p: int, n_lam: int, updates: int, moves: int,
+            terms: int = 0) -> tuple[int, int]:
     """(bytes, flops) a path from w0 = 0 must move and do, from the counts
     of its run (``lasso_cd_mirror``): A, b, w0 and the lambdas read once,
     the (n_lam, p) coefficients written once, all f32; ``UPDATE_FLOPS`` an
-    update, 2 p a move (c -= delta A[j]) and one n lam product a lambda."""
+    update, 2 p a move (c -= delta A[j]), 2 p a term of the lambdas'
+    refreshes of c (a nonzero w_m at a lambda's start) and one n lam
+    product a lambda."""
     nbytes = 4 * (p * p + 2 * p + n_lam + n_lam * p)
-    flops = UPDATE_FLOPS * updates + 2 * p * moves + n_lam
+    flops = UPDATE_FLOPS * updates + 2 * p * (moves + terms) + n_lam
     return nbytes, flops
 
 
@@ -133,34 +136,38 @@ def lasso_cd_mirror(xtx, xty, w0, lams, n: float, *, epochs: int,
                     carry: bool = True):
     """The kernel's order of operations in numpy f32, on the host: the
     (n_lam, p) coefficients after each lambda on the inputs' device, and
-    the run's counts ``{"epochs", "updates", "moves", "rounds"}`` (epochs
-    run, coordinate updates, updates that moved w, and the kernel's rounds:
-    one a move, and one more a chunk of 32 coordinates whose last one does
-    not move).
+    the run's counts ``{"epochs", "updates", "moves", "rounds", "terms"}``
+    (epochs run, coordinate updates, updates that moved w, the kernel's
+    rounds: one a move, and one more a chunk of 32 coordinates whose last
+    one does not move; and the nonzero w_m summed into the refreshes of c).
 
-    c = b - A w0 is summed a column of A at a time, the nonzero w0_m in
-    order (so w0 = 0 gives c = b exactly); an update reads r_j = c_j +
-    A_jj w_j and, when it moves w_j by delta != 0, takes c -= delta A[j]
-    (row j, a product then a difference); an epoch that moves nothing ends
-    the lambda. Every step is elementwise f32, as in the kernel, so the two
-    agree to the bit. ``carry=False`` leaves c at its start (the row update
-    cut out, as ``tools/lasso_probe.py``'s no-carry variant does)."""
+    At each lambda's start c = b - A w is summed a row of A at a time (A is
+    symmetric), the nonzero w_m in order (so w0 = 0 gives c = b exactly);
+    an update reads r_j = c_j + A_jj w_j and, when it moves w_j by delta !=
+    0, takes c -= delta A[j] (row j, a product then a difference); an epoch
+    that moves nothing ends the lambda. Every step is elementwise f32, as
+    in the kernel, so the two agree to the bit. ``carry=False`` leaves c as
+    the first lambda's start formed it (the row update and the later
+    refreshes cut out, as ``tools/lasso_probe.py``'s no-carry variant
+    does)."""
     host = lambda t: np.array(t.detach().to("cpu", torch.float32).numpy()
                               if torch.is_tensor(t) else t, np.float32)
     A, b, w, lam_np = host(xtx), host(xty), host(w0), host(lams)
     p = A.shape[0]
     d = A.diagonal().copy()
     den = np.maximum(d, np.float32(1e-12))
-    s = np.zeros(p, np.float32)
-    for m in np.flatnonzero(w):
-        s += A[:, m] * w[m]
-    c = b - s
     nf = np.float32(n)
     zero = np.float32(0.0)
     out = np.empty((len(lam_np), p), np.float32)
-    runs = moves = rounds = 0
+    runs = moves = rounds = terms = 0
     for li, lam in enumerate(lam_np):
         nl = nf * lam
+        if carry or li == 0:
+            s = np.zeros(p, np.float32)
+            for m in np.flatnonzero(w):
+                s += A[m] * w[m]
+                terms += 1
+            c = b - s
         for _ in range(epochs):
             runs += 1
             moved = False
@@ -182,7 +189,7 @@ def lasso_cd_mirror(xtx, xty, w0, lams, n: float, *, epochs: int,
         out[li] = w
     dev = xtx.device if torch.is_tensor(xtx) else "cpu"
     counts = {"epochs": runs, "updates": runs * p, "moves": moves,
-              "rounds": rounds + moves}
+              "rounds": rounds + moves, "terms": terms}
     return torch.from_numpy(out).to(dev), counts
 
 

@@ -17,6 +17,10 @@ otherwise.
     PYTHONPATH=src python -m repro_torch.launch.tune --fleet 16 \
         --reward slo --slo-ms 12000 --safe --out experiments/tune_safe
 
+    # the real StreamEngine on wall-clock windows (LocalEngine)
+    PYTHONPATH=src python -m repro_torch.launch.tune --env local \
+        --collect 24 --updates 2 --window 2 --out experiments/tune_local
+
 ``--fleet 1`` (or less) runs the serial ``SimCluster``. Prints the
 Fig-5-style latency trajectory and writes ``analysis.json``,
 ``history.json`` and ``metrics.prom`` (the fused loop's ``ChaosCounters``,
@@ -33,7 +37,13 @@ import numpy as np
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--env", choices=["sim", "local"], default="sim")
+    ap.add_argument("--env", choices=["sim", "local"], default="sim",
+                    help="'sim' tunes the simulated cluster; 'local' the "
+                         "real StreamEngine (LocalEngine) on wall-clock "
+                         "windows of at most 6 s")
+    ap.add_argument("--arch", default="smollm_135m",
+                    help="--env local: the model the StreamEngine serves "
+                         "(its reduced config)")
     ap.add_argument("--workload", default="poisson_low")
     ap.add_argument("--fleet", type=int, default=1,
                     help="simulate N clusters in one batched FleetEnv "
@@ -53,9 +63,10 @@ def main(argv=None):
                          "lane-free fleet_scan kernel (its --backend jax), "
                          "'auto' the faster of the two by a timed probe")
     ap.add_argument("--device", default=None,
-                    help="torch device of the simulation, the k-means, the "
-                         "Lasso and the policy (default: the CUDA card; "
-                         "'cpu' runs the kernels' plain versions)")
+                    help="torch device of the simulation (or of --env "
+                         "local's model), the k-means, the Lasso and the "
+                         "policy (default: the CUDA card; 'cpu' runs the "
+                         "kernels' plain versions)")
     ap.add_argument("--device-loop", choices=["auto", "on", "off"],
                     default="auto",
                     help="fused Algorithm-1 training loop over a fleet: "
@@ -92,10 +103,6 @@ def main(argv=None):
     ap.add_argument("--out", default="experiments/tune")
     args = ap.parse_args(argv)
 
-    if args.env == "local":
-        raise NotImplementedError(
-            "--env local: LocalEngine is not ported yet (ROADMAP queue 1, "
-            "item 8.1)")
     if args.safe and args.reward != "slo":
         # before the collect budget is spent
         raise SystemExit("--safe needs --reward slo (the shield's breach "
@@ -103,9 +110,9 @@ def main(argv=None):
 
     from repro_torch.core import AutoTuner
     from repro_torch.data.workloads import fleet_workloads, get_workload
-    from repro_torch.engine import FleetEnv, SimCluster
+    from repro_torch.engine import FleetEnv, LocalEngine, SimCluster
 
-    fleet = args.fleet > 1
+    fleet = args.env == "sim" and args.fleet > 1
     window = args.window
     if fleet:
         wls = (fleet_workloads(args.fleet, seed=args.seed) if args.fleet_mix
@@ -116,9 +123,13 @@ def main(argv=None):
               f"({'mixed roster' if args.fleet_mix else args.workload}, "
               f"{args.backend} engine, {env.window_impl} window on "
               f"{env.device})")
-    else:
+    elif args.env == "sim":
         env = SimCluster(get_workload(args.workload), seed=args.seed,
                          device=args.device)
+    else:
+        env = LocalEngine(get_workload(args.workload), seed=args.seed,
+                          arch=args.arch, device=args.device)
+        window = min(args.window, 6.0)  # real seconds
 
     if args.device_loop == "on":
         # env-level gates are checkable now: fail before the collect

@@ -6,6 +6,7 @@ from repro_torch.models.lm import (
     forward_train,
     init_decode_state,
     init_params,
+    load_reference_opt_state,
     load_reference_params,
 )
 
@@ -15,5 +16,6 @@ __all__ = [
     "forward_train",
     "init_decode_state",
     "init_params",
+    "load_reference_opt_state",
     "load_reference_params",
 ]

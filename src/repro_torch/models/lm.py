@@ -8,13 +8,26 @@
                          logits and a primed ``DecodeState``
 * ``load_reference_params`` — the reference's parameter pytree (numpy
                          arrays) as the port's tree
+* ``load_reference_opt_state`` — the reference optimizer's state as the
+                         port optimizer's
 
 The port keeps the reference's parameter layout: the same nested keys, and
 each linear weight (d_in, d_out) applied as ``x @ W``, so the converter only
 moves arrays into tensors. A layer stack is stacked along a leading L axis
 when ``cfg.scan_layers`` (as in the full configs) and a list otherwise (the
-reduced ones); ``_backbone`` walks either in a Python loop. No remat:
-the port runs forward passes only so far.
+reduced ones); ``_backbone`` walks either in a Python loop, a stacked tree
+unbound once a pass so that its gradient is one stack, not a scatter a
+layer.
+
+``forward_train`` runs under autograd (``distribution/steps.py`` builds the
+train step on it). While grad is enabled, each layer runs under the
+reference's ``_maybe_remat``: ``cfg.remat`` ``"none"`` keeps every
+activation, ``"full"`` (JAX's ``nothing_saveable``) keeps only the layer's
+inputs and recomputes the layer in the backward pass, and ``"block"``
+(``dots_with_no_batch_dims_saveable``) keeps the outputs of the weight
+matmuls (``aten.mm`` / ``aten.addmm``, the products without batch
+dimensions) and recomputes the rest, attention's batched products
+included. Remat changes memory, never values.
 
 The ssm blocks run the time mix as the reference's ``_rwkv_block`` does,
 with ``rwkv6_time_mix``'s default impl (the plain ``wkv6_chunked``); the
@@ -24,14 +37,16 @@ the reference. Other families (MoE, hybrid, VLM, audio) raise
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.utils import resolve_device, softmax_cross_entropy
+from repro_torch.utils import resolve_device, softmax_cross_entropy, tree_map
 
 PyTree = Any
 
@@ -82,12 +97,6 @@ def _stack(trees: list) -> PyTree:
                 del t[key]
         return out
     return torch.stack(trees)
-
-
-def _layer(tree: PyTree, i: int) -> PyTree:
-    if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
 
 
 def _init_dense_layer(gen, cfg: ModelConfig, device) -> dict:
@@ -147,14 +156,20 @@ def load_reference_params(tree: PyTree, cfg: ModelConfig, device=None) -> PyTree
         raise ValueError(f"reference layers are {'stacked' if stacked else 'a list'}"
                          f" but cfg.scan_layers={cfg.scan_layers}")
 
-    def conv(x):
-        if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
-        if isinstance(x, (list, tuple)):
-            return [conv(v) for v in x]
-        return _to_tensor(x, device)
+    return tree_map(lambda a: _to_tensor(a, device), tree)
 
-    return conv(tree)
+
+def load_reference_opt_state(state: PyTree, cfg: ModelConfig,
+                             device=None) -> PyTree:
+    """The reference optimizer's state (``repro.optim``'s adamw, sgd or
+    rmsprop: ``mu`` / ``nu`` trees that mirror the parameter tree, and the
+    int32 ``count``) as the port optimizer's, on ``device`` (``cuda`` unless
+    another device is named). Leaves keep their dtypes, bf16 moments
+    included."""
+    device = resolve_device(device, "load_reference_opt_state")
+    return {k: (load_reference_params(v, cfg, device) if k in ("mu", "nu")
+                else _to_tensor(v, device))
+            for k, v in state.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -175,25 +190,56 @@ def _rwkv_block(p, cfg, x):
     return x + h
 
 
-def _first_leaf(tree):
-    return _first_leaf(next(iter(tree.values()))) if isinstance(tree, dict) \
-        else tree
+def _unstack(tree: PyTree) -> list:
+    """A stacked tree as a list of per-layer trees: each leaf unbound once
+    (one ``unbind``, whose backward is one ``stack``)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree))
 
 
 def _layers(params, cfg: ModelConfig):
     """The per-layer trees, from either layout."""
     if cfg.scan_layers:
-        n = _first_leaf(params).shape[0]
-        return (_layer(params, i) for i in range(n))
+        return iter(_unstack(params))
     return iter(params)
+
+
+#: the ops whose outputs ``remat="block"`` keeps: the weight matmuls, JAX's
+#: dot_generals without batch dimensions (``x @ W`` folds to ``mm``;
+#: einsums with batch dimensions run as ``bmm`` and are recomputed)
+_SAVED_BY_BLOCK = frozenset({torch.ops.aten.mm.default,
+                             torch.ops.aten.addmm.default})
+
+
+def _block_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_BLOCK
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``fn(p, x)`` under ``cfg.remat`` while grad is enabled (the module
+    docstring says what each mode keeps); ``fn`` itself otherwise."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat == "block":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _block_policy)
+    elif cfg.remat != "full":
+        raise ValueError(f"remat={cfg.remat!r}")
+    return lambda p, x: ckpt.checkpoint(fn, p, x, **kw)
 
 
 def _backbone(params, cfg: ModelConfig, x):
     """(B,S,d) -> (B,S,d) through the family's blocks, in order."""
     _ported(cfg)
     block = _rwkv_block if cfg.family == "ssm" else _dense_block
+    layer = _maybe_remat(lambda p, h: block(p, cfg, h), cfg)
     for p in _layers(params["layers"], cfg):
-        x = block(p, cfg, x)
+        x = layer(p, x)
     return x
 
 

@@ -1,7 +1,8 @@
-"""The 90-metric registry, the per-node series store (a copy of the
-reference's; the torch engine summarises windows on the device and does not
-use it), the fused loop's and the serve loop's counters and the
-launchers' metrics-dump guard."""
+"""The 90-metric registry, the per-node series stores (copies of the
+reference's: ``TimeSeriesStore`` holds ``LocalEngine``'s windows; the torch
+fleet engine summarises windows on the device and uses neither), the fused
+loop's and the serve loop's counters and the launchers' metrics-dump
+guard."""
 from repro_torch.monitoring.metrics import (
     DRIVER_METRICS,
     METRIC_NAMES,
@@ -12,6 +13,7 @@ from repro_torch.monitoring.metrics import (
     MetricDef,
     ServeCounters,
     ShieldCounters,
+    TimeSeriesStore,
     build_registry,
     flush_guard,
     retrace_counts,
@@ -27,6 +29,7 @@ __all__ = [
     "MetricDef",
     "ServeCounters",
     "ShieldCounters",
+    "TimeSeriesStore",
     "build_registry",
     "flush_guard",
     "retrace_counts",

@@ -398,6 +398,43 @@ def flush_guard(path, render):
         os.replace(tmp, path)
 
 
+class TimeSeriesStore:
+    """Per-node ring buffer of metric samples: (t, node, metric) -> value."""
+
+    def __init__(self, names: Sequence[str], n_nodes: int, capacity: int = 4096):
+        self.names = list(names)
+        self.index = {n: i for i, n in enumerate(self.names)}
+        self.n_nodes = n_nodes
+        self.capacity = capacity
+        self._t = np.zeros(capacity)
+        self._v = np.full((capacity, n_nodes, len(self.names)), np.nan)
+        self._head = 0
+        self._count = 0
+
+    def append(self, t: float, values: np.ndarray) -> None:
+        """values (n_nodes, n_metrics)."""
+        self._t[self._head] = t
+        self._v[self._head] = values
+        self._head = (self._head + 1) % self.capacity
+        self._count = min(self._count + 1, self.capacity)
+
+    def window(self, seconds: float, now: float) -> np.ndarray:
+        """(samples, n_nodes, n_metrics) for t in [now-seconds, now]."""
+        if self._count == 0:
+            return np.zeros((0, self.n_nodes, len(self.names)))
+        idx = (self._head - np.arange(1, self._count + 1)) % self.capacity
+        sel = idx[self._t[idx] >= now - seconds]
+        return self._v[sel[::-1]]
+
+    def node_average(self, seconds: float, now: float) -> dict[str, np.ndarray]:
+        """metric -> (n_nodes,) mean over the window (heat-map input)."""
+        w = self.window(seconds, now)
+        if w.shape[0] == 0:
+            return {n: np.zeros(self.n_nodes) for n in self.names}
+        avg = np.nanmean(w, axis=0)  # (nodes, metrics)
+        return {n: avg[:, self.index[n]] for n in self.names}
+
+
 class FleetSeriesStore:
     """Batched ``TimeSeriesStore``: one ring buffer over (time, cluster, node,
     metric) so a fleet tick appends every cluster's sample in a single scatter

@@ -10,7 +10,11 @@ so no host-to-device copy and no sync on the hot loop) and keeps torch's
 tensor-tensor ops otherwise — one formula, no fork.
 
 ``round_up`` is the reference's integer helper (``repro.utils``), copied;
-``softmax_cross_entropy`` is its CE in torch.
+``softmax_cross_entropy`` is its CE in torch; ``tree_map``,
+``tree_leaves``, ``tree_zeros_like`` and ``global_norm`` are its tree
+helpers over nested dicts, lists and tuples of tensors (the port's
+parameter trees; dict keys are walked in insertion order, where
+``jax.tree`` sorts them, so a sum over leaves may round differently).
 ``resolve_device`` is the port's rule for every entry point: ``cuda`` unless
 the caller names another device, and no silent fall back to the CPU.
 ``strict_f32`` keeps f32 matrix products out of TF32 on the card for the
@@ -20,8 +24,11 @@ from __future__ import annotations
 
 import contextlib
 import types
+from typing import Any, Callable
 
 import torch
+
+PyTree = Any
 
 
 def _maximum(a, b):
@@ -99,3 +106,34 @@ def softmax_cross_entropy(logits: torch.Tensor,
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return lse - gold
+
+
+def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
+    """``fn`` over the leaves of ``tree`` and of each tree in ``rest`` (same
+    structure), keeping the structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: PyTree) -> list:
+    """The leaves in ``tree_map``'s order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_zeros_like(tree: PyTree) -> PyTree:
+    return tree_map(torch.zeros_like, tree)
+
+
+def global_norm(tree: PyTree) -> torch.Tensor:
+    """sqrt of the f32 sum of every leaf's f32 sum of squares."""
+    leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    return torch.sqrt(torch.sum(torch.stack(leaves)))

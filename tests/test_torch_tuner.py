@@ -254,9 +254,6 @@ def test_flush_guard_writes_the_dump_when_interrupted(tmp_path):
 def test_unported_launcher_options_raise(tmp_path):
     from repro_torch.launch import tune
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tune.main(["--env", "local", "--device", "cpu", "--out",
-                   str(tmp_path)])
     # --safe is ported (tests/test_torch_shield.py); without the SLO reward
     # it exits with the reference's message before any work
     with pytest.raises(SystemExit, match="--safe needs --reward slo"):

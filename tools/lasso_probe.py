@@ -13,8 +13,9 @@ device time (a CUDA graph of 2 launches), in alternating order:
   60 epochs (the same moves: a skipped epoch moves nothing, and costs a
   round a chunk);
 * ``no-carry``: the row update c -= delta A[j] cut out (the moving lane's
-  own c takes delta times 0, so the shuffle stays on the chain), held
-  bitwise to the mirror with ``carry=False``, which also counts its rounds.
+  own c takes delta times 0, so the shuffle stays on the chain) and c
+  formed at the first lambda only, held bitwise to the mirror with
+  ``carry=False``, which also counts its rounds.
 
 Then the bare chain: a warp that runs only a round's threshold, division,
 ballot, shuffle and multiply-subtract, on registers, with no read of A, as
@@ -45,6 +46,8 @@ from repro_torch.kernels import lasso_cd as lc  # noqa: E402
 SKIP = ("      if (!moved) break;", "  // a fixed point")
 CARRY = ("          // carry: c_k -= delta A[j, k]",
          "          // end of the carry")
+#: the lambdas' refresh of c, which the no-carry variant keeps at the first
+REFRESH = "    refresh_c(c, w, A, xty, p, lane);\n"
 
 CHAIN_SRC = r"""
 #include <cuda_runtime.h>
@@ -85,9 +88,10 @@ extern "C" int lasso_chain_launch(int divide, const float* init, float* out,
 
 def _variants(src: str) -> dict:
     every = _probe.cut(src, *SKIP)
-    return {"kernel": src, "every-epoch": every,
-            "no-carry": _probe.cut(src, *CARRY,
-                                   "          c[q] = c[q] - dl * 0.0f;\n")}
+    nocarry = _probe.cut(src, *CARRY, "          c[q] = c[q] - dl * 0.0f;\n")
+    assert nocarry.count(REFRESH) == 1
+    nocarry = nocarry.replace(REFRESH, "    if (l == 0) " + REFRESH.lstrip())
+    return {"kernel": src, "every-epoch": every, "no-carry": nocarry}
 
 
 def main() -> int:
