@@ -171,6 +171,28 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
             operations counted from the code beside the bf16 and f32
             peaks; (f) accum_steps 2 against 1 on an f32 copy; no kernel
             launches
+18. decode  distribution/steps.py's make_prefill_step then 32 greedy
+            make_decode_step steps at decode_32k's context of 32768
+            positions, bf16, random weights drawn on the card, at full
+            width for qwen2-7b (dense; batch 16 of 16 x 512 prompts, the
+            prefill under attn_impl "pallas"), rwkv6-7b (ssm; batch 128 of
+            128 x 128) and zamba2-2.7b (hybrid; batch 8 of 8 x 512), one
+            model at a time: prefill ms, tokens/s and ms a step (median
+            and spread over the steps after 3), peak memory, a profiled
+            step (busy share, kernel-launch calls), the step's byte bound
+            (weights, the whole cache or state read, the state written, at
+            3.35 TB/s) and its fraction; pos advancing one a step, every
+            state tensor on the card, finite logits; exactly 28
+            flash_attention launches for qwen2's prefill and none
+            elsewhere. Before qwen2's run, the bf16 flash-attention kernel
+            against its plain version at the prefill's shape and strides
+            (B=16, Hq=28, Hkv=4, S=512, hd=128, causal) within ATTN_TOL,
+            with its times. Each config also at full width in f32 cut to 4
+            layers (the hybrid: 2 periods), decode after S - 1 tokens
+            against prefill's last logits on S within DECODE_F32_TOL; and
+            at full depth in bf16 that distance within DECODE_BF16_X times
+            the bf16-vs-f32 distance of the prefill (its floor, measured in
+            the run)
 
 The tuning loop's episode batches and updates (phases 4, 11-15) run
 as captured CUDA graphs from their second call at a shape
@@ -275,6 +297,27 @@ TRAIN_RTOL, TRAIN_FAR = 1e-5, 1e-3
 #: a fixed order: measured 0 on an H100 for both. The limit is ~10 f32 ulps
 #: of the ~10.9 loss; a resume from any other state shows at 1e-2
 DRILL_RTOL = 1e-6
+#: phase 18, decode after S - 1 tokens against prefill's last logits on S,
+#: at full width in f32 cut to 4 layers: the two routes compute the same
+#: f32 function and sum in other orders (the decode token's products run
+#: on one row, its attention over the cache in one softmax), ~1e-6
+#: relative a layer; rtol = atol, 20x tighter than the reference's own
+#: 2e-2 (tests/test_smoke_archs.py)
+DECODE_F32_TOL = 1e-3
+#: phase 18 at full depth in bf16: that distance against the floor bf16
+#: rounding sets, the distance between the bf16 and the f32 prefill's
+#: logits on the same weights and tokens. Each bf16 route lands about a
+#: floor away from the f32 function (every product of the decode token
+#: runs on one row, so its bf16 roundings fall elsewhere than the
+#: prompt's), so two of them may be up to twice the floor apart
+DECODE_BF16_X = 2.0
+#: phase 18: (config, batch, prompt tokens, attn_impl) at decode_32k's
+#: context; the batch cut from decode_32k's 128 where the cache would not
+#: fit one card (PERF.md §4)
+DECODE_RUNS = (("qwen2_7b", 16, 512, "pallas"),
+               ("rwkv6_7b", 128, 128, "chunked"),
+               ("zamba2_2p7b", 8, 512, "chunked"))
+DECODE_CONTEXT, DECODE_STEPS, DECODE_WARM, DECODE_CHECK_ROWS = 32768, 32, 3, 4
 
 
 def _gpu_facts() -> str:
@@ -3108,6 +3151,249 @@ def phase_train(dev, facts: str) -> dict:
     return counts
 
 
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree)
+               if t is not None)
+
+
+def _decode_vs_prefill(params, cfg, toks) -> tuple[float, torch.Tensor]:
+    """(max |decode - prefill|, prefill's last logits in f32): decode's
+    logits for token S after a prefill of S - 1 tokens, against the last
+    logits of a prefill of all S (caches of S positions)."""
+    from repro_torch.models import forward_decode, forward_prefill
+
+    S = toks.shape[1]
+    with torch.inference_mode():
+        _, st = forward_prefill(params, cfg, {"tokens": toks[:, :-1]},
+                                max_seq=S)
+        dec, st = forward_decode(params, cfg, toks[:, -1:], st)
+        assert int(st.pos) == S
+        full, _ = forward_prefill(params, cfg, {"tokens": toks}, max_seq=S)
+    dec, full = dec[:, -1].float(), full[:, -1].float()
+    if not (torch.isfinite(dec).all() and torch.isfinite(full).all()):
+        raise AssertionError(f"{cfg.name}: non-finite decode or prefill "
+                             f"logits")
+    return float((dec - full).abs().max()), full
+
+
+def _decode_f32_check(dev, cfg, toks) -> None:
+    """The config at full width in f32, cut to 4 layers (a hybrid to 2
+    periods), with fresh weights: decode against prefill within
+    DECODE_F32_TOL."""
+    from repro_torch.models import lm
+
+    n = 2 * cfg.hybrid_period if cfg.family == "hybrid" else 4
+    c32 = dataclasses.replace(cfg, num_layers=n, dtype="float32")
+    params = lm.init_params(c32, torch.Generator(device=dev).manual_seed(1))
+    err, full = _decode_vs_prefill(params, c32, toks)
+    scale = float(full.abs().max())
+    ok = err <= DECODE_F32_TOL * (1 + scale)
+    print(f"  (a) f32, {n} layers at full width, {toks.shape[0]} x "
+          f"{toks.shape[1]}: decode vs prefill max_abs {err:.3e} (logits "
+          f"scale {scale:.3f}; rtol = atol = {DECODE_F32_TOL})")
+    del params
+    _free()
+    if not ok:
+        raise AssertionError(f"{cfg.name}: f32 decode vs prefill {err:.3e} "
+                             f"out of tolerance")
+
+
+def _decode_step_bound(params, cfg, state, B: int) -> dict:
+    """The bytes one decode step must move: every weight read once (the
+    embedding's B rows where the head is its own), the whole cache or
+    recurrent state read (as the masked softmax over Smax reads it; and,
+    beside it, only the positions up to pos), the state written (one
+    position of each K/V cache; the whole recurrent state)."""
+    emb = params["embed"]
+    w = _nbytes(params)
+    if not cfg.tie_embeddings:
+        w -= emb.numel() * emb.element_size() - B * emb.shape[1] * \
+            emb.element_size()
+    kv = _nbytes([state.kv_k, state.kv_v])
+    rec = _nbytes(state.ssm) if state.ssm is not None else 0
+    per_pos = kv // state.kv_k.shape[2] if state.kv_k is not None else 0
+    pos = int(state.pos)
+    whole = w + kv + rec + per_pos + rec
+    valid = w + per_pos * (pos + 1) + rec + per_pos + rec
+    return {"weights": w, "kv": kv, "recurrent": rec, "bytes": whole,
+            "bytes_valid": valid, "ms": whole / HBM_BYTES_S * 1e3,
+            "ms_valid": valid / HBM_BYTES_S * 1e3}
+
+
+def _decode_run(dev, facts: str, name: str, B: int, P: int,
+                impl: str) -> dict:
+    """One config: the f32 cut-depth check, then the full model in bf16
+    through make_prefill_step and DECODE_STEPS greedy make_decode_step
+    steps (launch counts read around exactly these), a profiled step, the
+    checks, then the bf16 full-depth decode-vs-prefill distance against its
+    floor."""
+    from repro_torch import configs
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distribution import make_decode_step, make_prefill_step
+    from repro_torch.engine.engine import _cast_floats
+    from repro_torch.models import forward_decode, forward_prefill, lm
+
+    cfg = dataclasses.replace(configs.get(name), attn_impl=impl)
+    assert cfg.dtype == "bfloat16" and cfg.scan_layers
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, P)).astype(np.int32)).to(dev)
+    rows = toks[:DECODE_CHECK_ROWS]
+    _decode_f32_check(dev, cfg, rows)
+    attn = None
+    if impl == "pallas":
+        attn = _decode_attention_case(dev, facts, cfg, B, P)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"  {cfg.name} ({cfg.family}, {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, bf16, attn {impl}): {n_params} parameters drawn on "
+          f"the card in {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    pre = make_prefill_step(cfg, InputShape("decode_32k", P, B, "prefill"),
+                            max_seq=DECODE_CONTEXT, device=dev)
+    dec = make_decode_step(cfg, InputShape("decode_32k", DECODE_CONTEXT, B,
+                                           "decode"), device=dev)
+    assert pre.meta["max_seq"] == dec.meta["max_seq"] == DECODE_CONTEXT
+    _zero_counts()
+    t0 = time.perf_counter()
+    logits, state = pre.fn(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.isfinite(logits.float()).all():
+        raise AssertionError(f"{cfg.name}: non-finite prefill logits")
+    tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+    del logits
+    walls, toks_out = [], [tok]
+    for i in range(DECODE_STEPS):
+        t0 = time.perf_counter()
+        tok, state = dec.fn(params, tok, state)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        toks_out.append(tok)
+        if int(state.pos) != P + i + 1:
+            raise AssertionError(f"{cfg.name}: pos {int(state.pos)} after "
+                                 f"step {i + 1} of a {P}-token prompt")
+    counts = _counts()
+    want = cfg.num_layers if impl == "pallas" else 0
+    print(f"  kernel launches over the prefill and {DECODE_STEPS} steps: "
+          f"{counts}")
+    if counts != {**{n: 0 for n in KERNEL_MODULES}, "flash_attention": want}:
+        raise AssertionError(f"{cfg.name}: launches {counts}, expected "
+                             f"{want} flash_attention")
+    out = torch.cat(toks_out, dim=1)
+    if not ((out >= 0) & (out < cfg.vocab_size)).all():
+        raise AssertionError(f"{cfg.name}: a token out of the vocabulary")
+    peak = torch.cuda.max_memory_allocated()
+    w = np.array(walls[DECODE_WARM:])
+    med = float(np.median(w))
+    bound = _decode_step_bound(params, cfg, state, B)
+    print(f"  prefill {B} x {P} into a {DECODE_CONTEXT}-position state: "
+          f"{prefill_ms:.3f} ms ({B * P / prefill_ms * 1e3:.1f} tokens/s); "
+          f"state {(bound['kv'] + bound['recurrent']) / 1e9:.3f} GB (K/V "
+          f"{bound['kv'] / 1e9:.3f}, recurrent {bound['recurrent'] / 1e9:.3f})"
+          f" [{facts}]")
+    print(f"  decode: {B * len(w) / w.sum():.1f} tokens/s over "
+          f"{len(w)} steps after {DECODE_WARM}; ms a step median "
+          f"{med * 1e3:.3f}, min {w.min() * 1e3:.3f}, max "
+          f"{w.max() * 1e3:.3f} (first {walls[0] * 1e3:.3f}); peak "
+          f"{peak / 2**30:.3f} GiB [{facts}]")
+    print(f"  byte bound a step: weights {bound['weights'] / 1e9:.3f} GB + "
+          f"the whole cache / state read and the state written = "
+          f"{bound['bytes'] / 1e9:.3f} GB -> {bound['ms']:.3f} ms at 3.35 "
+          f"TB/s: the step at {bound['ms'] / (med * 1e3):.4f} of it; "
+          f"positions <= pos only: {bound['bytes_valid'] / 1e9:.3f} GB -> "
+          f"{bound['ms_valid']:.3f} ms ({bound['ms_valid'] / (med * 1e3):.4f})")
+    held = {}
+
+    def one_step():
+        held["out"] = dec.fn(params, tok, state)
+
+    prof = _profile(one_step, f"{cfg.name} decode step", facts, top=6)
+    tok, state = held.pop("out")
+    print(f"  profiled step: busy {prof['busy_ms']:.3f} of "
+          f"{prof['wall_ms']:.3f} ms ({100 * prof['busy_ms'] / prof['wall_ms']:.1f}"
+          f" %), {prof['kernel_calls']} kernel-launch calls")
+    with torch.inference_mode():
+        logits, state = forward_decode(params, cfg, tok, state)
+    leaves = [t for t in _leaves([state.pos, state.kv_k, state.kv_v,
+                                  state.ssm]) if t is not None]
+    if not all(t.device.type == dev.type for t in leaves):
+        raise AssertionError(f"{cfg.name}: a state tensor off the card")
+    # layer by layer: a bool mask of a whole cache would take 15 GB
+    if not torch.isfinite(logits).all() or not all(
+            bool(torch.isfinite(x).all()) for t in leaves
+            if t.is_floating_point() for x in t):
+        raise AssertionError(f"{cfg.name}: non-finite decode logits or state")
+    if int(state.pos) != P + DECODE_STEPS + 2:
+        raise AssertionError(f"{cfg.name}: pos {int(state.pos)}")
+    del state, logits, leaves, pre, dec
+    _free()
+
+    err, full = _decode_vs_prefill(params, cfg, rows)
+    p32 = _cast_floats(params, torch.float32)
+    with torch.inference_mode():
+        l32, _ = forward_prefill(p32, dataclasses.replace(cfg,
+                                                          dtype="float32"),
+                                 {"tokens": rows}, max_seq=P)
+    del p32
+    floor = float((full - l32[:, -1].float()).abs().max())
+    print(f"  (b) bf16, full depth, {rows.shape[0]} x {P}: decode vs prefill "
+          f"max_abs {err:.4e}; the floor (bf16 vs f32 prefill) {floor:.4e}; "
+          f"ratio {err / max(floor, 1e-30):.3f} (limit {DECODE_BF16_X}); "
+          f"logits scale {float(full.abs().max()):.3f}")
+    del params, l32, full
+    _free()
+    if err > DECODE_BF16_X * floor:
+        raise AssertionError(f"{cfg.name}: bf16 decode vs prefill {err:.4e} "
+                             f"> {DECODE_BF16_X} x the floor {floor:.4e}")
+    return {"counts": counts, "tokens_s": B * len(w) / w.sum(),
+            "ms": med * 1e3, "peak": peak, "bound_ms": bound["ms"],
+            "attention": attn}
+
+
+def _decode_attention_case(dev, facts: str, cfg, B: int, P: int) -> dict:
+    """The flash-attention kernel against its plain version at the shape and
+    strides the bf16 prefill gives it: (B, P, H, hd) tensors in the model's
+    layout, passed as the transposed views ``ops.flash_attention`` passes,
+    causal from offset 0. Launched before the launch counts are zeroed."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    hd = cfg.resolved_head_dim
+    q, k, v = (torch.randn((B, P, h, hd), generator=g, device=dev)
+               .to(torch.bfloat16).transpose(1, 2)
+               for h in (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads))
+    row = _attention_case(f"{cfg.name}-prefill", q, k, v, True, 0, facts)
+    del q, k, v
+    _free()
+    return row
+
+
+def phase_decode(dev, facts: str) -> dict:
+    """Phase 18 (see the module docstring): each DECODE_RUNS config in
+    turn, freed before the next. Returns the kernel launches summed over
+    the three main runs."""
+    t_start = time.perf_counter()
+    _free()
+    total = {n: 0 for n in KERNEL_MODULES}
+    attn = None
+    for name, B, P, impl in DECODE_RUNS:
+        t0 = time.perf_counter()
+        r = _decode_run(dev, facts, name, B, P, impl)
+        total = {n: total[n] + r["counts"][n] for n in total}
+        attn = r["attention"] or attn
+        print(f"  {name} took {time.perf_counter() - t0:.1f} s")
+    print(f"  kernel launches over phase 18's main runs: {total}")
+    print(f"  phase 18 took {time.perf_counter() - t_start:.1f} s")
+    return total, attn
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3214,6 +3500,9 @@ def main() -> int:
     local_counts = phase_local(dev, facts)
     print("[17] train: the training step at full SmolLM-135M width")
     train_counts = phase_train(dev, facts)
+    print("[18] decode: prefill and 32 greedy steps at a 32768-position "
+          "context, qwen2-7b, rwkv6-7b, zamba2-2.7b")
+    decode_counts, decode_attn = phase_decode(dev, facts)
     kernels = [
         {"name": "fleet_tick_window", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fleet_tick.cu",
@@ -3225,7 +3514,10 @@ def main() -> int:
         {"name": "flash_attention_bhsd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:88",
-         "launches": serve_row["launches"], **attn_row},
+         "launches": serve_row["launches"], **attn_row,
+         "max_abs_err_decode": decode_attn["max_abs_err"],
+         "ms_decode": decode_attn["ms"],
+         "bound_ms_decode": decode_attn["bound_ms"]},
         {"name": "rwkv6_wkv", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
          "replaces": "src/repro/kernels/rwkv6_wkv.py:81",
@@ -3246,6 +3538,7 @@ def main() -> int:
         mod = row["source"].rsplit("/", 1)[1].split(".")[0]
         row["launches_local"] = local_counts[mod]
         row["launches_train"] = train_counts[mod]
+        row["launches_decode"] = decode_counts[mod]
     print(facts)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""The port's train step (one device; meshes wait for ROADMAP queue 1,
-item 7)."""
+"""The port's train, prefill and decode steps (one device; meshes wait for
+ROADMAP queue 1, item 7)."""
 from repro_torch.distribution.steps import (
     StepBundle,
     make_decode_step,

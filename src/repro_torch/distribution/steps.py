@@ -1,9 +1,10 @@
-"""The port's steps: the train step of ``repro.distribution.steps`` on one
-device.
+"""The port's steps: the train, prefill and decode steps of
+``repro.distribution.steps`` on one device.
 
-``make_train_step`` returns a ``StepBundle``: the step function, its
-argument specs (the parameter tree, the optimizer state and the batch as
-tensors on the ``meta`` device: shapes and dtypes, no data) and ``meta``.
+Each ``make_*_step`` returns a ``StepBundle``: the step function, its
+argument specs (the parameter tree, the optimizer state, the batch, the
+tokens or the decode state, as tensors on the ``meta`` device: shapes and
+dtypes, no data) and ``meta``.
 The reference's bundle also carries the in/out shardings and donated
 arguments that ``jit()`` / ``lower()`` compile for a mesh; one card has no
 mesh and PyTorch compiles nothing, so the port keeps neither and
@@ -15,6 +16,12 @@ The step is the reference's: the loss and its gradients
 then ``opt.update``. ``accum_steps > 1`` runs the micro-batches in order,
 sums their gradients from zeros (in the parameters' dtype), divides by
 ``accum_steps`` and averages the metrics, as the reference's scan does.
+
+The prefill step is ``lm.forward_prefill`` with a cache of ``max_seq``
+positions; the decode step is ``lm.forward_decode`` then the argmax of the
+last position's logits. Both run without autograd. The decode step writes
+its state in place and returns it (the reference donates it,
+``donate_argnums=(2,)``): pass each step the state the last one returned.
 """
 from __future__ import annotations
 
@@ -48,6 +55,16 @@ def _no_mesh(mesh, ep: bool) -> None:
             "queue 1, item 7); the port's steps run on one device")
 
 
+def _on(device: torch.device, params: PyTree, what: str) -> None:
+    """Raise unless ``params`` lie on ``device`` (``cuda`` matches any
+    card)."""
+    got = tree_leaves(params)[0].device
+    if got != device and not (device.index is None
+                              and got.type == device.type):
+        raise ValueError(f"the {what} step runs on {device}; its "
+                         f"parameters are on {got}")
+
+
 def _grads(cfg: ModelConfig, params: PyTree, batch: dict):
     """(loss metrics, gradient tree) of ``lm.forward_train`` at ``params``."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -76,13 +93,7 @@ def make_train_step(
     params_shape = lm.init_params(cfg, None, device="meta")
     opt_shape = opt.init(params_shape)
     bshape = batch_spec(cfg, shape.global_batch, shape.seq_len)
-
-    def check(params):
-        got = tree_leaves(params)[0].device
-        if got != device and not (device.index is None
-                                  and got.type == device.type):
-            raise ValueError(f"the train step runs on {device}; its "
-                             f"parameters are on {got}")
+    check = lambda params: _on(device, params, "train")
 
     if accum_steps == 1:
         def train_step(params, opt_state, batch):
@@ -121,21 +132,57 @@ def make_train_step(
 
 
 def make_prefill_step(cfg: ModelConfig, shape: InputShape, *,
-                      max_seq: Optional[int] = None, **kw) -> StepBundle:
-    raise NotImplementedError(
-        "make_prefill_step comes with forward_decode (ROADMAP queue 1, item "
-        "8.3); lm.forward_prefill runs on its own")
+                      max_seq: Optional[int] = None, device=None, mesh=None,
+                      ep: bool = False) -> StepBundle:
+    """The prefill step ``fn(params, batch) -> (logits (B,1,V), DecodeState)``
+    on ``device`` (``cuda`` unless another device is named). The cache holds
+    ``max_seq`` positions: by default, as in the reference, the prompt, a
+    VLM's patch embeddings and 64 more for the decode steps that follow."""
+    _no_mesh(mesh, ep)
+    device = resolve_device(device, "make_prefill_step")
+    max_seq = max_seq or shape.seq_len + 64 + (cfg.vision_tokens or 0)
+
+    def prefill_step(params, batch):
+        _on(device, params, "prefill")
+        with torch.no_grad():
+            return lm.forward_prefill(params, cfg, batch, max_seq=max_seq)
+
+    return StepBundle(
+        fn=prefill_step,
+        arg_specs=(lm.init_params(cfg, None, device="meta"),
+                   batch_spec(cfg, shape.global_batch, shape.seq_len)),
+        meta=dict(device=device, max_seq=max_seq),
+    )
 
 
-def make_decode_step(cfg: ModelConfig, shape: InputShape,
-                     **kw) -> StepBundle:
-    raise NotImplementedError(
-        "make_decode_step comes with forward_decode (ROADMAP queue 1, item "
-        "8.3)")
+def make_decode_step(cfg: ModelConfig, shape: InputShape, *, device=None,
+                     mesh=None, ep: bool = False) -> StepBundle:
+    """The serve step ``fn(params, tokens, state) -> (next_tok (B,1) int32,
+    new_state)`` with a state of ``shape.seq_len`` positions of context, on
+    ``device`` (``cuda`` unless another device is named): one
+    ``lm.forward_decode``, then the greedy token of the last position."""
+    _no_mesh(mesh, ep)
+    device = resolve_device(device, "make_decode_step")
+    B, max_seq = shape.global_batch, shape.seq_len
+
+    def decode_step(params, tokens, state):
+        _on(device, params, "decode")
+        logits, new_state = lm.forward_decode(params, cfg, tokens, state)
+        next_tok = logits[:, -1, :].argmax(dim=-1).to(torch.int32)[:, None]
+        return next_tok, new_state
+
+    return StepBundle(
+        fn=decode_step,
+        arg_specs=(lm.init_params(cfg, None, device="meta"),
+                   torch.empty((B, 1), dtype=torch.int32, device="meta"),
+                   lm.init_decode_state(cfg, B, max_seq, device="meta")),
+        meta=dict(device=device, max_seq=max_seq),
+    )
 
 
 def make_step_for_cell(cfg: ModelConfig, shape: InputShape,
                        opt: Optional[Optimizer] = None, **kw) -> StepBundle:
     raise NotImplementedError(
         "make_step_for_cell comes with the dry-run launcher (ROADMAP queue "
-        "1, item 8.5); use make_train_step")
+        "1, item 8.5); use make_train_step, make_prefill_step or "
+        "make_decode_step")

@@ -8,11 +8,12 @@ as in the reference:
   ``cfg.attn_impl == "pallas"`` (the config value keeps the reference's
   name; in the port it selects the CUDA kernel).
 * ``rwkv6_wkv`` — ``layers.rwkv6_time_mix(..., impl="pallas")`` with no
-  state. With a state (``forward_prefill``'s ssm branch, decode) it falls
-  back to the plain ``wkv6_chunked``, and the model's own ``_rwkv_block``
+  state. With a state (``forward_prefill``'s ssm branch) it falls back to
+  the plain ``wkv6_chunked``, and the model's own ``_rwkv_block``
   (``forward_train``, ``score_last``) runs ``wkv6_chunked`` too.
 * ``mamba2_ssd`` — called directly; no model layer calls it (the hybrid
-  family's ``mamba2_mix`` runs its own scan in the reference).
+  family's ``mamba2_mix`` runs its own chunked scan, in the reference and
+  in the port).
 """
 from __future__ import annotations
 

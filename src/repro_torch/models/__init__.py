@@ -1,7 +1,8 @@
-"""The LM of the port (dense and ssm families so far), mirroring
+"""The LM of the port (the dense, ssm and hybrid families), mirroring
 ``repro.models``."""
 from repro_torch.models.lm import (
     DecodeState,
+    forward_decode,
     forward_prefill,
     forward_train,
     init_decode_state,
@@ -12,6 +13,7 @@ from repro_torch.models.lm import (
 
 __all__ = [
     "DecodeState",
+    "forward_decode",
     "forward_prefill",
     "forward_train",
     "init_decode_state",

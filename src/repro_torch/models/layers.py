@@ -23,8 +23,15 @@ Conventions
   ``wkv6_chunked``; ``pallas`` goes through ``kernels/ops.py::rwkv6_wkv``
   to the hand-written CUDA kernel ``kernels/csrc/rwkv6_wkv.cu`` when no
   state is given, and falls back to ``wkv6_chunked`` with one.
+  ``wkv6_chunked`` clamps its chunk to S, so a decode step (one token with
+  a state) runs one chunk of one step, where the reference pads it to a
+  whole chunk.
+* ``attention_decode`` and ``mamba2_mix`` are plain torch, as they are
+  plain jnp in the reference (its ``mamba2_mix`` runs its own chunked scan,
+  ``_ssd_scan`` here, not the SSD kernel). Decode writes its caches and
+  states in place (``attention_decode``, ``lm.forward_decode``).
 
-MoE, Mamba2 and ``attention_decode`` come with later slices.
+MoE comes with a later slice.
 """
 from __future__ import annotations
 
@@ -212,6 +219,43 @@ def attention_apply(p: dict, cfg: ModelConfig, x, *, kv_src=None):
     return o.reshape(B, S, -1) @ p["wo"]
 
 
+def attention_decode(p: dict, cfg: ModelConfig, x, cache_k, cache_v, pos):
+    """One-token decode. x (B,1,d); cache (B,Smax,nkv,hd); pos a 0-d int32
+    tensor on x's device.
+
+    Returns (out (B,1,d), cache_k, cache_v). This token's k/v are written
+    into the caches at ``pos`` IN PLACE (``index_copy_``; ``pos`` is clamped
+    to Smax - 1 as ``dynamic_update_slice`` clamps it) and the same tensors
+    are returned: the caller gives the old caches up, as the reference's
+    decode step donates its state (``distribution/steps.py``,
+    ``donate_argnums=(2,)``). The softmax runs in f32 over the whole cache,
+    masked to positions <= pos, so the step is linear in Smax, as in the
+    reference; each cache is read through one f32 copy in (B, nkv, Smax, hd)
+    order. ``pos`` is only ever used as a tensor: no step waits on the
+    host."""
+    q, k, v = _project_qkv(p, cfg, x, x)
+    B, Smax, nkv, hd = cache_k.shape
+    posv = pos.reshape(1, 1).expand(B, 1)
+    q = apply_rope(q, posv, cfg.rope_theta)
+    k = apply_rope(k, posv, cfg.rope_theta)
+    at = pos.clamp(max=Smax - 1).reshape(1).long()
+    cache_k.index_copy_(1, at, k.to(cache_k.dtype))
+    cache_v.index_copy_(1, at, v.to(cache_v.dtype))
+    g = cfg.num_heads // nkv
+    scale = float(1.0 / np.sqrt(hd))
+    qf = (q.float() * scale).reshape(B, nkv, g, hd)
+
+    def f32(cache):  # (B, nkv, Smax, hd), one contiguous f32 copy
+        return cache.transpose(1, 2).to(torch.float32,
+                                        memory_format=torch.contiguous_format)
+
+    s = qf @ f32(cache_k).transpose(-1, -2)  # (B, nkv, g, Smax)
+    valid = torch.arange(Smax, device=x.device) <= pos
+    w = torch.softmax(s.masked_fill(~valid, float("-inf")), dim=-1)
+    o = (w @ f32(cache_v)).reshape(B, 1, cfg.num_heads * hd).to(x.dtype)
+    return o @ p["wo"], cache_k, cache_v
+
+
 # ---------------------------------------------------------------------------
 # MLP (GLU)
 # ---------------------------------------------------------------------------
@@ -239,6 +283,151 @@ def _act(name: str):
 def mlp_apply(p: dict, cfg: ModelConfig, x) -> torch.Tensor:
     h = _act(cfg.act)(x @ p["wg"]) * (x @ p["wu"])
     return h @ p["wd"]
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD, chunked) — zamba2 backbone
+# ---------------------------------------------------------------------------
+
+
+def init_mamba2(gen, cfg: ModelConfig, device) -> dict:
+    """The reference's layout: the z/x/B/C/dt projections kept separate and
+    the depthwise convolutions kept per stream (x/B/C)."""
+    d = cfg.d_model
+    d_in = cfg.ssm_expand * d
+    ns, hd = cfg.ssm_state, cfg.ssm_head_dim
+    nh = d_in // hd
+    dt = _dtype(cfg)
+    s = 1.0 / np.sqrt(d)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "z_proj": _init(gen, (d, d_in), s, dt, device),
+        "x_proj": _init(gen, (d, d_in), s, dt, device),
+        "B_proj": _init(gen, (d, ns), s, dt, device),
+        "C_proj": _init(gen, (d, ns), s, dt, device),
+        "dt_proj": _init(gen, (d, nh), s, dt, device),
+        "conv_x_w": _init(gen, (4, d_in), 0.2, dt, device),
+        "conv_x_b": torch.zeros((d_in,), dtype=dt, device=device),
+        "conv_B_w": _init(gen, (4, ns), 0.2, dt, device),
+        "conv_B_b": torch.zeros((ns,), dtype=dt, device=device),
+        "conv_C_w": _init(gen, (4, ns), 0.2, dt, device),
+        "conv_C_b": torch.zeros((ns,), dtype=dt, device=device),
+        "A_log": torch.log(torch.arange(1, nh + 1, **f32)),
+        "D": torch.ones((nh,), **f32),
+        "dt_bias": torch.zeros((nh,), **f32),
+        "norm": init_rmsnorm(d_in, dt, device),
+        "out_proj": _init(gen, (d_in, d), 1.0 / np.sqrt(d_in), dt, device),
+    }
+
+
+def _depthwise_conv(x, w, b, state: Optional[torch.Tensor]):
+    """Causal depthwise conv, width K. x (B,S,Cd), w (K,Cd). Returns (y,
+    new_state): the last K - 1 inputs, the state included."""
+    K = w.shape[0]
+    if state is None:
+        xp = F.pad(x, (0, 0, K - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    y = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(K))
+    return F.silu(y + b), xp[:, xp.shape[1] - (K - 1):]
+
+
+def _ssd_scan(xdt, Bf, Cf, loga, chunk: int):
+    """``mamba2_mix``'s chunked SSD scan (the reference's ``lax.scan``
+    body). xdt (B,S,nh,hd) Δ-scaled input, Bf/Cf (B,S,ns), loga (B,S,nh)
+    per-step log decay (<= 0), all f32. Returns (y (B,S,nh,hd), the final
+    state h (B,nh,hd,ns)) with y_t = C_t · h_t, h_t = e^{loga_t} h_{t-1} +
+    x_t B_tᵀ: the decay is INCLUSIVE (y_t reads the state after step t's
+    own decay). Padded steps have loga 0 and no input."""
+    B, S, nh, hd = xdt.shape
+    nch = -(-S // chunk)
+    pad = nch * chunk - S
+
+    def padc(a):
+        return F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad))
+
+    xp, bp, cp, lp = padc(xdt), padc(Bf), padc(Cf), padc(loga)
+    mask = torch.ones((chunk, chunk), dtype=torch.bool,
+                      device=xdt.device).tril()[None, :, :, None]
+    h = torch.zeros((B, nh, hd, Bf.shape[-1]), dtype=torch.float32,
+                    device=xdt.device)
+    ys = []
+    for c in range(nch):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        xb, bb, cb, lab = xp[:, sl], bp[:, sl], cp[:, sl], lp[:, sl]
+        cum = lab.cumsum(dim=1)  # (B,C,nh) inclusive
+        y_inter = torch.einsum("bcs,bnhs->bcnh", cb, h) * cum.exp()[..., None]
+        # intra-chunk: L[t,s] = exp(cum_t - cum_s) for s <= t (per head).
+        # The EXPONENT is masked (not the exp): exp of the s > t branch
+        # overflows and would poison gradients through the where.
+        lmat = torch.where(mask, cum[:, :, None, :] - cum[:, None, :, :],
+                           -1e30).exp()  # (B,C,C,nh)
+        cb_dot = torch.einsum("bcs,bds->bcd", cb, bb)  # (B,C,C)
+        y_intra = torch.einsum("bcdn,bdnh->bcnh", cb_dot[..., None] * lmat, xb)
+        tot = cum[:, -1:, :]  # (B,1,nh)
+        upd = torch.einsum("bcnh,bcs->bnhs",
+                           xb * (tot - cum).exp()[..., None], bb)
+        h = h * tot[:, 0].exp()[:, :, None, None] + upd
+        ys.append(y_inter + y_intra)
+    return torch.cat(ys, dim=1)[:, :S], h
+
+
+def mamba2_mix(p: dict, cfg: ModelConfig, x, *, state: Optional[dict] = None,
+               chunk: int = 64, return_state: bool = False):
+    """Chunked SSD. x (B,S,d). state={'conv_x','conv_B','conv_C','ssm'} for
+    decode (S == 1), which returns the new state; ``return_state=True`` makes
+    the full-sequence path return its final state too (prefill)."""
+    B, S, d = x.shape
+    d_in = cfg.ssm_expand * d
+    hd = cfg.ssm_head_dim
+    nh = d_in // hd
+
+    z = x @ p["z_proj"]
+    dt_raw = x @ p["dt_proj"]
+    st = state or {}
+    xs, cs_x = _depthwise_conv(x @ p["x_proj"], p["conv_x_w"], p["conv_x_b"],
+                               st.get("conv_x"))
+    Bmat, cs_B = _depthwise_conv(x @ p["B_proj"], p["conv_B_w"],
+                                 p["conv_B_b"], st.get("conv_B"))
+    Cmat, cs_C = _depthwise_conv(x @ p["C_proj"], p["conv_C_w"],
+                                 p["conv_C_b"], st.get("conv_C"))
+    conv_state = {"conv_x": cs_x.float(), "conv_B": cs_B.float(),
+                  "conv_C": cs_C.float()}
+    dt_v = F.softplus(dt_raw.float() + p["dt_bias"])  # (B,S,nh)
+    A = -torch.exp(p["A_log"])  # (nh,)
+    xh = xs.reshape(B, S, nh, hd).float()
+    Bf, Cf = Bmat.float(), Cmat.float()  # (B,S,ns)
+    loga = dt_v * A  # (B,S,nh) per-step log decay (<= 0)
+    xdt = xh * dt_v[..., None]  # Δ-scaled input
+
+    def out(y, new_state):
+        y = y.reshape(B, S, d_in)
+        y = rmsnorm(p["norm"], (y * F.silu(z.float())).to(x.dtype),
+                    cfg.norm_eps)
+        return y @ p["out_proj"], new_state
+
+    if state is not None:  # single-token decode
+        h_new = state["ssm"] * loga[:, 0].exp()[..., None, None] + \
+            torch.einsum("bnh,bs->bnhs", xdt[:, 0], Bf[:, 0])
+        y = torch.einsum("bnhs,bs->bnh", h_new, Cf[:, 0])
+        y = y + p["D"][None, :, None] * xh[:, 0]
+        return out(y, {**conv_state, "ssm": h_new})
+
+    y, h_last = _ssd_scan(xdt, Bf, Cf, loga, chunk)
+    y = y + p["D"][None, None, :, None] * xh
+    return out(y, {**conv_state, "ssm": h_last} if return_state else None)
+
+
+def init_mamba2_state(cfg: ModelConfig, batch: int, device) -> dict:
+    d_in = cfg.ssm_expand * cfg.d_model
+    ns, hd = cfg.ssm_state, cfg.ssm_head_dim
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "conv_x": torch.zeros((batch, 3, d_in), **f32),
+        "conv_B": torch.zeros((batch, 3, ns), **f32),
+        "conv_C": torch.zeros((batch, 3, ns), **f32),
+        "ssm": torch.zeros((batch, d_in // hd, hd, ns), **f32),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -291,9 +480,11 @@ def wkv6_chunked(r, k, v, logw, u, state: Optional[torch.Tensor] = None,
     u (H,hd) bonus. Returns (o (B,S,H,hd) f32, final state (B,H,hd,hd)).
       S_t = diag(w_t) S_{t-1} + k_t^T v_t ;  o_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
     All exponents are differences of cumulative sums with s<=t, hence <=0;
-    the masked (s>=t) exponents are set to -1e30 before ``exp``.
+    the masked (s>=t) exponents are set to -1e30 before ``exp``. The chunk
+    is clamped to S, so a short input (a decode step, S == 1) is not padded.
     """
     B, S, H, hd = r.shape
+    chunk = min(chunk, S)
     nch = -(-S // chunk)
     pad = nch * chunk - S
 

@@ -1,4 +1,5 @@
-"""Model assembly of the port: the dense and ssm (RWKV-6) families of
+"""Model assembly of the port: the dense, ssm (RWKV-6) and hybrid (zamba2:
+Mamba2 layers and a shared attention block) families of
 ``repro.models.lm``.
 
 * ``init_params``      — the parameter tree, drawn on a device from an
@@ -6,6 +7,8 @@
 * ``forward_train``    — full-sequence forward + CE loss
 * ``forward_prefill``  — full-sequence forward returning last-position
                          logits and a primed ``DecodeState``
+* ``forward_decode``   — one-token step with the cached state, which it
+                         updates in place
 * ``load_reference_params`` — the reference's parameter pytree (numpy
                          arrays) as the port's tree
 * ``load_reference_opt_state`` — the reference optimizer's state as the
@@ -17,7 +20,9 @@ moves arrays into tensors. A layer stack is stacked along a leading L axis
 when ``cfg.scan_layers`` (as in the full configs) and a list otherwise (the
 reduced ones); ``_backbone`` walks either in a Python loop, a stacked tree
 unbound once a pass so that its gradient is one stack, not a scatter a
-layer.
+layer. The hybrid's Mamba2 layers are one such stack, with the
+``shared_block`` (one dense block's weights) run after every
+``hybrid_period``-th of them, in the reference's period order.
 
 ``forward_train`` runs under autograd (``distribution/steps.py`` builds the
 train step on it). While grad is enabled, each layer runs under the
@@ -32,7 +37,7 @@ included. Remat changes memory, never values.
 The ssm blocks run the time mix as the reference's ``_rwkv_block`` does,
 with ``rwkv6_time_mix``'s default impl (the plain ``wkv6_chunked``); the
 wkv kernel is reached through ``rwkv6_time_mix(..., impl="pallas")``, as in
-the reference. Other families (MoE, hybrid, VLM, audio) raise
+the reference. The other families (MoE, VLM, audio) raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -51,13 +56,11 @@ from repro_torch.utils import resolve_device, softmax_cross_entropy, tree_map
 PyTree = Any
 
 #: the families the port runs
-PORTED = ("dense", "ssm")
+PORTED = ("dense", "ssm", "hybrid")
 #: ROADMAP items of the families it does not port yet
 _FAMILY_ITEMS = {
-    "hybrid": "ROADMAP 1.8 step 4 (the hybrid family, mamba2_mix)",
-    "moe": "ROADMAP 1.8 step 5 (MoE and the other families)",
-    "vlm": "ROADMAP 1.8 step 5 (MoE and the other families)",
-    "audio": "ROADMAP 1.8 step 5 (MoE and the other families)",
+    fam: "ROADMAP queue 1, item 8.5 (MoE, VLM and audio)"
+    for fam in ("moe", "vlm", "audio")
 }
 
 
@@ -65,14 +68,14 @@ def _ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
-            f"{_FAMILY_ITEMS.get(cfg.family, 'ROADMAP 1.8')}")
+            f"{_FAMILY_ITEMS.get(cfg.family, 'ROADMAP queue 1, item 8.5')}")
 
 
 class DecodeState(NamedTuple):
     """All sequence state needed to emit the next token."""
 
     pos: torch.Tensor  # scalar int32: #tokens already in the state
-    kv_k: Optional[torch.Tensor] = None  # (L, B, Smax, nkv, hd)
+    kv_k: Optional[torch.Tensor] = None  # (L_or_inv, B, Smax, nkv, hd)
     kv_v: Optional[torch.Tensor] = None
     ssm: Optional[PyTree] = None
     cross_k: Optional[torch.Tensor] = None
@@ -99,6 +102,22 @@ def _stack(trees: list) -> PyTree:
     return torch.stack(trees)
 
 
+def _hybrid_periods(cfg: ModelConfig) -> tuple[int, int]:
+    """(layers per period, number of periods) for the hybrid period walk."""
+    per = cfg.hybrid_period or cfg.num_layers
+    assert cfg.num_layers % per == 0, (cfg.num_layers, per)
+    return per, cfg.num_layers // per
+
+
+def _shared_after(cfg: ModelConfig, i: int) -> bool:
+    """Whether the hybrid's shared block follows Mamba2 layer ``i``, as in
+    the reference: after each period of the stacked layers (its scan over
+    ``_hybrid_periods``), after every ``hybrid_period``-th listed layer."""
+    if cfg.scan_layers:
+        return (i + 1) % _hybrid_periods(cfg)[0] == 0
+    return bool(cfg.hybrid_period) and (i + 1) % cfg.hybrid_period == 0
+
+
 def _init_dense_layer(gen, cfg: ModelConfig, device) -> dict:
     dt = L._dtype(cfg)
     return {
@@ -111,10 +130,11 @@ def _init_dense_layer(gen, cfg: ModelConfig, device) -> dict:
 
 def init_params(cfg: ModelConfig, gen: Optional[torch.Generator], *,
                 device=None) -> PyTree:
-    """The parameter tree of a dense or ssm model, drawn from ``gen`` on its
-    device (``device`` overrides it; on ``meta`` nothing is drawn and
-    ``gen`` may be None). The reference's ``max_seq`` argument sizes the
-    audio family's learned positions; these families have none."""
+    """The parameter tree of a dense, ssm or hybrid model, drawn from
+    ``gen`` on its device (``device`` overrides it; on ``meta`` nothing is
+    drawn and ``gen`` may be None). The reference's ``max_seq`` argument
+    sizes the audio family's learned positions; these families have
+    none."""
     _ported(cfg)
     device = torch.device(device if device is not None else gen.device)
     dt = L._dtype(cfg)
@@ -127,10 +147,17 @@ def init_params(cfg: ModelConfig, gen: Optional[torch.Generator], *,
     if not cfg.tie_embeddings:
         params["lm_head"] = L._init(gen, (cfg.d_model, cfg.vocab_size),
                                     emb_scale, dt, device)
-    init_layer = (L.init_rwkv6 if cfg.family == "ssm"
-                  else _init_dense_layer)
+    if cfg.family == "hybrid":
+        def init_layer(gen, cfg, device):
+            return {"norm": L.init_rmsnorm(cfg.d_model, dt, device),
+                    "mamba": L.init_mamba2(gen, cfg, device)}
+    else:
+        init_layer = (L.init_rwkv6 if cfg.family == "ssm"
+                      else _init_dense_layer)
     blocks = [init_layer(gen, cfg, device) for _ in range(cfg.num_layers)]
     params["layers"] = _stack(blocks) if cfg.scan_layers else blocks
+    if cfg.family == "hybrid":
+        params["shared_block"] = _init_dense_layer(gen, cfg, device)
     return params
 
 
@@ -148,7 +175,8 @@ def load_reference_params(tree: PyTree, cfg: ModelConfig, device=None) -> PyTree
     weights, the same keys — so leaves keep their shapes and dtypes. The
     layer stack may be stacked (``scan_layers=True``, a dict of (L, ...)
     arrays) or a list of per-layer dicts; it must be the one ``cfg``
-    names."""
+    names. A hybrid tree's ``shared_block`` (one dense layer's dict) sits
+    beside its layers."""
     _ported(cfg)
     device = resolve_device(device, "load_reference_params")
     stacked = isinstance(tree["layers"], dict)
@@ -233,13 +261,24 @@ def _maybe_remat(fn, cfg: ModelConfig):
     return lambda p, x: ckpt.checkpoint(fn, p, x, **kw)
 
 
+def _mamba_block(p, cfg, x):
+    return x + L.mamba2_mix(p["mamba"], cfg,
+                            L.rmsnorm(p["norm"], x, cfg.norm_eps))[0]
+
+
 def _backbone(params, cfg: ModelConfig, x):
-    """(B,S,d) -> (B,S,d) through the family's blocks, in order."""
+    """(B,S,d) -> (B,S,d) through the family's blocks, in order; each block
+    (a hybrid's Mamba2 layer and each call of its shared block) under
+    ``_maybe_remat``."""
     _ported(cfg)
-    block = _rwkv_block if cfg.family == "ssm" else _dense_block
+    block = {"ssm": _rwkv_block, "hybrid": _mamba_block}.get(cfg.family,
+                                                            _dense_block)
     layer = _maybe_remat(lambda p, h: block(p, cfg, h), cfg)
-    for p in _layers(params["layers"], cfg):
+    shared = _maybe_remat(lambda p, h: _dense_block(p, cfg, h), cfg)
+    for i, p in enumerate(_layers(params["layers"], cfg)):
         x = layer(p, x)
+        if cfg.family == "hybrid" and _shared_after(cfg, i):
+            x = shared(params["shared_block"], x)
     return x
 
 
@@ -271,7 +310,7 @@ def forward_train(params: PyTree, cfg: ModelConfig,
 
 
 # ---------------------------------------------------------------------------
-# Prefill
+# Prefill / decode
 # ---------------------------------------------------------------------------
 
 
@@ -288,9 +327,16 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
              for _ in range(cfg.num_layers)]))
     dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     hd = cfg.resolved_head_dim
-    kv_k = torch.zeros((cfg.num_layers, batch, max_seq, cfg.num_kv_heads, hd),
-                       dtype=dt, device=device)
-    return DecodeState(pos=pos, kv_k=kv_k, kv_v=torch.zeros_like(kv_k))
+    n = (cfg.num_layers // cfg.hybrid_period if cfg.family == "hybrid"
+         else cfg.num_layers)
+    kv_k = torch.zeros((n, batch, max_seq, cfg.num_kv_heads, hd), dtype=dt,
+                       device=device)
+    ssm = None
+    if cfg.family == "hybrid":
+        ssm = _stack([L.init_mamba2_state(cfg, batch, device)
+                      for _ in range(cfg.num_layers)])
+    return DecodeState(pos=pos, kv_k=kv_k, kv_v=torch.zeros_like(kv_k),
+                       ssm=ssm)
 
 
 def forward_prefill(params: PyTree, cfg: ModelConfig, batch: dict,
@@ -301,13 +347,16 @@ def forward_prefill(params: PyTree, cfg: ModelConfig, batch: dict,
     As in the reference, a dense model's K/V caches are recomputed per
     layer from the layer's input (the norm, the K/V projections, RoPE on K)
     beside the block, and written into a fresh ``init_decode_state``; an
-    ssm model keeps each layer's final recurrent state (``_prefill_ssm``)."""
+    ssm model keeps each layer's final recurrent state (``_prefill_ssm``);
+    a hybrid both (``_prefill_hybrid``)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = params["embed"][tokens]
     state = init_decode_state(cfg, B, max_seq, device=x.device)
     if cfg.family == "ssm":
         return _prefill_ssm(params, cfg, x, state)
+    if cfg.family == "hybrid":
+        return _prefill_hybrid(params, cfg, x, state)
     hd = cfg.resolved_head_dim
     pos = torch.arange(x.shape[1], device=x.device)
 
@@ -350,6 +399,97 @@ def _prefill_ssm(params, cfg: ModelConfig, x, state: DecodeState):
     state = state._replace(pos=torch.tensor(S, dtype=torch.int32,
                                             device=x.device), ssm=_stack(sts))
     return _logits(params, cfg, x[:, -1:]), state
+
+
+def _prefill_hybrid(params, cfg: ModelConfig, x, state: DecodeState):
+    """The hybrid branch: each Mamba2 layer returns its final conv / SSM
+    state from its chunked scan (no recompute), and each call of the shared
+    block fills its own K/V cache, recomputed from the call's input as the
+    dense branch does (the reference adds no qkv bias here)."""
+    B, S = x.shape[:2]
+    hd = cfg.resolved_head_dim
+    pos = torch.arange(S, device=x.device)
+    sp = params["shared_block"]
+    inv, m_states = 0, []
+    for i, p in enumerate(_layers(params["layers"], cfg)):
+        y, mst = L.mamba2_mix(p["mamba"], cfg,
+                              L.rmsnorm(p["norm"], x, cfg.norm_eps),
+                              return_state=True)
+        m_states.append(mst)
+        x = x + y
+        if _shared_after(cfg, i):
+            src = L.rmsnorm(sp["norm1"], x, cfg.norm_eps)
+            k = (src @ sp["attn"]["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
+            v = (src @ sp["attn"]["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+            state.kv_k[inv, :, :S] = L.apply_rope(k, pos, cfg.rope_theta).to(
+                state.kv_k.dtype)
+            state.kv_v[inv, :, :S] = v.to(state.kv_v.dtype)
+            x = _dense_block(sp, cfg, x)
+            inv += 1
+    state = state._replace(pos=torch.tensor(S, dtype=torch.int32,
+                                            device=x.device),
+                           ssm=_stack(m_states))
+    return _logits(params, cfg, x[:, -1:]), state
+
+
+def _write(dst: dict, src: dict) -> None:
+    """A layer's new recurrent state into its slot of the stacked state."""
+    for k, t in dst.items():
+        t.copy_(src[k])
+
+
+@torch.no_grad()
+def forward_decode(params: PyTree, cfg: ModelConfig, tokens,
+                   state: DecodeState) -> tuple[torch.Tensor, DecodeState]:
+    """One greedy-decode step. tokens (B,1) int -> logits (B,1,V), new state.
+
+    The step CONSUMES ``state``: each layer's K/V cache slot at ``pos`` and
+    each recurrent state (RWKV-6's token shifts and wkv state, Mamba2's conv
+    and SSM states) are written in place, and the returned DecodeState holds
+    the same tensors with ``pos + 1`` (the reference's decode step donates
+    its state the same way, ``donate_argnums=(2,)``). ``pos`` stays a 0-d
+    tensor on the device: nothing is read back to the host. Runs without
+    autograd."""
+    _ported(cfg)
+    x = params["embed"][tokens]
+    pos = state.pos
+    fam = cfg.family
+
+    def attn_step(p, h, i):
+        o, _, _ = L.attention_decode(p["attn"], cfg,
+                                     L.rmsnorm(p["norm1"], h, cfg.norm_eps),
+                                     state.kv_k[i], state.kv_v[i], pos)
+        h = h + o
+        return h + L.mlp_apply(p["mlp"], cfg,
+                               L.rmsnorm(p["norm2"], h, cfg.norm_eps))
+
+    layers = _layers(params["layers"], cfg)
+    if fam == "dense":
+        for i, p in enumerate(layers):
+            x = attn_step(p, x, i)
+    elif fam == "ssm":
+        for i, p in enumerate(layers):
+            st = {k: v[i] for k, v in state.ssm.items()}
+            o, st2 = L.rwkv6_time_mix(
+                p, cfg, L.rmsnorm(p["tm_norm"], x, cfg.norm_eps), state=st)
+            x = x + o
+            o, st3 = L.rwkv6_channel_mix(
+                p, cfg, L.rmsnorm(p["cm_norm"], x, cfg.norm_eps), state=st2)
+            x = x + o
+            _write(st, st3)
+    else:  # hybrid
+        inv = 0
+        for i, p in enumerate(layers):
+            st = {k: v[i] for k, v in state.ssm.items()}
+            y, st2 = L.mamba2_mix(p["mamba"], cfg,
+                                  L.rmsnorm(p["norm"], x, cfg.norm_eps),
+                                  state=st)
+            x = x + y
+            _write(st, st2)
+            if _shared_after(cfg, i):
+                x = attn_step(params["shared_block"], x, inv)
+                inv += 1
+    return _logits(params, cfg, x), state._replace(pos=pos + 1)
 
 
 def score_last(params: PyTree, cfg: ModelConfig, tokens) -> torch.Tensor:

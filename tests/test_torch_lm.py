@@ -178,7 +178,7 @@ def test_vocab_true_masks_padded_logits():
 
 
 def test_unported_families_raise_naming_their_roadmap_item():
-    for name in ("qwen2_moe_a2p7b", "zamba2_2p7b"):
+    for name in ("qwen2_moe_a2p7b", "internvl2_26b"):
         cfg = configs.get(name, reduced=True)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             lm.init_params(cfg, None, device="meta")

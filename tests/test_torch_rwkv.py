@@ -210,7 +210,7 @@ def test_init_decode_state_resolves_its_device():
         leaves = [st.pos, *(st.ssm.values() if st.ssm else (st.kv_k,))]
         assert all(t.device.type == "cpu" for t in leaves)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.init_decode_state(configs.get("zamba2_2p7b", reduced=True), 2, 16,
+        lm.init_decode_state(configs.get("qwen2_moe_a2p7b", reduced=True), 2, 16,
                              device="cpu")
 
 
