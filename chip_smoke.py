@@ -189,10 +189,41 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
             (B=16, Hq=28, Hkv=4, S=512, hd=128, causal) within ATTN_TOL,
             with its times. Each config also at full width in f32 cut to 4
             layers (the hybrid: 2 periods), decode after S - 1 tokens
-            against prefill's last logits on S within DECODE_F32_TOL; and
+            against prefill's last logits on S within DECODE_F32_TOL of the
+            logits' scale; and
             at full depth in bf16 that distance within DECODE_BF16_X times
             the bf16-vs-f32 distance of the prefill (its floor, measured in
             the run)
+19. families the MoE, VLM and audio families at full width through the
+            same steps: qwen2-moe-a2.7b (moe; batch 4 of 4 x 512 into
+            32768 positions), internvl2-26b (vlm; batch 2 of 256 patch
+            embeddings + 512 tokens into 32768) and whisper-large-v3
+            (audio; batch 32 of 1500 frames and a 4-token prompt into its
+            448-position decoder context), bf16, random weights, attn_impl
+            "pallas", one model at a time: (a) the bf16 flash-attention
+            kernel against its plain version at whisper's encoder shape
+            (B=4, Hq=Hkv=20, S=1500, hd=64, non-causal) and InternVL2's
+            prefill shape (B=2, Hq=48, Hkv=8, S=768, hd=128, causal), in
+            the model's transposed views, within ATTN_TOL and within
+            FAMILY_ATTN_REL of the output's rms, a limit that planted
+            faults of the plain version (the padded key tail unmasked, the
+            ragged tail dropped, one key past the diagonal) must each
+            exceed, with its device time, bound and SDPA's time; (b) at
+            full width in f32 cut to 4 layers (whisper 4 + 4 encoder
+            layers) decode after S - 1 tokens against prefill on S within
+            DECODE_F32_TOL of the logits' scale (the MoE at a capacity
+            factor that drops nothing, its drop fractions printed), and at
+            full depth in bf16 within DECODE_BF16_X of the bf16-vs-f32
+            floor (the MoE's experts pinned on both bf16 routes to those
+            the f32 prefill chose, so that the floor is rounding and not
+            other experts); (c) prefill and
+            32 greedy steps: prefill ms, tokens/s and ms a step, peak
+            memory, a profiled step, the step's byte bound (the MoE's
+            experts counted as routed), flash_attention launches (one a
+            self-attention layer of the prefill, none in the steps), the
+            MoE's drop fraction at prefill and decode; (d) grok-1-314b at
+            full width cut to 2 of its 64 layers: a 2 x 512 prefill and 8
+            steps, finite logits, its drop fractions
 
 The tuning loop's episode batches and updates (phases 4, 11-15) run
 as captured CUDA graphs from their second call at a shape
@@ -207,6 +238,7 @@ needs one card.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -243,6 +275,13 @@ TF32_OPS_S = 495e12
 #: tests/test_kernels.py (online vs full softmax, f32 sums in other orders;
 #: bf16 outputs one rounding apart)
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+#: phase 19(a): rms(kernel - plain) / rms(plain) at most this. ATTN_TOL is
+#: about as large as the outputs there (1500 keys of N(0, 1) inputs
+#: average to an rms of ~0.04), so this relative limit is the one that
+#: discriminates: it lies between the sound kernel's reading and the
+#: smallest planted fault's (PERF.md §6, PR 25), and the phase checks
+#: that every planted fault exceeds it
+FAMILY_ATTN_REL = 6e-3
 #: the whole 28-layer model in f32, kernel vs naive attention: the per-call
 #: 2e-5, compounded over 28 layers of 3584-wide matmuls (measured ~1e-5 of
 #: growth per layer at most), with room
@@ -297,13 +336,15 @@ TRAIN_RTOL, TRAIN_FAR = 1e-5, 1e-3
 #: a fixed order: measured 0 on an H100 for both. The limit is ~10 f32 ulps
 #: of the ~10.9 loss; a resume from any other state shows at 1e-2
 DRILL_RTOL = 1e-6
-#: phase 18, decode after S - 1 tokens against prefill's last logits on S,
-#: at full width in f32 cut to 4 layers: the two routes compute the same
-#: f32 function and sum in other orders (the decode token's products run
-#: on one row, its attention over the cache in one softmax), ~1e-6
-#: relative a layer; rtol = atol, 20x tighter than the reference's own
-#: 2e-2 (tests/test_smoke_archs.py)
-DECODE_F32_TOL = 1e-3
+#: phases 18-19, decode after S - 1 tokens against prefill's last logits on
+#: S, at full width in f32 cut to 4 layers (a hybrid to 2 periods) with
+#: full-precision f32 products: the two routes compute the same f32
+#: function and sum in other orders (the decode token's products run on one
+#: row, its attention over the cache in one softmax), ~1e-6 relative a
+#: layer (measured 1.3e-6 to 5.5e-6 of the logits' scale). The limit is
+#: relative to that scale, max(1, max |logits|); 200x tighter than the
+#: reference's own 2e-2 (tests/test_smoke_archs.py)
+DECODE_F32_TOL = 1e-4
 #: phase 18 at full depth in bf16: that distance against the floor bf16
 #: rounding sets, the distance between the bf16 and the f32 prefill's
 #: logits on the same weights and tokens. Each bf16 route lands about a
@@ -318,6 +359,18 @@ DECODE_RUNS = (("qwen2_7b", 16, 512, "pallas"),
                ("rwkv6_7b", 128, 128, "chunked"),
                ("zamba2_2p7b", 8, 512, "chunked"))
 DECODE_CONTEXT, DECODE_STEPS, DECODE_WARM, DECODE_CHECK_ROWS = 32768, 32, 3, 4
+#: phase 19: (config, batch, prompt tokens, context positions), bf16 at full
+#: depth; the batch cut from decode_32k's 128 where weights and caches
+#: would not fit one card (PERF.md §4); whisper at its decoder's own
+#: 448-position context (n_text_ctx, arXiv 2212.04356)
+FAMILY_RUNS = (("qwen2_moe_a2p7b", 4, 512, 32768),
+               ("internvl2_26b", 2, 512, 32768),
+               ("whisper_large_v3", 32, 4, 448))
+#: phase 19's check prompt where it is not the run's (whisper's 4 tokens
+#: would test decode at pos 3 only)
+FAMILY_CHECK_P = {"whisper_large_v3": 64}
+#: phase 19(d): grok-1 at full width, (layers, batch, prompt, steps)
+GROK_CUT = (2, 2, 512, 8)
 
 
 def _gpu_facts() -> str:
@@ -726,17 +779,19 @@ def _graph_ms(fn, reps: int = 100, replays: int = 5) -> float:
     return float(np.median(times))
 
 
-def _sdpa_ms(q, k, v, group: int) -> tuple[float, float]:
-    """One PyTorch call computing the same function, causal GQA attention,
-    the library's yardstick for the table: (device ms, host-loop ms)."""
+def _sdpa_ms(q, k, v, group: int,
+             causal: bool = True) -> tuple[float, float]:
+    """One PyTorch call computing the same function, GQA attention (causal
+    unless told otherwise), the library's yardstick for the table: (device
+    ms, host-loop ms)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    out = sdpa(q, k, v, is_causal=True, enable_gqa=True)
+    out = sdpa(q, k, v, is_causal=causal, enable_gqa=True)
     want = sdpa(q, k.repeat_interleave(group, 1), v.repeat_interleave(group, 1),
-                is_causal=True)
+                is_causal=causal)
     torch.cuda.synchronize()
     assert out.shape == q.shape and torch.isfinite(out.float()).all()
     assert float((out.float() - want.float()).abs().max()) <= 3e-2
-    fn = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
+    fn = lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True)
     return _graph_ms(fn), _time_ms(fn)
 
 
@@ -1214,11 +1269,11 @@ def phase_rwkv(dev, facts: str, seed: int = 0) -> dict:
         del x_k
         loss_k = _masked_loss(logits_k, batch)
         logits_c = lm._logits(params, cfg, lm._backbone(
-            params, cfg, params["embed"][toks]))
+            params, cfg, params["embed"][toks])[0])
         loss_cc = _masked_loss(logits_c, batch)
         cfg64 = dataclasses.replace(cfg, wkv_chunk=64)
         logits_64 = lm._logits(params, cfg64, lm._backbone(
-            params, cfg64, params["embed"][toks]))
+            params, cfg64, params["embed"][toks])[0])
         loss_64 = _masked_loss(logits_64, batch)
         dist = lambda a, b: float((a.float() - b.float()).abs().max())
         d_k, floor = dist(logits_k, logits_c), dist(logits_64, logits_c)
@@ -1301,7 +1356,7 @@ def phase_rwkv(dev, facts: str, seed: int = 0) -> dict:
         del x_k
         loss32_c, _ = lm.forward_train(params32, cfg32, b32)
         b = lm._logits(params32, cfg32, lm._backbone(
-            params32, cfg32, params32["embed"][b32["tokens"]]))
+            params32, cfg32, params32["embed"][b32["tokens"]])[0])
         ok = bool(((a - b).abs() <= F32_DEPTH_TOL * (1 + b.abs())).all())
         loss32_k = _masked_loss(a, b32)
         print(f"  f32 copy, 2 x 2048: logits kernel route vs chunked max_abs "
@@ -3161,67 +3216,41 @@ def _nbytes(tree) -> int:
                if t is not None)
 
 
-def _decode_vs_prefill(params, cfg, toks) -> tuple[float, torch.Tensor]:
-    """(max |decode - prefill|, prefill's last logits in f32): decode's
-    logits for token S after a prefill of S - 1 tokens, against the last
-    logits of a prefill of all S (caches of S positions)."""
-    from repro_torch.models import forward_decode, forward_prefill
-
-    S = toks.shape[1]
-    with torch.inference_mode():
-        _, st = forward_prefill(params, cfg, {"tokens": toks[:, :-1]},
-                                max_seq=S)
-        dec, st = forward_decode(params, cfg, toks[:, -1:], st)
-        assert int(st.pos) == S
-        full, _ = forward_prefill(params, cfg, {"tokens": toks}, max_seq=S)
-    dec, full = dec[:, -1].float(), full[:, -1].float()
-    if not (torch.isfinite(dec).all() and torch.isfinite(full).all()):
-        raise AssertionError(f"{cfg.name}: non-finite decode or prefill "
-                             f"logits")
-    return float((dec - full).abs().max()), full
-
-
-def _decode_f32_check(dev, cfg, toks) -> None:
-    """The config at full width in f32, cut to 4 layers (a hybrid to 2
-    periods), with fresh weights: decode against prefill within
-    DECODE_F32_TOL."""
-    from repro_torch.models import lm
-
-    n = 2 * cfg.hybrid_period if cfg.family == "hybrid" else 4
-    c32 = dataclasses.replace(cfg, num_layers=n, dtype="float32")
-    params = lm.init_params(c32, torch.Generator(device=dev).manual_seed(1))
-    err, full = _decode_vs_prefill(params, c32, toks)
-    scale = float(full.abs().max())
-    ok = err <= DECODE_F32_TOL * (1 + scale)
-    print(f"  (a) f32, {n} layers at full width, {toks.shape[0]} x "
-          f"{toks.shape[1]}: decode vs prefill max_abs {err:.3e} (logits "
-          f"scale {scale:.3f}; rtol = atol = {DECODE_F32_TOL})")
-    del params
-    _free()
-    if not ok:
-        raise AssertionError(f"{cfg.name}: f32 decode vs prefill {err:.3e} "
-                             f"out of tolerance")
-
-
-def _decode_step_bound(params, cfg, state, B: int) -> dict:
-    """The bytes one decode step must move: every weight read once (the
-    embedding's B rows where the head is its own), the whole cache or
-    recurrent state read (as the masked softmax over Smax reads it; and,
-    beside it, only the positions up to pos), the state written (one
-    position of each K/V cache; the whole recurrent state)."""
+def _decode_step_bound(params, cfg, state, B: int,
+                       experts: float = 0.0) -> dict:
+    """The bytes one decode step must move: every decoder weight read once
+    (the embedding's B rows where the head is its own, one row of
+    whisper's ``dec_pos``, not its encoder; an MoE's experts only as many
+    a layer as the step routed to, ``experts`` on average), the whole
+    cache, recurrent state and whisper's cross K/V read (as the masked
+    softmax over Smax reads the cache; and, beside it, only the positions
+    up to pos), the state written (one position of each K/V cache; the
+    whole recurrent state)."""
+    el = lambda t: t.numel() * t.element_size()  # noqa: E731
     emb = params["embed"]
     w = _nbytes(params)
     if not cfg.tie_embeddings:
-        w -= emb.numel() * emb.element_size() - B * emb.shape[1] * \
-            emb.element_size()
+        w -= el(emb) - B * emb.shape[1] * emb.element_size()
+    for k in ("enc_layers", "enc_norm", "enc_pos"):
+        w -= _nbytes(params.get(k, {}))
+    if "dec_pos" in params:
+        w -= el(params["dec_pos"]) - params["dec_pos"][0].numel() * \
+            params["dec_pos"].element_size()
+    if cfg.family == "moe":
+        moe = params["layers"]["moe"]
+        per_expert = sum(el(moe[k]) for k in ("wg", "wu", "wd")) // (
+            cfg.num_layers * cfg.num_experts)
+        w -= per_expert * cfg.num_layers * (cfg.num_experts - experts)
     kv = _nbytes([state.kv_k, state.kv_v])
+    cross = _nbytes([state.cross_k, state.cross_v])
     rec = _nbytes(state.ssm) if state.ssm is not None else 0
     per_pos = kv // state.kv_k.shape[2] if state.kv_k is not None else 0
     pos = int(state.pos)
-    whole = w + kv + rec + per_pos + rec
-    valid = w + per_pos * (pos + 1) + rec + per_pos + rec
-    return {"weights": w, "kv": kv, "recurrent": rec, "bytes": whole,
-            "bytes_valid": valid, "ms": whole / HBM_BYTES_S * 1e3,
+    whole = w + kv + cross + rec + per_pos + rec
+    valid = w + per_pos * (pos + 1) + cross + rec + per_pos + rec
+    return {"weights": w, "kv": kv, "cross": cross, "recurrent": rec,
+            "bytes": whole, "bytes_valid": valid,
+            "ms": whole / HBM_BYTES_S * 1e3,
             "ms_valid": valid / HBM_BYTES_S * 1e3}
 
 
@@ -3235,15 +3264,14 @@ def _decode_run(dev, facts: str, name: str, B: int, P: int,
     from repro_torch import configs
     from repro_torch.configs.base import InputShape
     from repro_torch.distribution import make_decode_step, make_prefill_step
-    from repro_torch.engine.engine import _cast_floats
-    from repro_torch.models import forward_decode, forward_prefill, lm
+    from repro_torch.models import forward_decode, lm
 
     cfg = dataclasses.replace(configs.get(name), attn_impl=impl)
     assert cfg.dtype == "bfloat16" and cfg.scan_layers
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (B, P)).astype(np.int32)).to(dev)
     rows = toks[:DECODE_CHECK_ROWS]
-    _decode_f32_check(dev, cfg, rows)
+    _family_f32_check(dev, cfg, {"tokens": rows})
     attn = None
     if impl == "pallas":
         attn = _decode_attention_case(dev, facts, cfg, B, P)
@@ -3336,24 +3364,9 @@ def _decode_run(dev, facts: str, name: str, B: int, P: int,
         raise AssertionError(f"{cfg.name}: pos {int(state.pos)}")
     del state, logits, leaves, pre, dec
     _free()
-
-    err, full = _decode_vs_prefill(params, cfg, rows)
-    p32 = _cast_floats(params, torch.float32)
-    with torch.inference_mode():
-        l32, _ = forward_prefill(p32, dataclasses.replace(cfg,
-                                                          dtype="float32"),
-                                 {"tokens": rows}, max_seq=P)
-    del p32
-    floor = float((full - l32[:, -1].float()).abs().max())
-    print(f"  (b) bf16, full depth, {rows.shape[0]} x {P}: decode vs prefill "
-          f"max_abs {err:.4e}; the floor (bf16 vs f32 prefill) {floor:.4e}; "
-          f"ratio {err / max(floor, 1e-30):.3f} (limit {DECODE_BF16_X}); "
-          f"logits scale {float(full.abs().max()):.3f}")
-    del params, l32, full
+    _family_bf16_check(params, cfg, {"tokens": rows})
+    del params
     _free()
-    if err > DECODE_BF16_X * floor:
-        raise AssertionError(f"{cfg.name}: bf16 decode vs prefill {err:.4e} "
-                             f"> {DECODE_BF16_X} x the floor {floor:.4e}")
     return {"counts": counts, "tokens_s": B * len(w) / w.sum(),
             "ms": med * 1e3, "peak": peak, "bound_ms": bound["ms"],
             "attention": attn}
@@ -3391,6 +3404,548 @@ def phase_decode(dev, facts: str) -> dict:
         print(f"  {name} took {time.perf_counter() - t0:.1f} s")
     print(f"  kernel launches over phase 18's main runs: {total}")
     print(f"  phase 18 took {time.perf_counter() - t_start:.1f} s")
+    return total, attn
+
+
+@contextlib.contextmanager
+def _moe_watch():
+    """Records every MoE layer's aux (``moe_apply``) and router choices
+    (``moe_route``) while the block runs, without a host sync."""
+    from repro_torch.models import layers as L
+
+    rec = {"drop": [], "idx": []}
+    apply0, route0 = L.moe_apply, L.moe_route
+
+    def apply(*a, **kw):
+        out, aux = apply0(*a, **kw)
+        rec["drop"].append(aux["moe_drop_frac"])
+        return out, aux
+
+    def route(*a, **kw):
+        r = route0(*a, **kw)
+        rec["idx"].append(r[1])
+        return r
+
+    L.moe_apply, L.moe_route = apply, route
+    try:
+        yield rec
+    finally:
+        L.moe_apply, L.moe_route = apply0, route0
+
+
+def _mean_drop(drops: list) -> float:
+    """The mean of recorded per-layer drop fractions (nan without any)."""
+    return float(torch.stack(drops).mean()) if drops else float("nan")
+
+
+def _watched(cfg, rec: dict, calls: int, what: str) -> None:
+    """Fails unless ``_moe_watch`` saw one ``moe_apply`` and one
+    ``moe_route`` a layer in each of ``calls`` forward calls of an MoE
+    (none for another family): a path that bypassed them would leave the
+    drop fractions and routed experts unrecorded."""
+    want = cfg.num_layers * calls if cfg.family == "moe" else 0
+    got = (len(rec["drop"]), len(rec["idx"]))
+    if got != (want, want):
+        raise AssertionError(f"{cfg.name}: {what}: the watch recorded "
+                             f"{got} MoE layer calls, not {want}")
+
+
+@contextlib.contextmanager
+def _moe_pinned(plan: list):
+    """Routes each ``moe_route`` call's tokens to the experts that the next
+    entry of ``plan`` names ((B, S, k), reshaped to the call's groups), in
+    GShard order (``moe_queue``), with the call's own router
+    probabilities at those experts renormalised as its gates. ``rec``
+    counts the (token, choice) slots whose expert the call's own top-k
+    would have changed, and the entries of ``plan`` not used."""
+    from repro_torch.models import layers as L
+
+    route0 = L.moe_route
+    rec = {"flips": 0, "slots": 0, "left": len(plan)}
+    entries = iter(plan)
+
+    def route(p, cfg, x):
+        probs, own = route0(p, cfg, x)[:2]
+        idx = next(entries).reshape(*x.shape[:2], -1)
+        rec["left"] -= 1
+        vals = probs.gather(-1, idx)
+        vals = vals / torch.clamp(vals.sum(-1, keepdim=True), min=1e-9)
+        kept = (idx[..., :, None] == own[..., None, :]).any(-1)
+        rec["flips"] += int((~kept).sum())
+        rec["slots"] += idx.numel()
+        return probs, idx, vals, *L.moe_queue(idx, cfg.num_experts)
+
+    L.moe_route = route
+    try:
+        yield rec
+    finally:
+        L.moe_route = route0
+
+
+def _family_batch(cfg, B: int, P: int, dev, seed: int = 0) -> dict:
+    """Tokens from a seed, and the stub front ends' inputs: a VLM's
+    ``patch_embeds``, whisper's ``frames`` (N(0, 1) in the model's dtype)."""
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, P))
+    batch = {"tokens": torch.from_numpy(toks.astype(np.int32)).to(dev)}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, cfg.dtype)
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn(
+            (B, cfg.vision_tokens, cfg.d_model), generator=g,
+            device=dev).to(dt)
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((B, cfg.encoder_seq, cfg.d_model),
+                                      generator=g, device=dev).to(dt)
+    return batch
+
+
+def _no_drop(cfg):
+    """An MoE config whose capacity holds every choice (C >= S for a group
+    of S tokens, cf = E / k); other configs as they are."""
+    if cfg.family != "moe":
+        return cfg
+    return dataclasses.replace(
+        cfg, moe_capacity_factor=cfg.num_experts / cfg.moe_top_k)
+
+
+def _family_dvp(params, cfg, batch) -> tuple[float, torch.Tensor, dict]:
+    """(max |decode - prefill|, prefill's last logits in f32, MoE drop
+    fractions): decode's logits for the last token after a prefill of the
+    others (with the batch's patch embeddings or frames), against the last
+    logits of a prefill of all of them; caches of exactly the sequence."""
+    from repro_torch.models import forward_decode, forward_prefill
+
+    toks = batch["tokens"]
+    extras = {k: v for k, v in batch.items() if k != "tokens"}
+    Sp = toks.shape[1] + (cfg.vision_tokens if cfg.family == "vlm" else 0)
+    with torch.inference_mode(), _moe_watch() as rec:
+        _, st = forward_prefill(params, cfg, {**extras, "tokens": toks[:, :-1]},
+                                max_seq=Sp)
+        _watched(cfg, rec, 1, "the shorter prefill")
+        n_pre = len(rec["drop"])
+        dec, st = forward_decode(params, cfg, toks[:, -1:], st)
+        _watched(cfg, rec, 2, "the decode step")
+        n_dec = len(rec["drop"])
+        assert int(st.pos) == Sp
+        del st
+        full, _ = forward_prefill(params, cfg, {**extras, "tokens": toks},
+                                  max_seq=Sp)
+        _watched(cfg, rec, 3, "the longer prefill")
+    drops = {"prefill": _mean_drop(rec["drop"][:n_pre]),
+             "decode": _mean_drop(rec["drop"][n_pre:n_dec]),
+             "full": _mean_drop(rec["drop"][n_dec:])}
+    dec, full = dec[:, -1].float(), full[:, -1].float()
+    if not (torch.isfinite(dec).all() and torch.isfinite(full).all()):
+        raise AssertionError(f"{cfg.name}: non-finite decode or prefill "
+                             f"logits")
+    return float((dec - full).abs().max()), full, drops
+
+
+def _drops_line(cfg, drops: dict) -> str:
+    if cfg.family != "moe":
+        return ""
+    if any(v != 0 for v in drops.values()):
+        raise AssertionError(f"{cfg.name}: the no-drop check dropped "
+                             f"tokens: {drops}")
+    return (f"; capacity factor {cfg.moe_capacity_factor:g} (C >= S): "
+            f"moe_drop_frac prefill {drops['prefill']:g}, decode "
+            f"{drops['decode']:g}, longer prefill {drops['full']:g}")
+
+
+def _family_f32_check(dev, cfg, batch) -> None:
+    """The config at full width in f32, cut to 4 layers (a hybrid to 2
+    periods, whisper's encoder to 4 too), fresh weights, full-precision f32
+    products: decode against prefill within DECODE_F32_TOL of the logits'
+    scale (an MoE at a capacity that drops nothing)."""
+    from repro_torch.models import lm
+    from repro_torch.utils import strict_f32
+
+    n = 2 * cfg.hybrid_period if cfg.family == "hybrid" else 4
+    c32 = _no_drop(dataclasses.replace(
+        cfg, num_layers=n, encoder_layers=min(cfg.encoder_layers, 4),
+        dtype="float32"))
+    b32 = {k: (v.float() if v.is_floating_point() else v)
+           for k, v in batch.items()}
+    with strict_f32():
+        params = lm.init_params(c32, torch.Generator(device=dev).manual_seed(1),
+                                batch["tokens"].shape[1])
+        err, full, drops = _family_dvp(params, c32, b32)
+    scale = max(1.0, float(full.abs().max()))
+    print(f"  (b) f32, {c32.num_layers} layers"
+          f"{f' + {c32.encoder_layers} encoder' if c32.encoder_layers else ''}"
+          f" at full width, {batch['tokens'].shape[0]} x "
+          f"{batch['tokens'].shape[1]}: decode vs prefill max_abs {err:.3e}, "
+          f"{err / scale:.3e} of the logits' scale {scale:.3f} (limit "
+          f"{DECODE_F32_TOL}){_drops_line(c32, drops)}")
+    del params
+    _free()
+    if err > DECODE_F32_TOL * scale:
+        raise AssertionError(f"{cfg.name}: f32 decode vs prefill {err:.3e} "
+                             f"out of tolerance")
+
+
+class _LazyF32:
+    """A layer stack walked as f32 copies made one layer at a time, so that
+    a model whose f32 copy would not fit the card runs in f32 all the
+    same (``lm._layers`` iterates a listed stack once)."""
+
+    def __init__(self, layers, stacked: bool):
+        from repro_torch.models import lm
+
+        self.layers = lm._unstack(layers) if stacked else list(layers)
+
+    def __iter__(self):
+        from repro_torch.engine.engine import _cast_floats
+
+        for p in self.layers:
+            yield _cast_floats(p, torch.float32)
+
+
+def _f32_last_logits(params, cfg, batch) -> torch.Tensor:
+    """forward_prefill's last logits on an f32 copy of the bf16 weights,
+    cast a layer at a time, with full-precision f32 products."""
+    from repro_torch.engine.engine import _cast_floats
+    from repro_torch.models import forward_prefill
+    from repro_torch.utils import strict_f32
+
+    stacks = ("layers", "enc_layers")
+    p32 = {k: (_LazyF32(v, cfg.scan_layers) if k in stacks
+               else _cast_floats(v, torch.float32)) for k, v in params.items()}
+    c32 = dataclasses.replace(cfg, dtype="float32", scan_layers=False)
+    b32 = {k: (v.float() if v.is_floating_point() else v)
+           for k, v in batch.items()}
+    Sp = batch["tokens"].shape[1] + (
+        cfg.vision_tokens if cfg.family == "vlm" else 0)
+    with torch.inference_mode(), strict_f32():
+        logits, _ = forward_prefill(p32, c32, b32, max_seq=Sp)
+    return logits[:, -1].float()
+
+
+def _family_bf16_check(params, cfg, batch) -> dict:
+    """Full depth in bf16: decode vs prefill against the floor, the bf16
+    prefill's distance from the f32 prefill of the same weights. An MoE's
+    bf16 routes are pinned to the experts the f32 prefill chose: a near-tie
+    that bf16 rounds the other way sends a token to another expert and
+    moves its logits by O(1), and over 24 layers such flips, not rounding,
+    would set the floor."""
+    c = _no_drop(cfg)
+    with _moe_watch() as rec:
+        f32 = _f32_last_logits(params, c, batch)
+    _watched(c, rec, 1, "the f32 prefill")
+    B, S = batch["tokens"].shape
+    routes = [ix.reshape(B, S, -1) for ix in rec["idx"]]
+    del rec
+    plan = ([ix[:, :-1] for ix in routes] + [ix[:, -1:] for ix in routes]
+            + routes)
+    with _moe_pinned(plan) as pin:
+        err, full, drops = _family_dvp(params, c, batch)
+    if pin["left"]:
+        raise AssertionError(f"{cfg.name}: {pin['left']} pinned routes unused")
+    floor = float((full - f32).abs().max())
+    _free()
+    pinned = (f"; experts pinned to the f32 prefill's, where the bf16 routes"
+              f" would have chosen another in {pin['flips']} of "
+              f"{pin['slots']} (token, choice) slots" if routes else "")
+    print(f"  (b) bf16, full depth, {batch['tokens'].shape[0]} x "
+          f"{batch['tokens'].shape[1]}: decode vs prefill max_abs {err:.4e}; "
+          f"the floor (bf16 vs f32 prefill) {floor:.4e}; ratio "
+          f"{err / max(floor, 1e-30):.3f} (limit {DECODE_BF16_X}); logits "
+          f"scale {float(full.abs().max()):.3f}{_drops_line(c, drops)}"
+          f"{pinned}")
+    if err > DECODE_BF16_X * floor:
+        raise AssertionError(f"{cfg.name}: bf16 decode vs prefill {err:.4e} "
+                             f"> {DECODE_BF16_X} x the floor {floor:.4e}")
+    return {"err": err, "floor": floor}
+
+
+def _family_run(dev, facts: str, name: str, B: int, P: int,
+                context: int) -> dict:
+    """One config (the module docstring's phase 19 (b) and (c))."""
+    from repro_torch import configs
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distribution import make_decode_step, make_prefill_step
+    from repro_torch.models import lm
+    from repro_torch.models.layers import moe_capacity
+
+    cfg = dataclasses.replace(configs.get(name), attn_impl="pallas")
+    assert cfg.dtype == "bfloat16" and cfg.scan_layers
+    rows = min(B, DECODE_CHECK_ROWS)
+    check = _family_batch(cfg, rows, FAMILY_CHECK_P.get(name, P), dev, seed=3)
+    _family_f32_check(dev, cfg, check)
+
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            context)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"  {cfg.name} ({cfg.family}, {cfg.num_layers} layers"
+          f"{f' + {cfg.encoder_layers} encoder' if cfg.encoder_layers else ''}"
+          f", d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads "
+          f"of {cfg.resolved_head_dim}, bf16, attn pallas): {n_params} "
+          f"parameters drawn on the card in {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB; rows x prompt x "
+          f"context = {B} x {P} x {context}"
+          f"{f' after {cfg.vision_tokens} patch positions' if cfg.vision_tokens else ''}"
+          f"{f' over {cfg.encoder_seq} frames' if cfg.encoder_seq else ''}")
+    bf16 = _family_bf16_check(params, cfg, check)
+    del check
+    batch = _family_batch(cfg, B, P, dev)
+    toks = batch["tokens"]
+    pre = make_prefill_step(cfg, InputShape("family", P, B, "prefill"),
+                            max_seq=context, device=dev)
+    dec = make_decode_step(cfg, InputShape("family", context, B, "decode"),
+                           device=dev)
+    Sp = P + (cfg.vision_tokens if cfg.family == "vlm" else 0)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    with _moe_watch() as rec:
+        t0 = time.perf_counter()
+        logits, state = pre.fn(params, batch)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        _watched(cfg, rec, 1, "the prefill")
+        n_pre = len(rec["drop"])
+        if not torch.isfinite(logits.float()).all():
+            raise AssertionError(f"{cfg.name}: non-finite prefill logits")
+        tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+        del logits
+        walls, toks_out = [], [tok]
+        for i in range(DECODE_STEPS):
+            t0 = time.perf_counter()
+            tok, state = dec.fn(params, tok, state)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            toks_out.append(tok)
+            if int(state.pos) != Sp + i + 1:
+                raise AssertionError(f"{cfg.name}: pos {int(state.pos)} after "
+                                     f"step {i + 1}")
+        _watched(cfg, rec, 1 + DECODE_STEPS, "the steps")
+    counts = _counts()
+    want = cfg.num_layers + cfg.encoder_layers
+    print(f"  kernel launches over the prefill and {DECODE_STEPS} steps: "
+          f"{counts}")
+    if counts != {**{n: 0 for n in KERNEL_MODULES}, "flash_attention": want}:
+        raise AssertionError(f"{cfg.name}: launches {counts}, expected "
+                             f"{want} flash_attention (the prefill's)")
+    out = torch.cat(toks_out, dim=1)
+    if not ((out >= 0) & (out < cfg.vocab_size)).all():
+        raise AssertionError(f"{cfg.name}: a token out of the vocabulary")
+    peak = torch.cuda.max_memory_allocated()
+    w = np.array(walls[DECODE_WARM:])
+    med = float(np.median(w))
+    experts, drops = float(cfg.num_experts), {}
+    if cfg.family == "moe":
+        L = cfg.num_layers
+        steps = rec["idx"][n_pre:]
+        per = [int(ix.unique().numel()) for ix in steps[L * DECODE_WARM:]]
+        experts = float(np.mean(per))
+        drops = {"prefill": _mean_drop(rec["drop"][:n_pre]),
+                 "decode": _mean_drop(rec["drop"][n_pre:])}
+        print(f"  MoE: moe_drop_frac at prefill {drops['prefill']:.6f} "
+              f"(capacity factor {cfg.moe_capacity_factor}, C = "
+              f"{moe_capacity(cfg, P)} a row of {P}), at decode "
+              f"{drops['decode']:.6f} (one group of {B}, C = "
+              f"{moe_capacity(cfg, B)}); experts a layer a step "
+              f"{experts:.2f} of {cfg.num_experts} (min {min(per)}, max "
+              f"{max(per)})")
+    del rec
+    bound = _decode_step_bound(params, cfg, state, B, experts)
+    print(f"  prefill {B} x {Sp} into a {context}-position state: "
+          f"{prefill_ms:.3f} ms ({B * Sp / prefill_ms * 1e3:.1f} positions/s); "
+          f"K/V {bound['kv'] / 1e9:.3f} GB, cross K/V {bound['cross'] / 1e9:.3f}"
+          f" GB [{facts}]")
+    print(f"  decode: {B * len(w) / w.sum():.1f} tokens/s over {len(w)} steps "
+          f"after {DECODE_WARM}; ms a step median {med * 1e3:.3f}, min "
+          f"{w.min() * 1e3:.3f}, max {w.max() * 1e3:.3f} (first "
+          f"{walls[0] * 1e3:.3f}); peak {peak / 2**30:.3f} GiB [{facts}]")
+    print(f"  byte bound a step: weights read {bound['weights'] / 1e9:.3f} GB"
+          f" + the caches read and one position written = "
+          f"{bound['bytes'] / 1e9:.3f} GB -> {bound['ms']:.3f} ms at 3.35 "
+          f"TB/s: the step at {bound['ms'] / (med * 1e3):.4f} of it; "
+          f"positions <= pos only {bound['ms_valid']:.3f} ms "
+          f"({bound['ms_valid'] / (med * 1e3):.4f}) [{facts}]")
+    held = {}
+
+    def one_step():
+        held["out"] = dec.fn(params, tok, state)
+
+    prof = _profile(one_step, f"{cfg.name} decode step", facts, top=6)
+    tok, state = held.pop("out")
+    print(f"  profiled step: busy {prof['busy_ms']:.3f} of "
+          f"{prof['wall_ms']:.3f} ms ({100 * prof['busy_ms'] / prof['wall_ms']:.1f}"
+          f" %), {prof['kernel_calls']} kernel-launch calls")
+    leaves = [t for t in _leaves([state.pos, state.kv_k, state.kv_v,
+                                  state.cross_k, state.cross_v])
+              if t is not None]
+    if not all(t.device.type == dev.type for t in leaves):
+        raise AssertionError(f"{cfg.name}: a state tensor off the card")
+    del state, leaves, pre, dec, params, batch, toks
+    _free()
+    return {"counts": counts, "tokens_s": B * len(w) / w.sum(),
+            "ms": med * 1e3, "peak": peak, "bound_ms": bound["ms"],
+            "prefill_ms": prefill_ms, "busy": prof["busy_ms"] /
+            prof["wall_ms"], "drops": drops, **bf16}
+
+
+def _rel_rms(a, b) -> float:
+    """rms(a - b) / rms(b), in f32."""
+    a, b = a.float(), b.float()
+    return float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt())
+
+
+def _planted_faults(q, k, v, causal: bool) -> dict:
+    """The plain version with a fault planted that a kernel could have:
+    non-causal with a ragged key tail, the tail's padding to a whole
+    64-key tile (k = v = 0) left unmasked, or the tail dropped; causal,
+    each query seeing one key past the diagonal."""
+    from repro_torch.kernels import flash_attention as fa
+
+    Skv, tile = k.shape[2], 64
+    if causal:
+        return {"one key past the diagonal":
+                fa.flash_attention_bhsd_ref(q, k, v, causal=True, q_offset=1)}
+    out = {}
+    if Skv % tile:
+        pad = (0, 0, 0, -Skv % tile)
+        out["padded tail unmasked"] = fa.flash_attention_bhsd_ref(
+            q, torch.nn.functional.pad(k, pad),
+            torch.nn.functional.pad(v, pad), causal=False)
+        n = Skv - Skv % tile
+        out["ragged tail dropped"] = fa.flash_attention_bhsd_ref(
+            q, k[:, :, :n], v[:, :, :n], causal=False)
+    return out
+
+
+def _family_attention(dev, facts: str) -> dict:
+    """Phase 19(a): the bf16 kernel against its plain version at whisper's
+    encoder shape and InternVL2's prefill shape, in the model's (B, S, H,
+    hd) layout passed as the transposed views ``ops.flash_attention``
+    passes, with SDPA's time on the same views. Beside ATTN_TOL, the error
+    relative to the output's rms is held within FAMILY_ATTN_REL, and each
+    planted fault of the plain version must exceed that limit."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rows = {}
+    for label, B, Hq, Hkv, S, hd, causal in (
+            ("whisper-encoder", 4, 20, 20, 1500, 64, False),
+            ("internvl2-prefill", 2, 48, 8, 768, 128, True)):
+        g = torch.Generator(device=dev).manual_seed(11)
+        q, k, v = (torch.randn((B, S, h, hd), generator=g, device=dev)
+                   .to(torch.bfloat16).transpose(1, 2)
+                   for h in (Hq, Hkv, Hkv))
+        row = _attention_case(label, q, k, v, causal, 0, facts)
+        want = fa.flash_attention_bhsd_ref(q, k, v, causal=causal)
+        rel = _rel_rms(fa.flash_attention_bhsd(q, k, v, causal=causal), want)
+        faults = {name: _rel_rms(bad, want) for name, bad in
+                  _planted_faults(q, k, v, causal).items()}
+        rms = float(want.float().pow(2).mean().sqrt())
+        print(f"    output rms {rms:.4e}: max_abs {row['max_abs_err'] / rms:.4f}"
+              f" of it; rms(kernel - plain) {rel:.4e} of it (limit "
+              f"{FAMILY_ATTN_REL}); planted faults of the plain version: "
+              + ", ".join(f"{n} {e:.4e}" for n, e in faults.items()))
+        if rel > FAMILY_ATTN_REL:
+            raise AssertionError(f"flash_attention at {label}: rms error "
+                                 f"{rel:.4e} of the output's > "
+                                 f"{FAMILY_ATTN_REL}")
+        missed = [n for n, e in faults.items() if e <= FAMILY_ATTN_REL]
+        if missed:
+            raise AssertionError(f"flash_attention at {label}: the limit "
+                                 f"{FAMILY_ATTN_REL} would pass {missed}")
+        del want
+        sdpa_ms, sdpa_host = _sdpa_ms(q, k, v, Hq // Hkv, causal=causal)
+        print(f"    scaled_dot_product_attention(is_causal={causal}, "
+              f"enable_gqa=True): device {sdpa_ms * 1e3:.3f} us, host loop "
+              f"{sdpa_host * 1e3:.3f} us; the kernel {row['ms'] / sdpa_ms:.3f}"
+              f"x SDPA's [{facts}]")
+        rows[label] = {**row, "library_ms": sdpa_ms, "rel_rms_err": rel,
+                       "planted_rel_rms": faults}
+        del q, k, v
+        _free()
+    return rows
+
+
+def _grok_cut(dev, facts: str) -> dict:
+    """Phase 19(d): grok-1-314b at full width, cut to GROK_CUT's layers."""
+    from repro_torch import configs
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distribution import make_prefill_step
+    from repro_torch.models import lm
+    from repro_torch.models.layers import moe_capacity
+
+    n, B, P, steps = GROK_CUT
+    cfg = dataclasses.replace(configs.get("grok1_314b"), num_layers=n,
+                              attn_impl="pallas")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"  (d) {cfg.name} cut to {n} of 64 layers (moe, d_model "
+          f"{cfg.d_model}, {cfg.num_experts} experts top-{cfg.moe_top_k} of "
+          f"moe_d_ff {cfg.moe_d_ff}, no shared expert, bf16): {n_params} "
+          f"parameters ({_nbytes(params) / 1e9:.3f} GB) drawn in "
+          f"{time.perf_counter() - t0:.2f} s")
+    pre = make_prefill_step(cfg, InputShape("grok", P, B, "prefill"),
+                            max_seq=P + steps, device=dev)
+    batch = _family_batch(cfg, B, P, dev)
+    _zero_counts()
+    with _moe_watch() as rec:
+        t0 = time.perf_counter()
+        logits, state = pre.fn(params, batch)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        _watched(cfg, rec, 1, "the prefill")
+        n_pre = len(rec["drop"])
+        finite = bool(torch.isfinite(logits.float()).all())
+        tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+        walls = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            logits, state = lm.forward_decode(params, cfg, tok, state)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            finite &= bool(torch.isfinite(logits.float()).all())
+            tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+        _watched(cfg, rec, 1 + steps, "the steps")
+    counts = _counts()
+    drops = {"prefill": _mean_drop(rec["drop"][:n_pre]),
+             "decode": _mean_drop(rec["drop"][n_pre:])}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  prefill {B} x {P}: {prefill_ms:.3f} ms, moe_drop_frac "
+          f"{drops['prefill']:.6f} (C = {moe_capacity(cfg, P)}); {steps} steps, "
+          f"ms a step median {np.median(walls) * 1e3:.3f}, moe_drop_frac "
+          f"{drops['decode']:.6f} (C = {moe_capacity(cfg, B)}); launches "
+          f"{counts}; peak {peak / 2**30:.3f} GiB; logits finite: {finite} "
+          f"[{facts}]")
+    del params, state, logits, pre, batch, rec
+    _free()
+    if not finite:
+        raise AssertionError(f"{cfg.name}: non-finite logits")
+    if counts != {**{k: 0 for k in KERNEL_MODULES}, "flash_attention": n}:
+        raise AssertionError(f"{cfg.name}: launches {counts}")
+    return {"counts": counts, "drops": drops}
+
+
+def phase_families(dev, facts: str) -> tuple[dict, dict]:
+    """Phase 19 (see the module docstring): the kernel at this phase's
+    shapes, then each FAMILY_RUNS config in turn and grok-1's cut, freed
+    before the next. Returns the kernel launches summed over the main runs
+    and the kernel rows of (a)."""
+    t_start = time.perf_counter()
+    _free()
+    attn = _family_attention(dev, facts)
+    total = {n: 0 for n in KERNEL_MODULES}
+    for name, B, P, context in FAMILY_RUNS:
+        t0 = time.perf_counter()
+        r = _family_run(dev, facts, name, B, P, context)
+        total = {n: total[n] + r["counts"][n] for n in total}
+        print(f"  {name} took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _grok_cut(dev, facts)
+    print(f"  grok-1 took {time.perf_counter() - t0:.1f} s")
+    print(f"  kernel launches over phase 19's three main runs: {total}")
+    print(f"  phase 19 took {time.perf_counter() - t_start:.1f} s")
     return total, attn
 
 
@@ -3503,6 +4058,10 @@ def main() -> int:
     print("[18] decode: prefill and 32 greedy steps at a 32768-position "
           "context, qwen2-7b, rwkv6-7b, zamba2-2.7b")
     decode_counts, decode_attn = phase_decode(dev, facts)
+    print("[19] families: the MoE, VLM and audio families at full width "
+          "through prefill and decode, qwen2-moe-a2.7b, internvl2-26b, "
+          "whisper-large-v3, and grok-1-314b cut to 2 layers")
+    family_counts, family_attn = phase_families(dev, facts)
     kernels = [
         {"name": "fleet_tick_window", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fleet_tick.cu",
@@ -3517,7 +4076,11 @@ def main() -> int:
          "launches": serve_row["launches"], **attn_row,
          "max_abs_err_decode": decode_attn["max_abs_err"],
          "ms_decode": decode_attn["ms"],
-         "bound_ms_decode": decode_attn["bound_ms"]},
+         "bound_ms_decode": decode_attn["bound_ms"],
+         **{f"{key}_{label.replace('-', '_')}": r[key]
+            for label, r in family_attn.items()
+            for key in ("max_abs_err", "rel_rms_err", "ms", "bound_ms",
+                        "library_ms")}},
         {"name": "rwkv6_wkv", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
          "replaces": "src/repro/kernels/rwkv6_wkv.py:81",
@@ -3539,6 +4102,7 @@ def main() -> int:
         row["launches_local"] = local_counts[mod]
         row["launches_train"] = train_counts[mod]
         row["launches_decode"] = decode_counts[mod]
+        row["launches_families"] = family_counts[mod]
     print(facts)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

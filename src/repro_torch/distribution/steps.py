@@ -18,7 +18,8 @@ sums their gradients from zeros (in the parameters' dtype), divides by
 ``accum_steps`` and averages the metrics, as the reference's scan does.
 
 The prefill step is ``lm.forward_prefill`` with a cache of ``max_seq``
-positions; the decode step is ``lm.forward_decode`` then the argmax of the
+positions, the batch's ``patch_embeds`` (vlm) or ``frames`` (audio) passed
+on with its tokens (``batch_spec`` gives their shapes); the decode step is ``lm.forward_decode`` then the argmax of the
 last position's logits. Both run without autograd. The decode step writes
 its state in place and returns it (the reference donates it,
 ``donate_argnums=(2,)``): pass each step the state the last one returned.
@@ -90,7 +91,7 @@ def make_train_step(
     inputs must lie there)."""
     _no_mesh(mesh, ep)
     device = resolve_device(device, "make_train_step")
-    params_shape = lm.init_params(cfg, None, device="meta")
+    params_shape = lm.init_params(cfg, None, shape.seq_len, device="meta")
     opt_shape = opt.init(params_shape)
     bshape = batch_spec(cfg, shape.global_batch, shape.seq_len)
     check = lambda params: _on(device, params, "train")
@@ -149,7 +150,7 @@ def make_prefill_step(cfg: ModelConfig, shape: InputShape, *,
 
     return StepBundle(
         fn=prefill_step,
-        arg_specs=(lm.init_params(cfg, None, device="meta"),
+        arg_specs=(lm.init_params(cfg, None, max_seq, device="meta"),
                    batch_spec(cfg, shape.global_batch, shape.seq_len)),
         meta=dict(device=device, max_seq=max_seq),
     )
@@ -173,7 +174,7 @@ def make_decode_step(cfg: ModelConfig, shape: InputShape, *, device=None,
 
     return StepBundle(
         fn=decode_step,
-        arg_specs=(lm.init_params(cfg, None, device="meta"),
+        arg_specs=(lm.init_params(cfg, None, max_seq, device="meta"),
                    torch.empty((B, 1), dtype=torch.int32, device="meta"),
                    lm.init_decode_state(cfg, B, max_seq, device="meta")),
         meta=dict(device=device, max_seq=max_seq),
@@ -184,5 +185,5 @@ def make_step_for_cell(cfg: ModelConfig, shape: InputShape,
                        opt: Optional[Optimizer] = None, **kw) -> StepBundle:
     raise NotImplementedError(
         "make_step_for_cell comes with the dry-run launcher (ROADMAP queue "
-        "1, item 8.5); use make_train_step, make_prefill_step or "
+        "1, item 8.6); use make_train_step, make_prefill_step or "
         "make_decode_step")

@@ -78,7 +78,8 @@ def _cast_floats(tree, dtype: torch.dtype):
 
 
 class StreamEngine:
-    """Micro-batch scoring engine over an LM (dense family).
+    """Micro-batch scoring engine over an LM whose step needs only tokens
+    (the dense, ssm, hybrid and moe families).
 
     Runs on ``device`` (``cuda`` unless another device is named; without a
     card ``device=None`` raises). The parameters are drawn there from a

@@ -87,7 +87,8 @@ def main(argv=None) -> dict:
                             device=device)
 
     def fresh():
-        params = init_params(cfg, torch.Generator(device).manual_seed(0))
+        params = init_params(cfg, torch.Generator(device).manual_seed(0),
+                             args.seq)
         return params, opt.init(params)
 
     step_fn = make_train_step(cfg, opt, shape, accum_steps=args.accum,

@@ -1,5 +1,5 @@
-"""The LM of the port (the dense, ssm and hybrid families), mirroring
-``repro.models``."""
+"""The LM of the port (every family: dense, ssm, hybrid, moe, vlm and
+audio), mirroring ``repro.models``."""
 from repro_torch.models.lm import (
     DecodeState,
     forward_decode,
@@ -9,6 +9,7 @@ from repro_torch.models.lm import (
     init_params,
     load_reference_opt_state,
     load_reference_params,
+    score_last,
 )
 
 __all__ = [
@@ -20,4 +21,5 @@ __all__ = [
     "init_params",
     "load_reference_opt_state",
     "load_reference_params",
+    "score_last",
 ]

@@ -1,5 +1,5 @@
-"""Model layers of the port: the dense and RWKV-6 subsets of
-``repro.models.layers``.
+"""Model layers of the port: ``repro.models.layers`` (attention, the GLU
+MLP, the GShard MoE, Mamba2 and RWKV-6).
 
 Conventions
 -----------
@@ -30,8 +30,12 @@ Conventions
   plain jnp in the reference (its ``mamba2_mix`` runs its own chunked scan,
   ``_ssd_scan`` here, not the SSD kernel). Decode writes its caches and
   states in place (``attention_decode``, ``lm.forward_decode``).
-
-MoE comes with a later slice.
+* ``moe_apply`` is the reference's GShard capacity dispatch in plain torch
+  (its dispatch and combine are one-hot einsums outside any Pallas kernel
+  there): an f32 router, top-k with renormalised gates, each (token,
+  choice) placed in GShard order (all first choices, then all second
+  ones, ...), overflow dropped; the dispatch, expert and combine products
+  run as batched matmuls over (group, expert · slot) rows.
 """
 from __future__ import annotations
 
@@ -107,7 +111,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def init_attention(gen, cfg: ModelConfig, device) -> dict:
+def init_attention(gen, cfg: ModelConfig, device, *,
+                   cross: bool = False) -> dict:
+    """Self- or cross-attention weights: the same layout (``cross`` is the
+    reference's flag and changes nothing in it)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
     dt = _dtype(cfg)
@@ -202,8 +209,12 @@ def attention_core(q, k, v, *, causal: bool, chunk: int, q_offset: int = 0,
     return o.to(q.dtype)
 
 
-def attention_apply(p: dict, cfg: ModelConfig, x, *, kv_src=None):
-    """Full prefill attention (self by default, cross if kv_src given)."""
+def attention_apply(p: dict, cfg: ModelConfig, x, *, kv_src=None,
+                    causal: Optional[bool] = None):
+    """Full prefill attention (self by default, cross if kv_src given).
+    ``causal`` overrides ``cfg.causal`` (whisper's encoder runs non-causal);
+    cross-attention is never causal and never takes the kernel, as in the
+    reference (its ``pallas`` impl runs ``chunked`` there)."""
     cross = kv_src is not None
     kv_in = kv_src if cross else x
     q, k, v = _project_qkv(p, cfg, x, kv_in)
@@ -211,8 +222,9 @@ def attention_apply(p: dict, cfg: ModelConfig, x, *, kv_src=None):
         pos = torch.arange(x.shape[1], device=x.device)
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
+    is_causal = cfg.causal if causal is None else causal
     o = attention_core(
-        q, k, v, causal=cfg.causal and not cross, chunk=cfg.attn_chunk,
+        q, k, v, causal=is_causal and not cross, chunk=cfg.attn_chunk,
         impl=cfg.attn_impl if cfg.attn_impl != "pallas" or not cross else "chunked",
     )
     B, S = x.shape[:2]
@@ -283,6 +295,113 @@ def _act(name: str):
 def mlp_apply(p: dict, cfg: ModelConfig, x) -> torch.Tensor:
     h = _act(cfg.act)(x @ p["wg"]) * (x @ p["wu"])
     return h @ p["wd"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (GShard capacity dispatch)
+# ---------------------------------------------------------------------------
+
+
+def init_moe(gen, cfg: ModelConfig, device) -> dict:
+    """The reference's layout: an f32 router (d, E) in every dtype, the
+    experts' GLU weights stacked on a leading E axis, and, with shared
+    experts, one MLP of hidden ``cfg.d_ff`` behind a (d, 1) sigmoid gate."""
+    d, m, E = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    dt = _dtype(cfg)
+    s_in = 1.0 / np.sqrt(d)
+    s_out = 1.0 / np.sqrt(m) / np.sqrt(2 * cfg.num_layers)
+    p = {
+        "router": _init(gen, (d, E), s_in, torch.float32, device),
+        "wg": _init(gen, (E, d, m), s_in, dt, device),
+        "wu": _init(gen, (E, d, m), s_in, dt, device),
+        "wd": _init(gen, (E, m, d), s_out, dt, device),
+    }
+    if cfg.num_shared_experts:
+        p["shared"] = init_mlp(gen, cfg, device, cfg.d_ff)
+        p["shared_gate"] = torch.zeros((d, 1), dtype=dt, device=device)
+    return p
+
+
+def moe_capacity(cfg: ModelConfig, S: int) -> int:
+    """Slots an expert has in a dispatch group of S tokens: ceil(S·k/E·cf),
+    at least 4 and at most S·k, in the reference's Python floats."""
+    E, k, cf = cfg.num_experts, cfg.moe_top_k, cfg.moe_capacity_factor
+    return max(4, min(int(np.ceil(S * k / E * cf)), S * k))
+
+
+def moe_route(p: dict, cfg: ModelConfig, x):
+    """The router of groups x (G, S, d): (probs (G,S,E) f32, gate_idx
+    (G,S,k), renormalised gate values (G,S,k), queue positions (G,S,k),
+    counts (G,E)), the last two from ``moe_queue``."""
+    probs = torch.softmax(x.float() @ p["router"], dim=-1)
+    gate_vals, gate_idx = torch.topk(probs, cfg.moe_top_k, dim=-1)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    return (probs, gate_idx, gate_vals,
+            *moe_queue(gate_idx, cfg.num_experts))
+
+
+def moe_queue(gate_idx, E: int):
+    """(queue positions (G,S,k), counts (G,E)) of the choices gate_idx
+    (G,S,k) among E experts. A (token, choice)'s position in its expert's
+    queue follows GShard order: all first choices of the group by
+    position, then all second choices, and so on; counts are every choice
+    routed to an expert, dropped or not."""
+    counts = torch.zeros((gate_idx.shape[0], E), dtype=torch.long,
+                         device=gate_idx.device)
+    pos = []
+    for c in range(gate_idx.shape[-1]):
+        onehot = F.one_hot(gate_idx[..., c], E)  # (G,S,E)
+        in_e = onehot.cumsum(dim=1) - onehot + counts[:, None, :]
+        pos.append(in_e.gather(2, gate_idx[..., c:c + 1])[..., 0])
+        counts = counts + onehot.sum(dim=1)
+    return torch.stack(pos, dim=-1), counts
+
+
+def moe_apply(p: dict, cfg: ModelConfig, x):
+    """x (B,S,d) -> (out, aux). Dispatch groups are the batch rows or,
+    where ``cfg.moe_group_size`` G is set, below S and divides it, rows of
+    G tokens (the one-hot products cost O(S·E·C·d) with C ∝ S). aux:
+    ``moe_drop_frac`` (the share of routed choices dropped for capacity)
+    and ``moe_lb_loss`` (E · Σ mean prob · first-choice share)."""
+    B0, S0, d0 = x.shape
+    G = cfg.moe_group_size
+    if G and S0 > G and S0 % G == 0:
+        out, aux = _moe_apply_grouped(p, cfg,
+                                      x.reshape(B0 * (S0 // G), G, d0))
+        return out.reshape(B0, S0, d0), aux
+    return _moe_apply_grouped(p, cfg, x)
+
+
+def _moe_apply_grouped(p: dict, cfg: ModelConfig, x):
+    B, S, d = x.shape
+    E = cfg.num_experts
+    C = moe_capacity(cfg, S)
+    probs, gate_idx, gate_vals, pos, counts = moe_route(p, cfg, x)
+    fits = pos < C
+    # each (token, choice) that fits takes slot e·C + pos of the (E·C)
+    # one-hot rows; a token's k choices name k distinct experts
+    slot = gate_idx * C + pos.clamp(max=C - 1)
+    zeros = torch.zeros((B, S, E * C), dtype=torch.float32, device=x.device)
+    dispatch = zeros.scatter_add(2, slot, fits.float()).to(x.dtype)
+    combine = zeros.scatter_add(2, slot, gate_vals * fits).to(x.dtype)
+
+    xin = torch.bmm(dispatch.transpose(1, 2), x)  # (B, E·C, d)
+    xe = xin.reshape(B, E, C, d).transpose(0, 1).reshape(E, B * C, d)
+    h = _act(cfg.act)(torch.bmm(xe, p["wg"])) * torch.bmm(xe, p["wu"])
+    out_e = torch.bmm(h, p["wd"])  # (E, B·C, d)
+    out_e = out_e.reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)
+    out = torch.bmm(combine, out_e)  # (B, S, d)
+
+    if "shared" in p:
+        g = torch.sigmoid(x @ p["shared_gate"])
+        out = out + g * mlp_apply(p["shared"], cfg, x)
+
+    dropped = 1.0 - counts.clamp(max=C).sum() / counts.sum().clamp(min=1)
+    me = probs.mean(dim=(0, 1))
+    ce = F.one_hot(gate_idx[..., 0], E).float().mean(dim=(0, 1))
+    return out, {"moe_drop_frac": dropped,
+                 "moe_lb_loss": E * torch.sum(me * ce)}
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,17 @@
-"""Model assembly of the port: the dense, ssm (RWKV-6) and hybrid (zamba2:
-Mamba2 layers and a shared attention block) families of
-``repro.models.lm``.
+"""Model assembly of the port: every family of ``repro.models.lm`` — dense,
+ssm (RWKV-6), hybrid (zamba2: Mamba2 layers and a shared attention block),
+moe (GShard experts), vlm (patch embeddings ahead of the text) and audio
+(whisper: a non-causal encoder and a decoder with cross-attention).
 
 * ``init_params``      — the parameter tree, drawn on a device from an
                          explicit ``torch.Generator``
-* ``forward_train``    — full-sequence forward + CE loss
+* ``forward_train``    — full-sequence forward + CE loss (a VLM's over the
+                         text region; an MoE's plus 0.01 · its balance loss)
 * ``forward_prefill``  — full-sequence forward returning last-position
                          logits and a primed ``DecodeState``
 * ``forward_decode``   — one-token step with the cached state, which it
                          updates in place
+* ``score_last``       — ``forward_prefill``'s logits without the state
 * ``load_reference_params`` — the reference's parameter pytree (numpy
                          arrays) as the port's tree
 * ``load_reference_opt_state`` — the reference optimizer's state as the
@@ -16,13 +19,15 @@ Mamba2 layers and a shared attention block) families of
 
 The port keeps the reference's parameter layout: the same nested keys, and
 each linear weight (d_in, d_out) applied as ``x @ W``, so the converter only
-moves arrays into tensors. A layer stack is stacked along a leading L axis
-when ``cfg.scan_layers`` (as in the full configs) and a list otherwise (the
-reduced ones); ``_backbone`` walks either in a Python loop, a stacked tree
-unbound once a pass so that its gradient is one stack, not a scatter a
-layer. The hybrid's Mamba2 layers are one such stack, with the
-``shared_block`` (one dense block's weights) run after every
-``hybrid_period``-th of them, in the reference's period order.
+moves arrays into tensors. A layer stack (and whisper's encoder stack) is
+stacked along a leading L axis when ``cfg.scan_layers`` (as in the full
+configs) and a list otherwise (the reduced ones); ``_backbone`` walks either
+in a Python loop, a stacked tree unbound once a pass so that its gradient is
+one stack, not a scatter a layer. The hybrid's Mamba2 layers are one such
+stack, with the ``shared_block`` (one dense block's weights) run after every
+``hybrid_period``-th of them, in the reference's period order. An MoE layer
+returns its aux (``moe_drop_frac``, ``moe_lb_loss``), averaged over the
+layers as both of the reference's layouts do.
 
 ``forward_train`` runs under autograd (``distribution/steps.py`` builds the
 train step on it). While grad is enabled, each layer runs under the
@@ -37,8 +42,9 @@ included. Remat changes memory, never values.
 The ssm blocks run the time mix as the reference's ``_rwkv_block`` does,
 with ``rwkv6_time_mix``'s default impl (the plain ``wkv6_chunked``); the
 wkv kernel is reached through ``rwkv6_time_mix(..., impl="pallas")``, as in
-the reference. The other families (MoE, VLM, audio) raise
-``NotImplementedError`` naming their ROADMAP item.
+the reference. Under ``attn_impl="pallas"`` every self-attention of a full
+sequence (whisper's non-causal encoder included) runs the flash-attention
+kernel; cross-attention and decode attention stay plain, as there.
 """
 from __future__ import annotations
 
@@ -55,20 +61,8 @@ from repro_torch.utils import resolve_device, softmax_cross_entropy, tree_map
 
 PyTree = Any
 
-#: the families the port runs
-PORTED = ("dense", "ssm", "hybrid")
-#: ROADMAP items of the families it does not port yet
-_FAMILY_ITEMS = {
-    fam: "ROADMAP queue 1, item 8.5 (MoE, VLM and audio)"
-    for fam in ("moe", "vlm", "audio")
-}
-
-
-def _ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
-            f"{_FAMILY_ITEMS.get(cfg.family, 'ROADMAP queue 1, item 8.5')}")
+#: the families the port runs: all of the reference's
+PORTED = ("dense", "ssm", "hybrid", "moe", "vlm", "audio")
 
 
 class DecodeState(NamedTuple):
@@ -78,7 +72,7 @@ class DecodeState(NamedTuple):
     kv_k: Optional[torch.Tensor] = None  # (L_or_inv, B, Smax, nkv, hd)
     kv_v: Optional[torch.Tensor] = None
     ssm: Optional[PyTree] = None
-    cross_k: Optional[torch.Tensor] = None
+    cross_k: Optional[torch.Tensor] = None  # whisper: (L, B, F, nkv, hd)
     cross_v: Optional[torch.Tensor] = None
 
 
@@ -118,24 +112,49 @@ def _shared_after(cfg: ModelConfig, i: int) -> bool:
     return bool(cfg.hybrid_period) and (i + 1) % cfg.hybrid_period == 0
 
 
-def _init_dense_layer(gen, cfg: ModelConfig, device) -> dict:
+def _init_dense_layer(gen, cfg: ModelConfig, device,
+                      moe: bool = False) -> dict:
+    dt = L._dtype(cfg)
+    p = {
+        "norm1": L.init_rmsnorm(cfg.d_model, dt, device),
+        "attn": L.init_attention(gen, cfg, device),
+        "norm2": L.init_rmsnorm(cfg.d_model, dt, device),
+    }
+    if moe:
+        p["moe"] = L.init_moe(gen, cfg, device)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg, device)
+    return p
+
+
+def _init_decoder_xattn_layer(gen, cfg: ModelConfig, device) -> dict:
     dt = L._dtype(cfg)
     return {
         "norm1": L.init_rmsnorm(cfg.d_model, dt, device),
         "attn": L.init_attention(gen, cfg, device),
         "norm2": L.init_rmsnorm(cfg.d_model, dt, device),
+        "xattn": L.init_attention(gen, cfg, device, cross=True),
+        "norm3": L.init_rmsnorm(cfg.d_model, dt, device),
         "mlp": L.init_mlp(gen, cfg, device),
     }
 
 
-def init_params(cfg: ModelConfig, gen: Optional[torch.Generator], *,
-                device=None) -> PyTree:
-    """The parameter tree of a dense, ssm or hybrid model, drawn from
-    ``gen`` on its device (``device`` overrides it; on ``meta`` nothing is
-    drawn and ``gen`` may be None). The reference's ``max_seq`` argument
-    sizes the audio family's learned positions; these families have
-    none."""
-    _ported(cfg)
+def _init_hybrid_layer(gen, cfg: ModelConfig, device) -> dict:
+    return {"norm": L.init_rmsnorm(cfg.d_model, L._dtype(cfg), device),
+            "mamba": L.init_mamba2(gen, cfg, device)}
+
+
+def _init_stack(init_layer, n: int, gen, cfg: ModelConfig, device):
+    blocks = [init_layer(gen, cfg, device) for _ in range(n)]
+    return _stack(blocks) if cfg.scan_layers else blocks
+
+
+def init_params(cfg: ModelConfig, gen: Optional[torch.Generator],
+                max_seq: int = 0, *, device=None) -> PyTree:
+    """The parameter tree of any family, drawn from ``gen`` on its device
+    (``device`` overrides it; on ``meta`` nothing is drawn and ``gen`` may
+    be None). ``max_seq`` sizes the audio family's learned decoder
+    positions, ``max(max_seq, 4096)`` of them, as in the reference."""
     device = torch.device(device if device is not None else gen.device)
     dt = L._dtype(cfg)
     emb_scale = 1.0 / np.sqrt(cfg.d_model)
@@ -147,17 +166,29 @@ def init_params(cfg: ModelConfig, gen: Optional[torch.Generator], *,
     if not cfg.tie_embeddings:
         params["lm_head"] = L._init(gen, (cfg.d_model, cfg.vocab_size),
                                     emb_scale, dt, device)
-    if cfg.family == "hybrid":
-        def init_layer(gen, cfg, device):
-            return {"norm": L.init_rmsnorm(cfg.d_model, dt, device),
-                    "mamba": L.init_mamba2(gen, cfg, device)}
-    else:
-        init_layer = (L.init_rwkv6 if cfg.family == "ssm"
-                      else _init_dense_layer)
-    blocks = [init_layer(gen, cfg, device) for _ in range(cfg.num_layers)]
-    params["layers"] = _stack(blocks) if cfg.scan_layers else blocks
-    if cfg.family == "hybrid":
+    fam = cfg.family
+    init_layer = {
+        "dense": _init_dense_layer, "vlm": _init_dense_layer,
+        "moe": functools.partial(_init_dense_layer, moe=True),
+        "ssm": L.init_rwkv6, "hybrid": _init_hybrid_layer,
+        "audio": _init_decoder_xattn_layer,
+    }.get(fam)
+    if init_layer is None:
+        raise ValueError(fam)
+    if fam == "audio":
+        params["enc_layers"] = _init_stack(_init_dense_layer,
+                                           cfg.encoder_layers, gen, cfg,
+                                           device)
+    params["layers"] = _init_stack(init_layer, cfg.num_layers, gen, cfg,
+                                   device)
+    if fam == "hybrid":
         params["shared_block"] = _init_dense_layer(gen, cfg, device)
+    if fam == "audio":
+        params["enc_norm"] = L.init_rmsnorm(cfg.d_model, dt, device)
+        params["enc_pos"] = L._init(gen, (cfg.encoder_seq, cfg.d_model),
+                                    0.02, dt, device)
+        params["dec_pos"] = L._init(gen, (max(max_seq, 4096), cfg.d_model),
+                                    0.02, dt, device)
     return params
 
 
@@ -176,8 +207,9 @@ def load_reference_params(tree: PyTree, cfg: ModelConfig, device=None) -> PyTree
     layer stack may be stacked (``scan_layers=True``, a dict of (L, ...)
     arrays) or a list of per-layer dicts; it must be the one ``cfg``
     names. A hybrid tree's ``shared_block`` (one dense layer's dict) sits
-    beside its layers."""
-    _ported(cfg)
+    beside its layers; an audio tree's ``enc_layers`` (in the same layout),
+    ``enc_norm``, ``enc_pos`` and ``dec_pos`` beside its decoder layers. An
+    MoE router stays f32 in a bf16 tree, as the reference keeps it."""
     device = resolve_device(device, "load_reference_params")
     stacked = isinstance(tree["layers"], dict)
     if stacked != cfg.scan_layers:
@@ -205,10 +237,31 @@ def load_reference_opt_state(state: PyTree, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 
-def _dense_block(p, cfg, x):
+def _dense_block(p, cfg, x, causal=None):
+    x = x + L.attention_apply(p["attn"], cfg,
+                              L.rmsnorm(p["norm1"], x, cfg.norm_eps),
+                              causal=causal)
+    return x + L.mlp_apply(p["mlp"], cfg, L.rmsnorm(p["norm2"], x, cfg.norm_eps))
+
+
+def _moe_block(p, cfg, x):
+    """A dense block with the MoE in the MLP's place: (x, aux)."""
     x = x + L.attention_apply(p["attn"], cfg,
                               L.rmsnorm(p["norm1"], x, cfg.norm_eps))
-    return x + L.mlp_apply(p["mlp"], cfg, L.rmsnorm(p["norm2"], x, cfg.norm_eps))
+    y, aux = L.moe_apply(p["moe"], cfg, L.rmsnorm(p["norm2"], x, cfg.norm_eps))
+    return x + y, aux
+
+
+def _xattn_block(p, cfg, x, enc_out):
+    """Whisper's decoder block: causal self-attention, cross-attention over
+    the encoder's output, the MLP."""
+    x = x + L.attention_apply(p["attn"], cfg,
+                              L.rmsnorm(p["norm1"], x, cfg.norm_eps),
+                              causal=True)
+    x = x + L.attention_apply(p["xattn"], cfg,
+                              L.rmsnorm(p["norm2"], x, cfg.norm_eps),
+                              kv_src=enc_out)
+    return x + L.mlp_apply(p["mlp"], cfg, L.rmsnorm(p["norm3"], x, cfg.norm_eps))
 
 
 def _rwkv_block(p, cfg, x):
@@ -249,7 +302,8 @@ def _block_policy(ctx, op, *args, **kwargs):
 
 def _maybe_remat(fn, cfg: ModelConfig):
     """``fn(p, x)`` under ``cfg.remat`` while grad is enabled (the module
-    docstring says what each mode keeps); ``fn`` itself otherwise."""
+    docstring says what each mode keeps); ``fn`` itself otherwise. ``fn``
+    may return a tuple (an MoE block's (x, aux))."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
     kw = dict(use_reentrant=False, preserve_rng_state=False)
@@ -266,20 +320,63 @@ def _mamba_block(p, cfg, x):
                             L.rmsnorm(p["norm"], x, cfg.norm_eps))[0]
 
 
-def _backbone(params, cfg: ModelConfig, x):
-    """(B,S,d) -> (B,S,d) through the family's blocks, in order; each block
-    (a hybrid's Mamba2 layer and each call of its shared block) under
-    ``_maybe_remat``."""
-    _ported(cfg)
-    block = {"ssm": _rwkv_block, "hybrid": _mamba_block}.get(cfg.family,
-                                                            _dense_block)
-    layer = _maybe_remat(lambda p, h: block(p, cfg, h), cfg)
+def _mean_aux(auxs: list) -> dict:
+    """Per-layer aux dicts averaged over the layers."""
+    if not auxs:
+        return {}
+    return {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
+
+
+def _embed(params, cfg: ModelConfig, tokens, batch: Optional[dict]):
+    """Token embeddings; a VLM's patch embeddings ahead of them, whisper's
+    learned positions ``dec_pos[:S]`` added."""
+    x = params["embed"][tokens]
+    if cfg.family == "vlm":
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+    if cfg.family == "audio":
+        x = x + params["dec_pos"][:x.shape[1]][None]
+    return x
+
+
+def _encoder(params, cfg: ModelConfig, frames):
+    """Whisper's encoder: the frames plus ``enc_pos``, non-causal dense
+    blocks (each under ``_maybe_remat``), the final norm."""
+    x = frames.to(L._dtype(cfg)) + params["enc_pos"][None, :frames.shape[1]]
+    layer = _maybe_remat(lambda p, h: _dense_block(p, cfg, h, causal=False),
+                         cfg)
+    for p in _layers(params["enc_layers"], cfg):
+        x = layer(p, x)
+    return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def _backbone(params, cfg: ModelConfig, x, batch: Optional[dict] = None):
+    """(B,S,d) -> ((B,S,d), aux) through the family's blocks, in order; each
+    block (a hybrid's Mamba2 layer and each call of its shared block) under
+    ``_maybe_remat``. aux holds an MoE's per-layer aux averaged over the
+    layers, and is empty for the other families. ``batch`` carries
+    whisper's ``frames``."""
+    fam = cfg.family
+    enc_out = _encoder(params, cfg, batch["frames"]) if fam == "audio" \
+        else None
+    plain = {"ssm": _rwkv_block, "hybrid": _mamba_block,
+             "moe": _moe_block}.get(fam, _dense_block)
+
+    def block(p, h):
+        if fam == "audio":
+            return _xattn_block(p, cfg, h, enc_out)
+        return plain(p, cfg, h)
+
+    layer = _maybe_remat(block, cfg)
     shared = _maybe_remat(lambda p, h: _dense_block(p, cfg, h), cfg)
+    auxs = []
     for i, p in enumerate(_layers(params["layers"], cfg)):
         x = layer(p, x)
-        if cfg.family == "hybrid" and _shared_after(cfg, i):
+        if fam == "moe":
+            x, aux = x
+            auxs.append(aux)
+        if fam == "hybrid" and _shared_after(cfg, i):
             x = shared(params["shared_block"], x)
-    return x
+    return x, _mean_aux(auxs)
 
 
 def _logits(params, cfg: ModelConfig, x):
@@ -297,16 +394,24 @@ def _logits(params, cfg: ModelConfig, x):
 
 def forward_train(params: PyTree, cfg: ModelConfig,
                   batch: dict) -> tuple[torch.Tensor, dict]:
-    """CE loss over the batch. batch: tokens, labels, [mask]."""
-    _ported(cfg)
-    x = _backbone(params, cfg, params["embed"][batch["tokens"]])
-    ce = softmax_cross_entropy(_logits(params, cfg, x), batch["labels"])
+    """CE loss over the batch. batch: tokens, labels, [mask, patch_embeds,
+    frames]. A VLM's loss runs over the text region only; an MoE adds
+    0.01 · ``moe_lb_loss``, and its aux enters ``metrics`` (whose
+    ``ce_loss`` is the loss returned, as in the reference)."""
+    x = _embed(params, cfg, batch["tokens"], batch)
+    x, aux = _backbone(params, cfg, x, batch)
+    logits = _logits(params, cfg, x)
+    if cfg.family == "vlm":  # loss only over the text region
+        logits = logits[:, batch["patch_embeds"].shape[1]:]
+    ce = softmax_cross_entropy(logits, batch["labels"])
     mask = batch.get("mask")
     if mask is not None:
         loss = (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     else:
         loss = ce.mean()
-    return loss, {"ce_loss": loss}
+    if "moe_lb_loss" in aux:
+        loss = loss + 0.01 * aux["moe_lb_loss"]
+    return loss, {"ce_loss": loss, **aux}
 
 
 # ---------------------------------------------------------------------------
@@ -317,26 +422,37 @@ def forward_train(params: PyTree, cfg: ModelConfig,
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       device=None) -> DecodeState:
     """Empty state sized for `max_seq` total positions, on ``device``
-    (``cuda`` unless another device is named)."""
-    _ported(cfg)
+    (``cuda`` unless another device is named). Whisper's adds the
+    per-layer cross K/V over its ``encoder_seq`` frames."""
     device = resolve_device(device, "init_decode_state")
     pos = torch.zeros((), dtype=torch.int32, device=device)
-    if cfg.family == "ssm":
+    fam = cfg.family
+    if fam == "ssm":
         return DecodeState(pos=pos, ssm=_stack(
             [L.init_rwkv6_state(cfg, batch, device)
              for _ in range(cfg.num_layers)]))
+    if fam not in PORTED:
+        raise ValueError(fam)
     dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     hd = cfg.resolved_head_dim
-    n = (cfg.num_layers // cfg.hybrid_period if cfg.family == "hybrid"
+    n = (cfg.num_layers // cfg.hybrid_period if fam == "hybrid"
          else cfg.num_layers)
     kv_k = torch.zeros((n, batch, max_seq, cfg.num_kv_heads, hd), dtype=dt,
                        device=device)
-    ssm = None
-    if cfg.family == "hybrid":
+    ssm = cross_k = cross_v = None
+    if fam == "hybrid":
         ssm = _stack([L.init_mamba2_state(cfg, batch, device)
                       for _ in range(cfg.num_layers)])
+    if fam == "audio":
+        cross_k = torch.zeros((n, batch, cfg.encoder_seq, cfg.num_kv_heads,
+                               hd), dtype=dt, device=device)
+        cross_v = torch.zeros_like(cross_k)
     return DecodeState(pos=pos, kv_k=kv_k, kv_v=torch.zeros_like(kv_k),
-                       ssm=ssm)
+                       ssm=ssm, cross_k=cross_k, cross_v=cross_v)
+
+
+def _pos_tensor(n: int, device) -> torch.Tensor:
+    return torch.tensor(n, dtype=torch.int32, device=device)
 
 
 def forward_prefill(params: PyTree, cfg: ModelConfig, batch: dict,
@@ -344,39 +460,54 @@ def forward_prefill(params: PyTree, cfg: ModelConfig, batch: dict,
     """Run the full prompt, return last-position logits (B, 1, V) + a primed
     DecodeState.
 
-    As in the reference, a dense model's K/V caches are recomputed per
-    layer from the layer's input (the norm, the K/V projections, RoPE on K)
-    beside the block, and written into a fresh ``init_decode_state``; an
-    ssm model keeps each layer's final recurrent state (``_prefill_ssm``);
-    a hybrid both (``_prefill_hybrid``)."""
+    As in the reference, the K/V caches of an attention model (dense, vlm,
+    moe, audio) are recomputed per layer from the layer's input (the norm,
+    the K/V projections, RoPE on K) beside the block, and written into a
+    fresh ``init_decode_state``: Sp = the embedded sequence's length
+    positions (a VLM's patch positions, then its tokens) and ``pos`` = Sp.
+    Whisper's cross K/V are each decoder layer's projections of the
+    encoder's output. An ssm model keeps each layer's final recurrent state
+    (``_prefill_ssm``); a hybrid both (``_prefill_hybrid``)."""
     tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = params["embed"][tokens]
+    B = tokens.shape[0]
+    x = _embed(params, cfg, tokens, batch)
     state = init_decode_state(cfg, B, max_seq, device=x.device)
     if cfg.family == "ssm":
         return _prefill_ssm(params, cfg, x, state)
     if cfg.family == "hybrid":
         return _prefill_hybrid(params, cfg, x, state)
-    hd = cfg.resolved_head_dim
-    pos = torch.arange(x.shape[1], device=x.device)
+    fam = cfg.family
+    hd, nkv = cfg.resolved_head_dim, cfg.num_kv_heads
+    Sp = x.shape[1]
+    pos = torch.arange(Sp, device=x.device)
+    enc_out = _encoder(params, cfg, batch["frames"]) if fam == "audio" \
+        else None
 
     def kv_of(p, h):
         src = L.rmsnorm(p["norm1"], h, cfg.norm_eps)
-        k = (src @ p["attn"]["wk"]).reshape(B, -1, cfg.num_kv_heads, hd)
-        v = (src @ p["attn"]["wv"]).reshape(B, -1, cfg.num_kv_heads, hd)
+        k = (src @ p["attn"]["wk"]).reshape(B, -1, nkv, hd)
+        v = (src @ p["attn"]["wv"]).reshape(B, -1, nkv, hd)
         if "bk" in p["attn"]:
-            k = k + p["attn"]["bk"].reshape(1, 1, cfg.num_kv_heads, hd)
-            v = v + p["attn"]["bv"].reshape(1, 1, cfg.num_kv_heads, hd)
+            k = k + p["attn"]["bk"].reshape(1, 1, nkv, hd)
+            v = v + p["attn"]["bv"].reshape(1, 1, nkv, hd)
         k = L.apply_rope(k, pos, cfg.rope_theta)
         return k, v
 
     for i, p in enumerate(_layers(params["layers"], cfg)):
         k, v = kv_of(p, x)
-        x = _dense_block(p, cfg, x)
-        state.kv_k[i, :, :S] = k.to(state.kv_k.dtype)
-        state.kv_v[i, :, :S] = v.to(state.kv_v.dtype)
-    state = state._replace(pos=torch.tensor(S, dtype=torch.int32,
-                                            device=x.device))
+        if fam == "moe":
+            x, _ = _moe_block(p, cfg, x)
+        elif fam == "audio":
+            x = _xattn_block(p, cfg, x, enc_out)
+            state.cross_k[i] = (enc_out @ p["xattn"]["wk"]).reshape(
+                B, -1, nkv, hd).to(state.cross_k.dtype)
+            state.cross_v[i] = (enc_out @ p["xattn"]["wv"]).reshape(
+                B, -1, nkv, hd).to(state.cross_v.dtype)
+        else:
+            x = _dense_block(p, cfg, x)
+        state.kv_k[i, :, :Sp] = k.to(state.kv_k.dtype)
+        state.kv_v[i, :, :Sp] = v.to(state.kv_v.dtype)
+    state = state._replace(pos=_pos_tensor(Sp, x.device))
     return _logits(params, cfg, x[:, -1:]), state
 
 
@@ -396,8 +527,7 @@ def _prefill_ssm(params, cfg: ModelConfig, x, state: DecodeState):
                                     state={**st, "shift_cm": st0["shift_cm"]})
         x = x + o
         sts.append(st)
-    state = state._replace(pos=torch.tensor(S, dtype=torch.int32,
-                                            device=x.device), ssm=_stack(sts))
+    state = state._replace(pos=_pos_tensor(S, x.device), ssm=_stack(sts))
     return _logits(params, cfg, x[:, -1:]), state
 
 
@@ -426,9 +556,7 @@ def _prefill_hybrid(params, cfg: ModelConfig, x, state: DecodeState):
             state.kv_v[inv, :, :S] = v.to(state.kv_v.dtype)
             x = _dense_block(sp, cfg, x)
             inv += 1
-    state = state._replace(pos=torch.tensor(S, dtype=torch.int32,
-                                            device=x.device),
-                           ssm=_stack(m_states))
+    state = state._replace(pos=_pos_tensor(S, x.device), ssm=_stack(m_states))
     return _logits(params, cfg, x[:, -1:]), state
 
 
@@ -448,25 +576,49 @@ def forward_decode(params: PyTree, cfg: ModelConfig, tokens,
     and SSM states) are written in place, and the returned DecodeState holds
     the same tensors with ``pos + 1`` (the reference's decode step donates
     its state the same way, ``donate_argnums=(2,)``). ``pos`` stays a 0-d
-    tensor on the device: nothing is read back to the host. Runs without
-    autograd."""
-    _ported(cfg)
+    tensor on the device: nothing is read back to the host. Whisper adds
+    ``dec_pos`` at ``pos`` clamped into its table (the reference's
+    ``dynamic_slice_in_dim`` clamps the start) and attends over its cross
+    K/V (``_cross_decode``); an MoE's step dispatches the whole batch as one
+    group of B tokens, as the reference's does. Runs without autograd."""
     x = params["embed"][tokens]
     pos = state.pos
     fam = cfg.family
+    if fam == "audio":
+        table = params["dec_pos"]
+        at = pos.clamp(0, table.shape[0] - 1).reshape(1).long()
+        x = x + table.index_select(0, at)[None]
 
-    def attn_step(p, h, i):
+    def self_attn(p, h, i):
         o, _, _ = L.attention_decode(p["attn"], cfg,
                                      L.rmsnorm(p["norm1"], h, cfg.norm_eps),
                                      state.kv_k[i], state.kv_v[i], pos)
-        h = h + o
+        return h + o
+
+    def attn_step(p, h, i):
+        h = self_attn(p, h, i)
         return h + L.mlp_apply(p["mlp"], cfg,
                                L.rmsnorm(p["norm2"], h, cfg.norm_eps))
 
     layers = _layers(params["layers"], cfg)
-    if fam == "dense":
+    if fam in ("dense", "vlm"):
         for i, p in enumerate(layers):
             x = attn_step(p, x, i)
+    elif fam == "moe":
+        for i, p in enumerate(layers):
+            x = self_attn(p, x, i)
+            # the batch's B tokens are one dispatch group: (B,1,d) -> (1,B,d)
+            hn = L.rmsnorm(p["norm2"], x, cfg.norm_eps).transpose(0, 1)
+            y, _ = L.moe_apply(p["moe"], cfg, hn)
+            x = x + y.transpose(0, 1)
+    elif fam == "audio":
+        for i, p in enumerate(layers):
+            x = self_attn(p, x, i)
+            x = x + _cross_decode(p["xattn"], cfg,
+                                  L.rmsnorm(p["norm2"], x, cfg.norm_eps),
+                                  state.cross_k[i], state.cross_v[i])
+            x = x + L.mlp_apply(p["mlp"], cfg,
+                                L.rmsnorm(p["norm3"], x, cfg.norm_eps))
     elif fam == "ssm":
         for i, p in enumerate(layers):
             st = {k: v[i] for k, v in state.ssm.items()}
@@ -477,7 +629,7 @@ def forward_decode(params: PyTree, cfg: ModelConfig, tokens,
                 p, cfg, L.rmsnorm(p["cm_norm"], x, cfg.norm_eps), state=st2)
             x = x + o
             _write(st, st3)
-    else:  # hybrid
+    elif fam == "hybrid":
         inv = 0
         for i, p in enumerate(layers):
             st = {k: v[i] for k, v in state.ssm.items()}
@@ -489,13 +641,28 @@ def forward_decode(params: PyTree, cfg: ModelConfig, tokens,
             if _shared_after(cfg, i):
                 x = attn_step(params["shared_block"], x, inv)
                 inv += 1
+    else:
+        raise ValueError(fam)
     return _logits(params, cfg, x), state._replace(pos=pos + 1)
+
+
+def _cross_decode(p, cfg: ModelConfig, q_in, xk, xv):
+    """Cross-attention for one decoder position against the cached encoder
+    K/V: plain, non-causal, chunks of 512 frames, as the reference's."""
+    B = q_in.shape[0]
+    hd = cfg.resolved_head_dim
+    q = (q_in @ p["wq"]).reshape(B, 1, cfg.num_heads, hd)
+    o = L.attention_core(q, xk.to(q.dtype), xv.to(q.dtype), causal=False,
+                         chunk=512, impl="chunked")
+    return o.reshape(B, 1, -1) @ p["wo"]
 
 
 def score_last(params: PyTree, cfg: ModelConfig, tokens) -> torch.Tensor:
     """Last-position logits (B, 1, V) of ``forward_prefill`` without its
     decode state: embed, backbone, final norm and head on the last
     position. This is what the reference's jitted serve step keeps of
-    ``forward_prefill`` once XLA drops the unused K/V recompute and cache."""
-    x = _backbone(params, cfg, params["embed"][tokens])
+    ``forward_prefill`` once XLA drops the unused K/V recompute and cache.
+    It takes tokens only, as ``StreamEngine`` serves them (the dense, ssm,
+    hybrid and moe families)."""
+    x, _ = _backbone(params, cfg, _embed(params, cfg, tokens, None))
     return _logits(params, cfg, x[:, -1:])

@@ -1,6 +1,8 @@
 """Decode in ``repro_torch``: ``attention_decode``, ``forward_decode`` for the
 dense, ssm and hybrid families, and the prefill / decode steps, against
-``repro`` on the same weights and inputs.
+``repro`` on the same weights and inputs (the moe, vlm and audio families
+have their own files: tests/test_torch_{moe,vlm,audio}.py), and the
+decode-vs-prefill check over all ten architectures.
 
 The reference's parameter tree (its init, with the zero biases, unit norm
 scales and RWKV-6's degenerate ``w_bias`` / ``u_bonus`` perturbed from a
@@ -191,24 +193,36 @@ PORTED_ARCHS = [a for a in configs.ARCH_IDS
 
 
 def test_six_architectures_are_ported():
-    assert sorted(PORTED_ARCHS) == sorted([
+    """The six families of the reference, and with them all ten
+    architectures."""
+    assert sorted(lm.PORTED) == sorted(["dense", "ssm", "hybrid", "moe",
+                                        "vlm", "audio"])
+    assert sorted(PORTED_ARCHS) == sorted(configs.ARCH_IDS) == sorted([
         "zamba2_2p7b", "qwen2_7b", "deepseek_coder_33b", "stablelm_12b",
-        "smollm_135m", "rwkv6_7b"])
+        "smollm_135m", "rwkv6_7b", "qwen2_moe_a2p7b", "grok1_314b",
+        "internvl2_26b", "whisper_large_v3"])
 
 
 @pytest.mark.parametrize("arch", PORTED_ARCHS)
 def test_decode_matches_prefill(arch):
     """decode(token_S | prefill(0..S-1)) == prefill(0..S) last-position
-    logits, on the port's own init and batch."""
+    logits, on the port's own init and batch (a VLM's patch embeddings and
+    whisper's frames with the tokens; the reduced MoE's capacity factor 8
+    drops nothing on either route)."""
     cfg = configs.get(arch, reduced=True)
     params = lm.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
-    toks = make_batch(cfg, 2, 24, seed=1, device="cpu")["tokens"]
-    _, state = forward_prefill(params, cfg, {"tokens": toks[:, :23]},
-                               max_seq=64)
+    batch = make_batch(cfg, 2, 24, seed=1, device="cpu")
+    extras = {k: v for k, v in batch.items()
+              if k in ("patch_embeds", "frames")}
+    toks = batch["tokens"]
+    _, state = forward_prefill(params, cfg, {**extras, "tokens": toks[:, :23]},
+                               max_seq=64 + cfg.vision_tokens)
     dec, new = forward_decode(params, cfg, toks[:, 23:], state)
-    full, _ = forward_prefill(params, cfg, {"tokens": toks}, max_seq=64)
-    assert int(new.pos) == 24 and torch.isfinite(dec).all()
+    full, _ = forward_prefill(params, cfg, {**extras, "tokens": toks},
+                              max_seq=64 + cfg.vision_tokens)
+    assert int(new.pos) == 24 + cfg.vision_tokens
+    assert torch.isfinite(dec).all()
     _close(dec, full.numpy(), TOL, arch)
 
 
@@ -274,9 +288,6 @@ def test_steps_refuse_meshes_and_name_their_device():
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 make(cfg, shape)
-    vlm = configs.reduce_config(configs.get("internvl2_26b"))
-    with pytest.raises(NotImplementedError, match="item 8.5"):
-        make_prefill_step(vlm, shape, device="cpu")
     params = lm.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
     step = make_decode_step(cfg, shape, device="meta")

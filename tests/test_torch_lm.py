@@ -8,8 +8,9 @@ rtol/atol 1e-4 through the whole reduced model (four layers and the head;
 the two frameworks sum the matmuls and the softmax in other orders, ~1e-6
 relative a layer, and the logits' scale is ~1); 2e-5 for the single layers.
 
-The full-width check builds the port's Qwen2-7B tree on the ``meta`` device
-and compares every leaf's shape with ``jax.eval_shape`` of the reference's.
+The full-width checks build the port's Qwen2-7B tree, and every full
+config's (all ten architectures), on the ``meta`` device and compare every
+leaf's shape and dtype with ``jax.eval_shape`` of the reference's.
 """
 import dataclasses
 
@@ -27,6 +28,7 @@ from repro.models import lm as rlm  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.utils import tree_leaves  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 LAYER_TOL = dict(rtol=2e-5, atol=2e-5)
@@ -177,11 +179,29 @@ def test_vocab_true_masks_padded_logits():
     _close(lt, lj, TOL)
 
 
-def test_unported_families_raise_naming_their_roadmap_item():
-    for name in ("qwen2_moe_a2p7b", "internvl2_26b"):
-        cfg = configs.get(name, reduced=True)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lm.init_params(cfg, None, device="meta")
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_full_config_tree_has_the_reference_shapes(arch):
+    """Every full config builds on the meta device with the reference's
+    leaves (``jax.eval_shape`` of its ``init_params``): the same paths,
+    shapes and dtypes — grok-1's 314 B tree, the MoE routers in f32 in a
+    bf16 model, whisper's encoder stack and position tables included."""
+    cfg_r, cfg_p = ref_configs.get(arch), configs.get(arch)
+    want = jax.eval_shape(lambda: rlm.init_params(cfg_r, jax.random.PRNGKey(0)))
+    got = lm.init_params(cfg_p, None, device="meta")
+    flat_w = jax.tree_util.tree_flatten_with_path(want)[0]
+    flat_g = jax.tree_util.tree_flatten_with_path(got)[0]
+    assert [p for p, _ in flat_w] == [p for p, _ in flat_g]
+    for (path, w), (_, g) in zip(flat_w, flat_g):
+        assert g.device.type == "meta"
+        assert tuple(g.shape) == w.shape, jax.tree_util.keystr(path)
+        assert str(g.dtype).removeprefix("torch.") == str(w.dtype), \
+            jax.tree_util.keystr(path)
+    if cfg_p.family == "moe":
+        assert got["layers"]["moe"]["router"].dtype == torch.float32
+    n = sum(t.numel() for t in tree_leaves(got))
+    assert n == sum(int(np.prod(w.shape)) for _, w in flat_w)
+    if arch == "grok1_314b":
+        assert 314e9 < n < 320e9
 
 
 def test_port_init_draws_per_tensor_in_the_compute_dtype():

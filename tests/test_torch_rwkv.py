@@ -200,18 +200,19 @@ def test_softmax_cross_entropy_matches_reference():
 
 def test_init_decode_state_resolves_its_device():
     """device=None means the card, as at every entry point: without one it
-    raises; device="cpu" allocates there, for both ported families."""
-    for name in ("qwen2_7b", "rwkv6_7b"):
+    raises; device="cpu" allocates there, for every family (whisper's cross
+    K/V too)."""
+    for name in ("qwen2_7b", "rwkv6_7b", "qwen2_moe_a2p7b",
+                 "whisper_large_v3"):
         cfg = configs.get(name, reduced=True)
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="CUDA"):
                 lm.init_decode_state(cfg, 2, 16)
         st = lm.init_decode_state(cfg, 2, 16, device="cpu")
         leaves = [st.pos, *(st.ssm.values() if st.ssm else (st.kv_k,))]
+        if cfg.family == "audio":
+            leaves += [st.cross_k, st.cross_v]
         assert all(t.device.type == "cpu" for t in leaves)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.init_decode_state(configs.get("qwen2_moe_a2p7b", reduced=True), 2, 16,
-                             device="cpu")
 
 
 def test_full_width_rwkv6_tree_has_the_reference_shapes():

@@ -390,7 +390,7 @@ def test_remat_modes_recompute_what_the_reference_policies_drop():
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
         toks = torch.randint(0, cfg_p.vocab_size, (2, 64), dtype=torch.int32,
                              generator=torch.Generator().manual_seed(1))
-        y = lm._backbone(leaves, cfg_p, leaves["embed"][toks]).sum()
+        y = lm._backbone(leaves, cfg_p, leaves["embed"][toks])[0].sum()
         with Count() as c:
             torch.autograd.grad(y, tree_leaves(leaves["layers"]))
         runs[remat] = {k: c.n.get(k, 0) for k in ("mm", "bmm", "exp",
