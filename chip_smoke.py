@@ -187,8 +187,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
             elsewhere. Before qwen2's run, the bf16 flash-attention kernel
             against its plain version at the prefill's shape and strides
             (B=16, Hq=28, Hkv=4, S=512, hd=128, causal) within ATTN_TOL,
-            with its times. Each config also at full width in f32 cut to 4
-            layers (the hybrid: 2 periods), decode after S - 1 tokens
+            with its times and SDPA's on the same views. Each config also
+            at full width in f32 cut to 4 layers (the hybrid: 2 periods),
+            decode after S - 1 tokens
             against prefill's last logits on S within DECODE_F32_TOL of the
             logits' scale; and
             at full depth in bf16 that distance within DECODE_BF16_X times
@@ -224,6 +225,24 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
             MoE's drop fraction at prefill and decode; (d) grok-1-314b at
             full width cut to 2 of its 64 layers: a 2 x 512 prefill and 8
             steps, finite logits, its drop fractions
+
+20. dryrun  the one-device dry-run (launch/dryrun.py) held against the
+            card: (a) smollm-135m x train_4k cut to 8 x 1024 (remat
+            "block"), qwen2-7b x decode_32k cut to batch 16, rwkv6-7b x
+            long_500k whole (batch 1, 524288 positions), each at full
+            width: the dry-run's FLOPs, bytes, roofline times and predicted
+            peak, then the step through make_step_for_cell on the card with
+            random weights: the arguments' bytes equal to the dry-run's and
+            FlopCounterMode's count of one step equal to its FLOPs (both
+            exact), ms a step (median of 5 after 3), the step over its
+            dry-run bound, the predicted over the measured peak, no kernel
+            launch; the decode cell beside phase 18's tree byte bound. (b)
+            FleetEnv.prewarm on twin N=1024 fleets (phase 4's) on
+            window_impl "kernel" and "scan": 8 launches of the window's
+            kernel, the twins' clocks, backlogs, pending buffers and draw
+            streams equal, the next window bitwise equal. (c)
+            SimCluster.backlog_events after a reboot lever, a window, a
+            write, a reset
 
 The tuning loop's episode batches and updates (phases 4, 11-15) run
 as captured CUDA graphs from their second call at a shape
@@ -3376,13 +3395,20 @@ def _decode_attention_case(dev, facts: str, cfg, B: int, P: int) -> dict:
     """The flash-attention kernel against its plain version at the shape and
     strides the bf16 prefill gives it: (B, P, H, hd) tensors in the model's
     layout, passed as the transposed views ``ops.flash_attention`` passes,
-    causal from offset 0. Launched before the launch counts are zeroed."""
+    causal from offset 0, and SDPA's time on the same views (the library
+    yardstick). Launched before the launch counts are zeroed."""
     g = torch.Generator(device=dev).manual_seed(7)
     hd = cfg.resolved_head_dim
     q, k, v = (torch.randn((B, P, h, hd), generator=g, device=dev)
                .to(torch.bfloat16).transpose(1, 2)
                for h in (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads))
     row = _attention_case(f"{cfg.name}-prefill", q, k, v, True, 0, facts)
+    row["library_ms"], host = _sdpa_ms(q, k, v,
+                                       cfg.num_heads // cfg.num_kv_heads)
+    print(f"    scaled_dot_product_attention(is_causal=True, enable_gqa=True) "
+          f"on the same views: device {row['library_ms'] * 1e3:.3f} us (host "
+          f"loop {host * 1e3:.3f} us); the kernel "
+          f"{row['ms'] / row['library_ms']:.2f}x of it [{facts}]")
     del q, k, v
     _free()
     return row
@@ -3949,11 +3975,232 @@ def phase_families(dev, facts: str) -> tuple[dict, dict]:
     return total, attn
 
 
+#: phase 20(a): the dry-run's cells held against the card, each at full
+#: width: (arch, shape, (batch, seq) cut or None). train_4k cut to phase 17's
+#: 8 x 1024, decode_32k to phase 18's batch 16; long_500k whole
+DRYRUN_CELLS = (("smollm_135m", "train_4k", (8, 1024)),
+                ("qwen2_7b", "decode_32k", (16, 32768)),
+                ("rwkv6_7b", "long_500k", None))
+DRYRUN_STEPS, DRYRUN_WARM = 5, 2
+
+
+def _cell_args(cfg, shape, opt, dev) -> tuple:
+    """The step's arguments on the card, drawn from seeds: the parameter
+    tree, then the optimizer state and a make_batch batch (train), or
+    random tokens and a fresh decode state (decode)."""
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models import lm
+
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            shape.seq_len)
+    B = shape.global_batch
+    if shape.kind == "train":
+        return params, opt.init(params), make_batch(cfg, B, shape.seq_len,
+                                                    seed=0, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (B, 1), dtype=torch.int32,
+                         generator=torch.Generator(device=dev).manual_seed(1),
+                         device=dev)
+    return params, toks, lm.init_decode_state(cfg, B, shape.seq_len,
+                                              device=dev)
+
+
+def _dryrun_cell(dev, facts: str, arch: str, shape_name: str, cut) -> dict:
+    """20(a), one cell: the dry-run on the meta device, then the same step
+    on the card with random weights: the arguments' bytes and the FLOP count
+    held exactly to the dry-run's, DRYRUN_STEPS timed steps after
+    DRYRUN_WARM, the peak memory."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import configs
+    from repro_torch.distribution import make_step_for_cell
+    from repro_torch.launch import dryrun
+    from repro_torch.optim import adamw
+
+    cfg = configs.get(arch)
+    shape = configs.SHAPES[shape_name]
+    if cut:
+        shape = dataclasses.replace(shape, global_batch=cut[0],
+                                    seq_len=cut[1])
+    t0 = time.perf_counter()
+    rec = dryrun.cell_costs(cfg, shape)
+    t_dry = time.perf_counter() - t0
+    mem = rec["bytes_per_device"]
+    bound_s = max(rec["t_compute_s"], rec["t_memory_s"])
+    label = f"{arch} x {shape_name} ({shape.global_batch} x {shape.seq_len})"
+    print(f"  {label}: dry-run {t_dry:.1f} s (probes {rec['probe']['L1']} / "
+          f"{rec['probe']['L2']} of {rec['probe']['n_units']} units): flops "
+          f"{rec['flops']:.6e}, hbm_bytes {rec['hbm_bytes']:.6e}, t_compute "
+          f"{rec['t_compute_s'] * 1e3:.3f} ms, t_memory "
+          f"{rec['t_memory_s'] * 1e3:.3f} ms, dominant {rec['dominant']}, "
+          f"useful_ratio {rec['useful_ratio']:.4f}; arguments "
+          f"{mem['argument'] / 2**30:.3f} GiB, predicted peak "
+          f"{mem['peak'] / 2**30:.3f} GiB")
+    _free()
+    opt = adamw(moment_dtype="bfloat16")
+    bundle = make_step_for_cell(cfg, shape, opt, device=dev)
+    args = _cell_args(cfg, shape, opt, dev)
+    specs = [(tuple(t.shape), t.dtype) for t in _leaves(list(bundle.arg_specs))
+             if t is not None]
+    got = [(tuple(t.shape), t.dtype) for t in _leaves(list(args))
+           if t is not None]
+    arg_bytes = _nbytes(list(args))
+    if got != specs or arg_bytes != mem["argument"]:
+        raise AssertionError(f"20(a) {label}: arguments on the card "
+                             f"{arg_bytes} B, dry-run {mem['argument']} B "
+                             f"(leaves equal: {got == specs})")
+    train = shape.kind == "train"
+
+    def step(a):
+        out = bundle.fn(*a)
+        if train:
+            float(out[2]["ce_loss"])
+            return (out[0], out[1], a[2])
+        return (a[0], out[0], out[1])        # the next token, the state
+
+    _zero_counts()
+    with FlopCounterMode(display=False) as fc:
+        args = step(args)
+    torch.cuda.synchronize()
+    card_flops = fc.get_total_flops()
+    for _ in range(DRYRUN_WARM):
+        args = step(args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(DRYRUN_STEPS):
+        t0 = time.perf_counter()
+        args = step(args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    counts = _launches_as(f"20(a) {label}")
+    w = np.array(walls) * 1e3
+    med = float(np.median(w))
+    print(f"  {label} on the card: FlopCounterMode {card_flops} FLOP, the "
+          f"dry-run {int(rec['flops'])} (equal: {card_flops == rec['flops']});"
+          f" arguments {arg_bytes} B = the dry-run's; ms a step median "
+          f"{med:.3f} (min {w.min():.3f}, max {w.max():.3f}, {DRYRUN_STEPS} "
+          f"steps after {DRYRUN_WARM + 1}), {med / 1e3 / bound_s:.3f}x its "
+          f"dry-run bound {bound_s * 1e3:.3f} ms; peak "
+          f"{peak / 2**30:.3f} GiB, predicted / measured "
+          f"{mem['peak'] / peak:.4f} [{facts}]")
+    if card_flops != rec["flops"]:
+        raise AssertionError(f"20(a) {label}: {card_flops} FLOP on the card,"
+                             f" {rec['flops']} on the meta device")
+    row = {"ms": med, "bound_ms": bound_s * 1e3, "peak": peak,
+           "peak_predicted": mem["peak"], "counts": counts}
+    if not train:
+        b = _decode_step_bound(args[0], cfg, args[2], shape.global_batch)
+        print(f"  {label}: phase 18's tree byte bound {b['bytes']:.6e} B "
+              f"({b['ms']:.3f} ms) beside the dry-run's hbm_bytes "
+              f"{rec['hbm_bytes']:.6e} ({rec['hbm_bytes'] / b['bytes']:.3f}x)")
+    del args, bundle
+    _free()
+    return row
+
+
+def _twin_state(env) -> dict:
+    dev = env._dev
+    return {"clock": env.clocks(), "backlog": dev._backlog.clone(),
+            "sfree": dev._sfree_rel.clone(),
+            "pending": np.stack([dev._pending_arrivals, dev._pending_gap]),
+            "draws": dev.draws.gen.get_state()}
+
+
+def _prewarm_twins(dev, facts: str, impl: str, N: int = 1024) -> int:
+    """20(b): two twin N=1024 fleets (phase 4's) after one window; one is
+    prewarmed, then both take the next window. Returns prewarm's
+    launches."""
+    from repro_torch.engine import FleetEnv
+
+    twins = [FleetEnv.heterogeneous(N, seed=0, backend="torch", mix=MIX,
+                                    window_impl=impl, device=dev)
+             for _ in range(2)]
+    for e in twins:
+        e.observe_stats(240.0)
+    torch.cuda.synchronize()
+    a, b = twins
+    _zero_counts()
+    t0 = time.perf_counter()
+    b.prewarm(240.0)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    kernel = "fleet_scan" if impl == "scan" else "fleet_tick"
+    counts = _launches_as(f"20(b) prewarm on {impl}", **{kernel: 8})
+    sa, sb = _twin_state(a), _twin_state(b)
+    same = {k: (np.array_equal(sa[k], sb[k]) if isinstance(sa[k], np.ndarray)
+                else torch.equal(sa[k], sb[k])) for k in sa}
+    walls, stats = [], []
+    for e in (a, b):
+        t0 = time.perf_counter()
+        st = e.observe_stats(240.0)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        stats.append(st)
+    bitwise = {k: torch.equal(stats[0][k], stats[1][k])
+               for k in ("mean_ms", "p99_ms", "processed", "per_node")}
+    print(f"  (b) prewarm on {impl}, N={N}: {t_pre * 1e3:.3f} ms, "
+          f"{counts[kernel]} {kernel} launches; twin state equal {same}; "
+          f"the next window {walls[1] * 1e3:.3f} ms (the twin that did not "
+          f"prewarm {walls[0] * 1e3:.3f} ms), bitwise equal {bitwise} "
+          f"[{facts}]")
+    if not (all(same.values()) and all(bitwise.values())):
+        raise AssertionError(f"20(b) prewarm on {impl} is not transparent")
+    return counts[kernel]
+
+
+def _backlog_events_on_card(dev) -> None:
+    """20(c): SimCluster.backlog_events on the card after a reboot lever,
+    after a window, through its setter, after reset."""
+    from repro_torch.data.workloads import PoissonWorkload
+    from repro_torch.engine import SimCluster
+
+    sim = SimCluster(PoissonWorkload(10_000, 0.5), seed=0, device=dev)
+    assert sim.store is None
+    c = sim.current_config()
+    c["driver_memory_gb"] = 16.0
+    rep = sim.apply_config(c)
+    buffered = sim.backlog_events
+    sim.observe(100.0)
+    after = sim.backlog_events
+    held = float(sim._core._dev._backlog[0])
+    sim.backlog_events = 1234.5
+    back = sim.backlog_events
+    sim.reset()
+    print(f"  (c) SimCluster on the card: load {rep['load_s']:.3f} s, "
+          f"backlog after apply_config {buffered:.3f} events (10000 ev/s x "
+          f"load = {10_000 * rep['load_s']:.3f}), after a 100 s window "
+          f"{after:.3f} (device {held:.3f}), written 1234.5 read {back}, "
+          f"after reset {sim.backlog_events}")
+    if not (rep["rebooted"] and buffered == 10_000 * rep["load_s"]
+            and after == held and back == 1234.5
+            and sim.backlog_events == 0.0):
+        raise AssertionError("20(c) SimCluster.backlog_events")
+
+
+def phase_dryrun(dev, facts: str) -> dict:
+    """Phase 20 (see the module docstring). Returns the prewarm launches by
+    window and the kernel launches of (a)'s three cells."""
+    t_start = time.perf_counter()
+    _free()
+    total = {n: 0 for n in KERNEL_MODULES}
+    for arch, shape_name, cut in DRYRUN_CELLS:
+        r = _dryrun_cell(dev, facts, arch, shape_name, cut)
+        total = {n: total[n] + r["counts"][n] for n in total}
+    prewarm = {impl: _prewarm_twins(dev, facts, impl)
+               for impl in ("kernel", "scan")}
+    _zero_counts()
+    _backlog_events_on_card(dev)
+    _launches_as("20(c)", fleet_tick=1)
+    print(f"  phase 20 took {time.perf_counter() - t_start:.1f} s")
+    return {"prewarm": prewarm, "counts": total}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
-    elif isinstance(tree, list):
+    elif isinstance(tree, (list, tuple)):
         for v in tree:
             yield from _leaves(v)
     else:
@@ -4062,6 +4309,9 @@ def main() -> int:
           "through prefill and decode, qwen2-moe-a2.7b, internvl2-26b, "
           "whisper-large-v3, and grok-1-314b cut to 2 layers")
     family_counts, family_attn = phase_families(dev, facts)
+    print("[20] dryrun: the one-device dry-run held against the card, "
+          "FleetEnv.prewarm, SimCluster.backlog_events")
+    dryrun_row = phase_dryrun(dev, facts)
     kernels = [
         {"name": "fleet_tick_window", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fleet_tick.cu",
@@ -4069,7 +4319,8 @@ def main() -> int:
          "launches": main_row["launches"], **row, "library_ms": None,
          "launches_chaos": chaos_row["launches"],
          "launches_graphs": graphs_row["launches"],
-         "launches_serve": serve_plane_row["launches"]},
+         "launches_serve": serve_plane_row["launches"],
+         "launches_prewarm": dryrun_row["prewarm"]["kernel"]},
         {"name": "flash_attention_bhsd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:88",
@@ -4077,6 +4328,7 @@ def main() -> int:
          "max_abs_err_decode": decode_attn["max_abs_err"],
          "ms_decode": decode_attn["ms"],
          "bound_ms_decode": decode_attn["bound_ms"],
+         "library_ms_decode": decode_attn["library_ms"],
          **{f"{key}_{label.replace('-', '_')}": r[key]
             for label, r in family_attn.items()
             for key in ("max_abs_err", "rel_rms_err", "ms", "bound_ms",
@@ -4094,7 +4346,8 @@ def main() -> int:
         {"name": "fleet_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fleet_scan.cu",
          "replaces": "src/repro/engine/fleet_jax.py:194", **scan_row,
-         "library_ms": None},
+         "library_ms": None,
+         "launches_prewarm": dryrun_row["prewarm"]["scan"]},
     ]
     for row in kernels:
         row["bound_frac"] = row["bound_ms"] / row["ms"]
@@ -4103,6 +4356,7 @@ def main() -> int:
         row["launches_train"] = train_counts[mod]
         row["launches_decode"] = decode_counts[mod]
         row["launches_families"] = family_counts[mod]
+        row["launches_dryrun"] = dryrun_row["counts"][mod]
     print(facts)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,10 @@ dtypes, no data) and ``meta``.
 The reference's bundle also carries the in/out shardings and donated
 arguments that ``jit()`` / ``lower()`` compile for a mesh; one card has no
 mesh and PyTorch compiles nothing, so the port keeps neither and
-``bundle.fn`` is called directly. Meshes and expert parallelism wait for
-the fleet mesh (ROADMAP queue 1, item 7).
+``bundle.fn`` is called directly. A mesh of one device
+(``launch.mesh.make_local_mesh(1, 1)``) is the same as ``mesh=None``;
+larger meshes and expert parallelism wait for the fleet mesh (ROADMAP
+queue 1, item 7).
 
 The step is the reference's: the loss and its gradients
 (``lm.forward_train`` under autograd, each layer under ``cfg.remat``),
@@ -34,6 +36,7 @@ import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.data.synthetic import batch_spec
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import lm
 from repro_torch.optim import Optimizer
 from repro_torch.utils import (resolve_device, tree_leaves, tree_map,
@@ -50,10 +53,14 @@ class StepBundle:
 
 
 def _no_mesh(mesh, ep: bool) -> None:
-    if mesh is not None or ep:
+    """Accept no mesh or a ``launch.mesh.Mesh`` of one device; raise on any
+    other mesh and on expert parallelism."""
+    one = mesh is None or (isinstance(mesh, Mesh) and mesh.device_count == 1)
+    if not one or ep:
         raise NotImplementedError(
-            "meshes and expert parallelism wait for the fleet mesh (ROADMAP "
-            "queue 1, item 7); the port's steps run on one device")
+            "meshes of more than one device and expert parallelism wait for "
+            "the fleet mesh (ROADMAP queue 1, item 7); the port's steps run "
+            "on one device")
 
 
 def _on(device: torch.device, params: PyTree, what: str) -> None:
@@ -182,8 +189,27 @@ def make_decode_step(cfg: ModelConfig, shape: InputShape, *, device=None,
 
 
 def make_step_for_cell(cfg: ModelConfig, shape: InputShape,
-                       opt: Optional[Optimizer] = None, **kw) -> StepBundle:
-    raise NotImplementedError(
-        "make_step_for_cell comes with the dry-run launcher (ROADMAP queue "
-        "1, item 8.6); use make_train_step, make_prefill_step or "
-        "make_decode_step")
+                       opt: Optional[Optimizer] = None, *, mesh=None,
+                       device=None, **kw) -> StepBundle:
+    """Dispatch on the cell kind, as the reference does: train_* to
+    ``make_train_step`` (AdamW with bf16 moments unless ``opt`` is given;
+    ``accum_steps`` passes through), prefill_* to ``make_prefill_step``,
+    decode_* / long_* to ``make_decode_step``.
+
+    The reference first pads the config for its mesh's tensor-parallel
+    size (``pad_config_for_mesh``); at TP 1 that is the identity, so on one
+    device the config goes through unpadded. The padding comes with the
+    fleet mesh (ROADMAP queue 1, item 7), as does the split-K decode: one
+    device never splits the batch, so the decode bundle's ``meta`` says
+    ``split_k=False``."""
+    kw.update(mesh=mesh, device=device)
+    if shape.kind == "train":
+        from repro_torch.optim import adamw
+
+        return make_train_step(cfg, opt or adamw(moment_dtype="bfloat16"),
+                               shape, **kw)
+    if shape.kind == "prefill":
+        return make_prefill_step(cfg, shape, **kw)
+    bundle = make_decode_step(cfg, shape, **kw)
+    bundle.meta["split_k"] = False
+    return bundle

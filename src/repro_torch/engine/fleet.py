@@ -119,6 +119,12 @@ class FleetEnv(FleetCore):
         program (DESIGN.md §9)."""
         return self.observe_fleet_stats(window_s, preroll_s=preroll_s)
 
+    def prewarm(self, window_s: float = 240.0) -> None:
+        """Build the window kernel and run the window-shape ladder up front,
+        so exploration never meets a first-call stall; state- and
+        RNG-transparent (``DeviceFleetEngine.prewarm``)."""
+        self._dev.prewarm(window_s)
+
     def runnable_mask(self, configs: Sequence[dict]) -> np.ndarray:
         """(N,) bool — which candidate configs the paper's allow-list accepts."""
         return self.runnable(configs)

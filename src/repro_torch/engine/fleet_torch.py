@@ -578,6 +578,49 @@ class DeviceFleetEngine:
         self.last_stats = None
         # the draw source keeps running: a reset fleet draws fresh randomness
 
+    def prewarm(self, window_s: float,
+                t_buckets=(24, 32, 48, 64, 96, 128, 192, 256)) -> None:
+        """Build the window kernel of ``window_impl`` and run the
+        reference's shape ladder up front: ascending fused prerolls stretch
+        the tick length while the observation window (and with it the
+        emission-slot count) stays the real one, so every per-shape buffer
+        and library exists before exploration starts. Nothing is captured:
+        the observe path is eager.
+
+        The sim is restored exactly afterwards: the clock, the device
+        backlog and server occupancy, the pending arrivals and gaps, the
+        shape high-water marks, ``last_stats`` and the window counter. The
+        ladder draws from a scratch stream, so the engine's own draw source
+        is never advanced: prewarm is RNG-transparent, safe mid-run."""
+        if self.device.type == "cuda":
+            from repro_torch.kernels import fleet_scan, fleet_tick
+
+            (fleet_scan if self.window_impl == "scan" else fleet_tick
+             )._library()
+        core = self.core
+        clock0 = core.clock.copy()
+        state0 = (self._backlog, self._sfree_rel)
+        pend_a = self._pending_arrivals.copy()
+        pend_g = self._pending_gap.copy()
+        draws0, hw0 = self.draws, dict(self._hw)
+        stats0, windows0 = self.last_stats, self._windows
+        T_b = core.packed()["T_b"]
+        win = np.full(core.n, float(window_s))
+        n_win = np.maximum(1, np.round(win / T_b))
+        self.draws = PhiloxDraws(0, self.device)
+        try:
+            for b in t_buckets:
+                pre = np.maximum(b - n_win, 0.0) * T_b
+                self.observe_fleet(win, preroll_s=pre, build_windows=False)
+        finally:
+            core.clock[:] = clock0
+            # observe replaces the state tensors, never writes them in place
+            self._backlog, self._sfree_rel = state0
+            self._pending_arrivals[:] = pend_a
+            self._pending_gap[:] = pend_g
+            self.draws, self._hw = draws0, hw0
+            self.last_stats, self._windows = stats0, windows0
+
     def invalidate_cc(self) -> None:
         self._cc_dev = None
 

@@ -621,6 +621,36 @@ class SimCluster:
         self._core.clock[0] = v
 
     @property
+    def backlog_events(self) -> float:
+        """The backlog the next window starts from. Once a window has run,
+        the engine's device tensor holds it (``FleetCore.backlog`` is then
+        stale), and a reconfiguration's buffered arrivals wait on the host
+        until that window: the two summed, as the reference's numpy
+        ``SimCluster`` reports right after ``apply_config``."""
+        dev = self._core._dev
+        held = (float(self._core.backlog[0]) if dev._backlog is None
+                else float(dev._backlog[0]))
+        return held + float(dev._pending_arrivals[0])
+
+    @backlog_events.setter
+    def backlog_events(self, v: float) -> None:
+        """Write the backlog the engine holds (the device tensor once a
+        window has run); pending arrivals are left as they are."""
+        dev = self._core._dev
+        if dev._backlog is None:
+            self._core.backlog[0] = v
+        else:
+            dev._backlog = dev._backlog.new_full(dev._backlog.shape,
+                                                 float(v))
+
+    @property
+    def store(self) -> None:
+        """``None``: a device engine summarises its windows on the device
+        and keeps no ring buffer of metric series, as the reference's
+        device backends keep none."""
+        return None
+
+    @property
     def config(self) -> dict:
         # the live dict; a caller may mutate it in place, which the setter
         # would never see, so drop the packed-lever cache

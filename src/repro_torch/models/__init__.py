@@ -2,6 +2,7 @@
 audio), mirroring ``repro.models``."""
 from repro_torch.models.lm import (
     DecodeState,
+    build_model,
     forward_decode,
     forward_prefill,
     forward_train,
@@ -14,6 +15,7 @@ from repro_torch.models.lm import (
 
 __all__ = [
     "DecodeState",
+    "build_model",
     "forward_decode",
     "forward_prefill",
     "forward_train",

@@ -666,3 +666,15 @@ def score_last(params: PyTree, cfg: ModelConfig, tokens) -> torch.Tensor:
     hybrid and moe families)."""
     x, _ = _backbone(params, cfg, _embed(params, cfg, tokens, None))
     return _logits(params, cfg, x[:, -1:])
+
+
+def build_model(cfg: ModelConfig) -> dict:
+    """The reference's convenience bundle: ``init``, ``train``,
+    ``prefill``, ``decode`` and ``init_state`` with ``cfg`` bound."""
+    return {
+        "init": functools.partial(init_params, cfg),
+        "train": functools.partial(forward_train, cfg=cfg),
+        "prefill": functools.partial(forward_prefill, cfg=cfg),
+        "decode": functools.partial(forward_decode, cfg=cfg),
+        "init_state": functools.partial(init_decode_state, cfg),
+    }

@@ -234,3 +234,31 @@ def test_full_width_qwen2_tree_has_the_reference_shapes():
         assert str(g.dtype).removeprefix("torch.") == str(w.dtype)
     n = sum(int(np.prod(w.shape)) for _, w in flat_w)
     assert n == cfg_p.param_count() == 7_615_616_512
+
+
+def test_build_model_binds_the_config():
+    """``build_model``'s five entries are the direct calls with ``cfg``
+    bound, as the reference's bundle."""
+    cfg = configs.get("qwen2_7b", reduced=True)
+    m = lm.build_model(cfg)
+    assert set(m) == set(rlm.build_model(ref_configs.get("qwen2_7b",
+                                                          reduced=True)))
+    gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    params = m["init"](gen(), 64, device="cpu")
+    for a, b in zip(tree_leaves(params), tree_leaves(
+            lm.init_params(cfg, gen(), 64, device="cpu"))):
+        assert torch.equal(a, b)
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 512, (2, 16)).astype(np.int32))
+    batch = {"tokens": tokens, "labels": tokens}
+    assert torch.equal(m["train"](params, batch=batch)[0],
+                       lm.forward_train(params, cfg, batch)[0])
+    logits, state = m["prefill"](params, batch=batch, max_seq=64)
+    want, want_state = lm.forward_prefill(params, cfg, batch, max_seq=64)
+    assert torch.equal(logits, want)
+    step = m["decode"](params, tokens=tokens[:, :1], state=state)
+    ref_step = lm.forward_decode(params, cfg, tokens[:, :1], want_state)
+    assert torch.equal(step[0], ref_step[0])
+    fresh = m["init_state"](2, 64, device="cpu")
+    assert fresh.kv_k.shape == lm.init_decode_state(
+        cfg, 2, 64, device="cpu").kv_k.shape

@@ -287,3 +287,50 @@ def test_rng_helpers_match_reference():
         assert fj.lane_budget(T) == ref_fj.lane_budget(T)
     assert [fj._bucket(n) for n in (1, 43, 300, 5000)] == \
         [ref_fj._bucket(n) for n in (1, 43, 300, 5000)]
+
+
+def _engine_state(env) -> dict:
+    dev = env._dev
+    backlog, sfree = (dev._backlog, dev._sfree_rel)
+    return {"clock": env.clocks(),
+            "backlog": None if backlog is None else backlog.clone(),
+            "sfree": None if sfree is None else sfree.clone(),
+            "pending": (dev._pending_arrivals.copy(),
+                        dev._pending_gap.copy()),
+            "draws": dev.draws.gen.get_state(), "hw": dict(dev._hw),
+            "windows": dev._windows, "stats": dev.last_stats}
+
+
+@pytest.mark.parametrize("window_impl", ["kernel", "scan"])
+def test_prewarm_is_state_and_rng_transparent(window_impl):
+    """tests/test_fleet_jax.py's prewarm pin, made bitwise: after a window
+    and a reconfiguration whose arrivals still wait on the host, prewarm
+    runs its ladder and leaves clock, device state, pending buffers, the
+    draw stream, the shape marks and the last stats exactly as they were,
+    so the next windows equal those of a twin that never prewarmed, to the
+    bit."""
+    env_a, env_b = (FleetEnv.homogeneous(3, seed=0, device="cpu",
+                                         window_impl=window_impl)
+                    for _ in range(2))
+    for e in (env_a, env_b):
+        e.observe(120.0)
+        cfgs = e.current_configs()
+        cfgs[1]["driver_memory_gb"] = 16.0      # reboot: pending arrivals
+        e.apply_configs(cfgs)
+    before = _engine_state(env_b)
+    assert before["pending"][0][1] > 0
+    env_b.prewarm(240.0)
+    after = _engine_state(env_b)
+    for k in ("clock", "pending"):
+        np.testing.assert_array_equal(np.asarray(after[k]),
+                                      np.asarray(before[k]), err_msg=k)
+    for k in ("backlog", "sfree", "draws"):
+        assert torch.equal(after[k], before[k]), k
+    assert (after["hw"], after["windows"]) == (before["hw"],
+                                               before["windows"])
+    assert after["stats"] is before["stats"]
+    for _ in range(2):
+        sa, sb = env_a.observe_stats(240.0), env_b.observe_stats(240.0)
+        for k in ("mean_ms", "p99_ms", "processed", "per_node"):
+            assert torch.equal(sa[k], sb[k]), k
+    np.testing.assert_array_equal(env_a.clocks(), env_b.clocks())
