@@ -467,11 +467,13 @@ def phase_kernels(dev, facts: str) -> dict:
     # (N, T, S, p99_k): the fused step's window, the observe window, a
     # ragged long window, a K > S head, a window of 768 ticks (16 merge
     # values a lane), one of 3328 ticks (its head merged by rank in shared
-    # memory), and a head too long for shared memory (in global memory);
-    # None takes the port's own depth
+    # memory), a head too long for shared memory (in global memory), and
+    # the step's window on one rank of phase 21's 2-rank mesh; None takes
+    # the port's own depth
     shapes = [(1024, 48, 32, None), (1024, 24, 64, None),
               (1000, 192, 8, None), (777, 32, 16, 40), (1024, 768, 8, None),
-              (1024, 3328, 8, None), (1000, 16, 8, 8000)]
+              (1024, 3328, 8, None), (1000, 16, 8, 8000),
+              (MESH_N // 2, 48, 32, None)]
     main = None
     for N, T, S, p99_k in shapes:
         p99_k = p99_depth(T, S) if p99_k is None else p99_k
@@ -1756,18 +1758,20 @@ CHAOS_SLO_MS, SHIELD_SLO_MS = 2_000.0, 12_000.0
 
 
 def _chaos_cfgr(N: int, faults, *, steps: int = 6, slo_ms=CHAOS_SLO_MS,
-                seed: int = 0, safe: bool = False, shield_kw=None):
+                seed: int = 0, safe: bool = False, shield_kw=None,
+                mesh="auto", device=None):
     from repro_torch.core import Configurator
     from repro_torch.data.workloads import PoissonWorkload
     from repro_torch.engine import FleetEnv
 
     env = FleetEnv([PoissonWorkload(10_000, 0.5) for _ in range(N)],
                    seeds=[seed + i for i in range(N)], backend="torch",
-                   faults=faults)
+                   faults=faults, device=device)
     return Configurator(env, TRAIN_METRICS, TRAIN_LEVERS, seed=seed,
                         steps_per_episode=steps, window_s=240.0,
                         device_loop="on", bin_kw=FROZEN, reward_mode="slo",
-                        slo_ms=slo_ms, safe=safe, shield_kw=shield_kw)
+                        slo_ms=slo_ms, safe=safe, shield_kw=shield_kw,
+                        mesh=mesh)
 
 
 def _timed_updates(cfgr, n: int) -> list:
@@ -4196,6 +4200,324 @@ def phase_dryrun(dev, facts: str) -> dict:
     return {"prewarm": prewarm, "counts": total}
 
 
+#: phase 21: phase 4's configuration on the fleet mesh (N clusters, S
+#: steps, the checked updates, the timed steady updates, the epoch's K)
+MESH_N, MESH_S, MESH_UPDATES, MESH_STEADY, MESH_EPOCH = 1024, 5, 3, 5, 8
+#: the 2-rank run's reward median against the unsharded run's: the
+#: reference's distributional pin for its sharded run
+#: (tests/test_device_loop.py:291), per-shard streams differ by design
+MESH_MEDIAN_REL = 0.15
+#: seconds a spawned process group may take
+MESH_JOIN_S = 300
+
+
+def _mesh_rank(fn, rank: int, world: int, backend: str, store: str,
+               args: tuple, q) -> None:
+    """One spawned rank: join the group (NCCL with card ``rank``, or
+    gloo), run ``fn(rank, world, *args)``, put its result (or the
+    traceback) on ``q``."""
+    import traceback
+
+    import torch.distributed as dist
+
+    kw = {}
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
+        kw["device_id"] = torch.device("cuda", rank)
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world, **kw)
+    try:
+        q.put((rank, fn(rank, world, *args)))
+    except BaseException:
+        q.put((rank, {"error": traceback.format_exc()}))
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_group(fn, world: int, backend: str, tmp: Path, *args) -> list:
+    """``fn(rank, world, *args)`` on ``world`` spawned ranks of one process
+    group (a file store under ``tmp``), so this process keeps no group.
+    Returns the ranks' results in rank order; every process is stopped."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    store = tmp / f"store-{fn.__name__}-{backend}-{world}"
+    procs = [ctx.Process(target=_mesh_rank, args=(fn, r, world, backend,
+                                                  str(store), args, q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    out: dict = {}
+    deadline = time.monotonic() + MESH_JOIN_S
+    try:
+        while len(out) < world and time.monotonic() < deadline:
+            try:
+                rank, res = q.get(timeout=1.0)
+                out[rank] = res
+            except queue.Empty:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    break
+    finally:
+        for p in procs:
+            p.join(30 if len(out) == world else 0)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    for r in range(world):
+        if r not in out or "error" in out[r]:
+            raise AssertionError(f"{fn.__name__} rank {r} of {world} "
+                                 f"({backend}) failed:\n"
+                                 f"{out.get(r, {}).get('error', 'no result')}")
+    return [out[r] for r in range(world)]
+
+
+def _mesh_cfgr(N: int, mesh, window_impl: str = "kernel", device=None):
+    """Phase 4's configuration: N heterogeneous clusters (10 nodes, 109
+    levers), the --quick preset, MESH_S steps of 240 s windows, bins
+    frozen, on ``mesh``."""
+    from repro_torch.core import Configurator
+    from repro_torch.engine import FleetEnv
+
+    env = FleetEnv.heterogeneous(N, seed=0, backend="torch", mix=MIX,
+                                 window_impl=window_impl, device=device)
+    return Configurator(env, QUICK_METRICS, QUICK_LEVERS, device_loop="on",
+                        window_s=240.0, steps_per_episode=MESH_S,
+                        bin_kw=FROZEN, mesh=mesh)
+
+
+def _mesh_run(cfgr, updates: int, *, epoch: bool = False) -> dict:
+    """``updates`` outer iterations (sequential, or one ``run_epoch``) with
+    the kernel and collective counts read around exactly them, then the
+    run's state."""
+    from repro_torch.distribution import sharding as shd
+
+    _zero_counts()
+    c0 = shd.COLLECTIVES
+    if epoch:
+        cfgr.run_epoch(updates)
+        torch.cuda.synchronize()
+    else:
+        _timed_updates(cfgr, updates)
+    counts, coll = _counts(), shd.COLLECTIVES - c0
+    runner = cfgr._runner
+    progs = list(runner._programs.values())
+    return {"state": _run_state(cfgr), "counts": counts, "collectives": coll,
+            "captured": sum(p.graph is not None for p in progs),
+            "programs": len(progs),
+            "graph_collectives": sum(p.collectives for p in progs),
+            "reason": runner.graph_reason,
+            "reconfigs": cfgr.env.reconfigs.tolist()}
+
+
+def _mesh_steady(cfgrs: dict, epoch_k: int = 0) -> dict:
+    """Windows/s of each configurator over MESH_STEADY rounds, one update
+    each a round (or one ``run_epoch(epoch_k)``), the order alternating
+    round by round so that a drift of the card or the host falls on all
+    alike. Returns tag -> (windows/s, median seconds an update)."""
+    times = {tag: [] for tag in cfgrs}
+    tags = list(cfgrs)
+    for i in range(MESH_STEADY):
+        for tag in (tags if i % 2 == 0 else tags[::-1]):
+            cfgr = cfgrs[tag]
+            t0 = time.perf_counter()
+            if epoch_k:
+                cfgr.run_epoch(epoch_k)
+            else:
+                cfgr.run_update()
+            torch.cuda.synchronize()
+            times[tag].append(time.perf_counter() - t0)
+    out = {}
+    for tag, ts in times.items():
+        env, per = cfgrs[tag].env, max(epoch_k, 1)
+        n = env.n_clusters * cfgrs[tag].steps_per_episode * per
+        out[tag] = (n * len(ts) / sum(ts), float(np.median(ts)) / per)
+    return out
+
+
+def _mesh_one_rank(rank: int, world: int, N: int, dev, facts: str) -> dict:
+    """Phase 21(a), on a 1-rank NCCL mesh: each run twice, unsharded and on
+    the mesh, on captured graphs; returns each arm's counts and rates."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core.faults import chaos_scenario
+
+    mesh1 = init_device_mesh(dev.type, (1,), mesh_dim_names=("fleet",))
+    arms = [(f"window {impl}",
+             lambda m, impl=impl: _mesh_cfgr(N, m, impl, device=dev),
+             MESH_UPDATES, False) for impl in ("kernel", "scan")]
+    # phase 12's shielded chaos fleet, with a deploy delay so that the
+    # config-history ring is sharded too
+    arms.append(("shielded chaos", lambda m: _chaos_cfgr(
+        N, chaos_scenario(N, seed=0, deploy_delay=1), steps=MESH_S,
+        slo_ms=SHIELD_SLO_MS, safe=True, mesh=m, device=dev), 2, False))
+    arms.append((f"run_epoch({MESH_EPOCH})",
+                 lambda m: _mesh_cfgr(N, m, device=dev), MESH_EPOCH, True))
+    out = {}
+    for label, make, updates, epoch in arms:
+        cfgrs = {tag: make(mesh) for tag, mesh in (("unsharded", "off"),
+                                                   ("mesh", mesh1))}
+        runs = {tag: _mesh_run(c, updates, epoch=epoch)
+                for tag, c in cfgrs.items()}
+        rates = _mesh_steady(cfgrs, updates if epoch else 0)
+        for tag, (rate, med) in rates.items():
+            runs[tag].update(rate=rate, median_update_s=med)
+        a, b = runs["unsharded"], runs["mesh"]
+        _same_state(f"1-rank NCCL mesh vs unsharded, {label}",
+                    a["state"], b["state"])
+        kernel = "fleet_scan" if label == "window scan" else "fleet_tick"
+        want_l = 1 + updates * MESH_S
+        if a["counts"] != b["counts"] or (dev.type == "cuda" and b["counts"][
+                kernel] != want_l):
+            raise AssertionError(f"{label}: launches {a['counts']} vs "
+                                 f"{b['counts']}, {kernel} expected "
+                                 f"{want_l}")
+        # a range reduce a step and one gather a batch, in the graphs,
+        # and the engine stream's broadcast after each epoch
+        want = (updates * (MESH_S + 1) + (1 if epoch else updates))
+        if b["collectives"] != want or a["collectives"] != 0:
+            raise AssertionError(f"{label}: {b['collectives']} collectives, "
+                                 f"expected {want}")
+        if dev.type == "cuda" and not (b["captured"] and b["graph_collectives"]
+                                       and b["reason"] is None):
+            raise AssertionError(f"{label}: mesh programs not captured: "
+                                 f"{b['captured']} of {b['programs']}, "
+                                 f"{b['graph_collectives']} collectives in "
+                                 f"graphs, reason {b['reason']}")
+        print(f"  (a) {label}: {b['captured']} of {b['programs']} mesh "
+              f"programs captured, {b['graph_collectives']} NCCL "
+              f"collectives inside their graphs; launches {b['counts']}; "
+              f"{b['collectives'] / updates:.3f} collectives an update; "
+              f"{MESH_STEADY} alternated rounds: windows/s unsharded "
+              f"{a['rate']:.1f} vs 1-rank mesh "
+              f"{b['rate']:.1f} ({b['rate'] / a['rate']:.4f}); "
+              f"median update {a['median_update_s']:.6f} vs "
+              f"{b['median_update_s']:.6f} s [{facts}]", flush=True)
+        out[label] = {k: {kk: v[kk] for kk in ("counts", "collectives",
+                                               "rate", "median_update_s")}
+                      for k, v in runs.items()}
+        if label == "window kernel":
+            out["unsharded_rewards"] = np.array(a["state"]["rewards"])
+    return out
+
+
+def _mesh_gloo(rank: int, world: int, N: int, dev, tmp: str,
+               facts: str) -> dict:
+    """Phase 21(b) and (c) on one rank of a gloo group sharing the card:
+    the sharded tuning run (eager), then a serve cycle writing under
+    ``tmp``."""
+    cfgr = _mesh_cfgr(N, "auto", device=dev)
+    run = _mesh_run(cfgr, MESH_UPDATES)
+    run["rate"], run["median_update_s"] = _mesh_steady({"mesh": cfgr})["mesh"]
+    runner = cfgr._runner
+    if rank == 0:
+        print(f"  (b) rank 0: {runner.mesh.size()}-rank gloo mesh, block "
+              f"[{runner._block.lo}, {runner._block.lo + runner._block.n}) "
+              f"of {N}; programs: {run['reason']}", flush=True)
+    res = {"params": {k: v.numpy() for k, v in run["state"]["params"].items()},
+           "rewards": np.array(run["state"]["rewards"]),
+           "configs": run["state"]["configs"],
+           "reconfigs": run["reconfigs"], "counts": run["counts"],
+           "collectives": run["collectives"], "rate": run["rate"],
+           "median_update_s": run["median_update_s"],
+           "reason": run["reason"], "captured": run["captured"]}
+    # (c) the serve plane, its shadow fleet on the mesh: every rank runs the
+    # same controller, rank 0 writes
+    ctl = _serve_ctl(SERVE_N if N == MESH_N else N,
+                     SERVE_PAIRS if N == MESH_N else 2,
+                     SERVE_LIVE if N == MESH_N else 2, mesh="auto",
+                     device=dev, ckdir=Path(tmp) / "ck",
+                     history_path=Path(tmp) / "history.jsonl")
+    t0 = time.perf_counter()
+    summaries = ctl.run(2)
+    torch.cuda.synchronize()
+    ctl.checkpoint()
+    res["serve"] = {"decisions": [x["decision"] for x in summaries],
+                    "rewards": [x["live_reward"] for x in summaries],
+                    "rows": len(ctl.history), "cycles": ctl.counters.cycles,
+                    "sharded": ctl.cfgr._runner.mesh is not None,
+                    "wall": time.perf_counter() - t0}
+    return res
+
+
+def phase_mesh(dev, facts: str, N: int = MESH_N,
+               backend: str = "nccl") -> dict:
+    """The tuner's fleet axis sharded over ranks (DESIGN.md §11): (a) a
+    1-rank NCCL mesh on captured graphs against the unsharded run; (b) 2
+    gloo ranks sharing the card; (c) a serve cycle on those 2 ranks.
+    ``N`` and ``backend`` shrink it for a rehearsal on the host."""
+    import tempfile
+
+    t_start = time.perf_counter()
+    if dev.type == "cuda":   # built here once, loaded by every rank
+        mods = _kernel_mods()
+        mods["fleet_tick"]._library()
+        mods["fleet_scan"]._library()
+    if backend == "nccl":
+        print(f"  torch {torch.__version__}, NCCL "
+              f"{'.'.join(map(str, torch.cuda.nccl.version()))}")
+    with tempfile.TemporaryDirectory() as tmp:
+        (a,) = _mesh_group(_mesh_one_rank, 1, backend, Path(tmp), N, dev,
+                           facts)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ranks = _mesh_group(_mesh_gloo, 2, "gloo", tmp, N, dev, str(tmp),
+                            facts)
+        r0, r1 = ranks
+        for k in r0["params"]:
+            if not np.array_equal(r0["params"][k], r1["params"][k]):
+                raise AssertionError(f"(b) parameter {k} differs across "
+                                     "ranks")
+        if not (np.array_equal(r0["rewards"], r1["rewards"])
+                and r0["configs"] == r1["configs"]):
+            raise AssertionError("(b) records or configs differ across ranks")
+        want = [MESH_UPDATES * MESH_S] * N
+        if r0["reconfigs"] != want or r1["reconfigs"] != want:
+            raise AssertionError("(b) reconfigs are not updates·steps each")
+        expected = 1 + MESH_UPDATES * MESH_S
+        for r, res in enumerate(ranks):
+            if dev.type == "cuda" and res["counts"]["fleet_tick"] != expected:
+                raise AssertionError(f"(b) rank {r}: fleet_tick launches "
+                                     f"{res['counts']} != {expected}")
+            if res["captured"] or "gloo" not in res["reason"]:
+                raise AssertionError(f"(b) rank {r}: programs captured on a "
+                                     "gloo mesh")
+        m_sh = float(np.median(r0["rewards"]))
+        m_un = float(np.median(a["unsharded_rewards"]))
+        dev_rel = abs(m_sh - m_un) / max(abs(m_un), 1e-12)
+        print(f"  (b) 2 gloo ranks on one card, {N // 2} clusters each: "
+              f"parameters, records and configs equal on both ranks; "
+              f"reconfigs {MESH_UPDATES}·{MESH_S} each; fleet_tick launches "
+              f"per rank {r0['counts']['fleet_tick']}, "
+              f"{r1['counts']['fleet_tick']} (expected {expected}); "
+              f"{r0['collectives'] / MESH_UPDATES:.1f} collectives an update "
+              f"a rank; reward median {m_sh:.4f} vs unsharded {m_un:.4f} "
+              f"(rel {dev_rel:.4f}, limit {MESH_MEDIAN_REL}); windows/s "
+              f"{r0['rate']:.1f} (median update {r0['median_update_s']:.6f} "
+              f"s) against the unsharded {a['window kernel']['unsharded']['rate']:.1f} "
+              f"[{facts}]")
+        if dev_rel >= MESH_MEDIAN_REL:
+            raise AssertionError(f"(b) reward median {m_sh} vs {m_un}")
+        s0, s1 = r0["serve"], r1["serve"]
+        lines = (tmp / "history.jsonl").read_text().splitlines()
+        steps = sorted(p.name for p in (tmp / "ck").iterdir())
+        if not (s0["sharded"] and s0["decisions"] == s1["decisions"]
+                and s0["rewards"] == s1["rewards"]):
+            raise AssertionError(f"(c) ranks disagree: {s0} vs {s1}")
+        if len(lines) != s0["rows"] or steps != ["step_00000002"]:
+            raise AssertionError(f"(c) {len(lines)} history rows on disk for "
+                                 f"{s0['rows']} a rank, checkpoints {steps}")
+        print(f"  (c) serve on 2 gloo ranks, shadow on the mesh: decisions "
+              f"{s0['decisions']} on both ranks, {len(lines)} history rows "
+              f"and checkpoints {steps} written once (rank 0), "
+              f"{s0['wall']:.3f} s for 2 cycles [{facts}]")
+    print(f"  phase 21 took {time.perf_counter() - t_start:.1f} s")
+    return {"nccl": a, "gloo": [{k: r[k] for k in ("counts", "rate")}
+                                for r in ranks]}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4312,6 +4634,10 @@ def main() -> int:
     print("[20] dryrun: the one-device dry-run held against the card, "
           "FleetEnv.prewarm, SimCluster.backlog_events")
     dryrun_row = phase_dryrun(dev, facts)
+    print("[21] mesh: the tuner's fleet axis sharded across ranks, a 1-rank "
+          "NCCL mesh on captured graphs and 2 gloo ranks on one card")
+    _free()
+    mesh_row = phase_mesh(dev, facts)
     kernels = [
         {"name": "fleet_tick_window", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fleet_tick.cu",
@@ -4320,7 +4646,13 @@ def main() -> int:
          "launches_chaos": chaos_row["launches"],
          "launches_graphs": graphs_row["launches"],
          "launches_serve": serve_plane_row["launches"],
-         "launches_prewarm": dryrun_row["prewarm"]["kernel"]},
+         "launches_prewarm": dryrun_row["prewarm"]["kernel"],
+         "launches_mesh": mesh_row["nccl"]["window kernel"]["mesh"][
+             "counts"]["fleet_tick"],
+         "launches_mesh_gloo_rank0": mesh_row["gloo"][0]["counts"][
+             "fleet_tick"],
+         "launches_mesh_gloo_rank1": mesh_row["gloo"][1]["counts"][
+             "fleet_tick"]},
         {"name": "flash_attention_bhsd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:88",
@@ -4347,7 +4679,9 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/fleet_scan.cu",
          "replaces": "src/repro/engine/fleet_jax.py:194", **scan_row,
          "library_ms": None,
-         "launches_prewarm": dryrun_row["prewarm"]["scan"]},
+         "launches_prewarm": dryrun_row["prewarm"]["scan"],
+         "launches_mesh": mesh_row["nccl"]["window scan"]["mesh"][
+             "counts"]["fleet_scan"]},
     ]
     for row in kernels:
         row["bound_frac"] = row["bound_ms"] / row["ms"]

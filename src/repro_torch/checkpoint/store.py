@@ -1,5 +1,5 @@
 """Atomic, async checkpointing of trees of tensors (DESIGN.md §4 fault
-tolerance) — the port of ``repro.checkpoint.store``, on one device.
+tolerance) — the port of ``repro.checkpoint.store``.
 
 * **Layout** (the reference's, byte for byte): one ``.npy`` per tree leaf
   and a JSON manifest (step, extra, and each leaf's file, shape and
@@ -20,8 +20,12 @@ tolerance) — the port of ``repro.checkpoint.store``, on one device.
   ``"bfloat16"`` in the manifest; it restores as a bf16 tensor.
 * **Restore** returns numpy leaves exactly as saved with ``host=True``;
   by default each leaf is a tensor on the store's ``device``. The
-  reference's ``shardings=`` (reshard onto a mesh) waits for the fleet
-  mesh (ROADMAP queue 1, item 7): one card has no mesh.
+  reference's ``shardings=`` (reshard onto an LM mesh) waits for ROADMAP
+  queue 1, item 7.2.
+* **Process groups** (a fleet mesh, DESIGN.md §11): every rank holds the
+  whole state, so only rank 0 writes, every rank restores, and a barrier
+  separates the two (after a synchronous save; at ``wait()`` after an
+  async one). A checkpoint restores onto any world size.
 """
 from __future__ import annotations
 
@@ -34,6 +38,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.distribution.sharding import barrier, is_writer
 
 PyTree = Any
 _SEP = "/"
@@ -80,15 +86,23 @@ class CheckpointStore:
         self.keep = keep
         self.device = torch.device(device if device is not None else "cpu")
         self._thread: Optional[threading.Thread] = None
+        self._pending = False      # an async save not yet waited for
         self.last_write_s = 0.0
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree: PyTree, *, extra: Optional[dict] = None) -> Path:
         self.wait()
-        return self._write(step, _to_host(_flatten(tree)), extra or {})
+        final = self.dir / f"step_{step:08d}"
+        if is_writer():
+            final = self._write(step, _to_host(_flatten(tree)), extra or {})
+        barrier()
+        return final
 
     def save_async(self, step: int, tree: PyTree, *, extra: Optional[dict] = None) -> None:
         self.wait()
+        self._pending = True
+        if not is_writer():
+            return
         host_flat = _to_host(_flatten(tree))  # snapshot before returning
 
         def run():
@@ -101,6 +115,9 @@ class CheckpointStore:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._pending:
+            self._pending = False
+            barrier()
 
     def _write(self, step: int, host_flat: dict[str, np.ndarray], extra: dict) -> Path:
         t0 = time.perf_counter()
@@ -157,8 +174,9 @@ class CheckpointStore:
         a tensor on the store's device, of the saved dtype."""
         if shardings is not None:
             raise NotImplementedError(
-                "restore(shardings=...): resharding onto a fleet mesh is not "
-                "ported yet (ROADMAP queue 1, item 7)")
+                "restore(shardings=...): resharding onto an LM mesh is not "
+                "ported yet (ROADMAP queue 1, item 7.2)")
+        self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")

@@ -150,6 +150,13 @@ class Configurator:
     host loop. ``device`` is where the policy lives; it defaults to the
     env's device.
 
+    ``mesh`` shards the fused loop's cluster axis across the ranks of a
+    ``torch.distributed`` process group (DESIGN.md §11): ``"auto"``
+    (default) uses ``repro_torch.distribution.sharding.fleet_mesh()``
+    whenever the fleet size divides the world size, ``"off"``/None pins one
+    device, or pass an explicit 1-D ``DeviceMesh``. Every rank builds the
+    same configurator over the same whole fleet.
+
     ``reward_mode="slo"`` (DESIGN.md §12) shapes the reward against a
     latency SLO: ``slo_ms`` is the p99 target, ``slo_hinge_w`` weights the
     hinge penalty on a window-p99 breach and ``slo_breach_w`` the
@@ -179,16 +186,24 @@ class Configurator:
         seed: int = 0,
         bin_kw: Optional[dict] = None,
         device_loop: str = "auto",
+        mesh="auto",
         safe: bool = False,
         shield_kw: Optional[dict] = None,
         device=None,
     ):
         assert device_loop in ("auto", "on", "off"), device_loop
+        from torch.distributed.device_mesh import DeviceMesh
+
         from repro_torch.utils import resolve_device
 
+        if mesh not in ("auto", "off", None) and not isinstance(mesh,
+                                                                DeviceMesh):
+            raise TypeError(f"mesh={mesh!r}: 'auto', 'off', None or a 1-D "
+                            "torch.distributed DeviceMesh")
         self.env = env
         self.fleet = is_fleet_env(env)
         self.device_loop = device_loop
+        self.mesh_opt = mesh
         self.device = resolve_device(
             device if device is not None else getattr(env, "device", None),
             "Configurator")

@@ -66,8 +66,26 @@ per-episode budget is dropped after the episode). The integer leaves are
 int64, the dtype of the config-index carry (the reference's are int32:
 the values are the same).
 
-Ported branches: one device (no fleet mesh; the mesh wrap waits for
-ROADMAP queue 1, item 7).
+**Fleet mesh (§11).** With a 1-D ``DeviceMesh`` over a
+``torch.distributed`` process group (``Configurator(mesh=...)``, or
+``"auto"``: ``fleet_mesh()`` whenever the world size divides N) every rank
+holds the whole fleet and runs the episode SPMD on its contiguous block of
+clusters ``[r·N/R, (r+1)·N/R)``: the carry buffers, the workload, model,
+emission and fault tables and the deploy lags are sliced by the one table
+of ``repro_torch.distribution.sharding.fleet_episode_specs``; the draws
+come from ``draws.for_shard(r)`` (shard 0 is the unsharded stream, so a
+1-rank mesh replays the unsharded run bit for bit); each step all-reduces
+the running range (MIN/MAX, the reference's ``pmin``/``pmax``); the
+episode ends with one all-gather of the per-cluster carry and outputs, so
+every rank holds the whole fleet again and the update runs replicated on
+the whole batch (its baseline and advantage normalisation are means over
+all N episodes), leaving the parameters equal on every rank. After each
+epoch the engine's own draw stream is copied from rank 0, so the fleet's
+state, stream included, is the same everywhere. Every rank issues the same
+collectives in the same order: the episode's, once per batch, whatever
+the schedule (sequential, pipelined, epoch). On an NCCL mesh the programs
+capture their collectives into the CUDA graphs; on a gloo mesh they run
+eagerly (``graph_reason`` says which).
 """
 from __future__ import annotations
 
@@ -85,6 +103,7 @@ from repro_torch.core.heatmap import node_grid_shape
 from repro_torch.core.policy import _sample_actions
 from repro_torch.data.workloads import (device_workload_reason,
                                         pack_device_workloads)
+from repro_torch.distribution import sharding as shd
 from repro_torch.engine.fleet_torch import (_bucket, build_step_window,
                                             workload_rate_grid)
 from repro_torch.engine.simcluster import (_LEVER_TO_PACKED, _PACKERS,
@@ -149,6 +168,30 @@ def _np(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+def _take(x, name: str, lo: int, n: int):
+    """This block's clusters ``[lo, lo+n)`` of the episode leaf ``name``
+    (a tensor, a dict of tensors or None), by its cluster dimension in
+    ``fleet_episode_specs``' table: views, so fixed addresses stay fixed."""
+    d = shd.cluster_dim(name)
+    if x is None or d is None:
+        return x
+    if isinstance(x, dict):
+        return {k: v.narrow(d, lo, n) for k, v in x.items()}
+    return x.narrow(d, lo, n)
+
+
+class _Block:
+    """The clusters this rank's episodes run on: ``[lo, lo+n)`` of the
+    fleet, on the mesh's ``group`` as shard ``rank``."""
+
+    def __init__(self, mesh, n_clusters: int):
+        self.group = mesh.get_group(0)
+        self.rank = mesh.get_local_rank(0)
+        self.n = n_clusters // mesh.size()
+        self.lo = self.rank * self.n
+        self.backend = torch.distributed.get_backend(self.group)
+
+
 def _into(old: Optional[torch.Tensor], new: torch.Tensor) -> torch.Tensor:
     """``new`` written into ``old`` when their shapes and dtypes match (a
     captured program reads ``old`` at its address), else ``new``."""
@@ -208,6 +251,35 @@ class DeviceEpisodeRunner:
         #: one counter object per configurator: the host-loop twin feeds the
         #: same instance
         self.shield = getattr(cfgr, "shield_counters", None) or ShieldCounters()
+        #: the fleet mesh (None: one device) and this rank's block on it
+        self.mesh = self._resolve_mesh()
+        self._block = (None if self.mesh is None
+                       else _Block(self.mesh, self.env.n_clusters))
+        #: per-cluster episode inputs of this rank's block (views of the
+        #: whole fleet's; the whole tensors without a mesh)
+        self._inputs: dict = {}
+        #: why the programs run eagerly on the card, or None (captured)
+        self.graph_reason = None
+        if self._block is not None and self._block.backend == "gloo":
+            self.graph_reason = (
+                "eager: gloo collectives run on the host and cannot be "
+                "captured into a CUDA graph")
+
+    def _resolve_mesh(self):
+        """The cluster-sharding mesh (DESIGN.md §11): an explicit 1-D
+        ``DeviceMesh`` from the configurator, or (``"auto"``) ``fleet_mesh()``
+        whenever the fleet size divides the world size."""
+        opt = getattr(self.cfgr, "mesh_opt", "auto")
+        if opt in (None, "off"):
+            return None
+        mesh = shd.fleet_mesh() if opt == "auto" else opt
+        if mesh is not None and self.env.n_clusters % mesh.size() != 0:
+            if opt != "auto":
+                raise ValueError(
+                    f"fleet N={self.env.n_clusters} does not divide the "
+                    f"{mesh.size()}-device mesh")
+            mesh = None
+        return mesh
 
     # ------------------------------------------------------------------ gates
     def supported(self) -> Optional[str]:
@@ -236,11 +308,13 @@ class DeviceEpisodeRunner:
         return T, E
 
     def _step_window(self, T: int, E: int, slo_ms: float, impl: str):
-        key = (T, E, self._sel_cols, slo_ms, impl)
+        blk = self._block
+        clusters = None if blk is None else (blk.lo, blk.n)
+        key = (T, E, self._sel_cols, slo_ms, clusters, impl)
         if key not in self._step_windows:
             self._step_windows[key] = build_step_window(
                 self.env, self._sel_cols, T, E, slo_ms=slo_ms,
-                window_impl=impl)
+                window_impl=impl, clusters=clusters)
         return self._step_windows[key]
 
     def _skey(self, exploit: bool, greedy: bool) -> tuple:
@@ -280,6 +354,7 @@ class DeviceEpisodeRunner:
         n_valid, kind_code = self._n_valid, self._kind_code
         ranked = self._ranked
         policy, f = cfgr.agent.policy, skey[14]
+        inp, blk = self._inputs, self._block
 
         (config_idx, backlog, sfree, clock, last_service, reconfigs, lo, hi,
          per_node) = carry[:9]
@@ -306,6 +381,8 @@ class DeviceEpisodeRunner:
             raw = per_node.permute(0, 2, 1)               # (N, M_sel, nodes)
             lo = torch.minimum(lo, raw.amin(dim=(0, 2)))
             hi = torch.maximum(hi, raw.amax(dim=(0, 2)))
+            if blk is not None:   # the fleet-global range across the shards
+                lo, hi = shd.range_reduce(lo, hi, blk.group)
             span = torch.where(hi > lo, hi - lo, 1.0)
             lo_eff = torch.where(torch.isfinite(lo), lo, 0.0)
             normed = torch.clamp(torch.nan_to_num(
@@ -358,11 +435,11 @@ class DeviceEpisodeRunner:
                 # requested delays[i] steps ago; the encoder above still
                 # shows the requested knobs
                 hist = torch.cat([config_idx[None], hist[:-1]], dim=0)
-                eff_idx = hist[self._delays, rows]
+                eff_idx = hist[inp["delays"], rows]
             cc = {kk: tabs[kk][eff_idx[:, li]] for kk, li in self._cc_pairs}
 
             # ---- loading (Kafka buffers arrivals, paper §4.2) ----
-            rate_now, _ = workload_rate_grid(self._wl_dev, clock)
+            rate_now, _ = workload_rate_grid(inp["wl"], clock)
             z = sd.load(N)
             load_s = (10.0 + 60.0 * self._reboot_f[l_idx]
                       + 8.0 * self._rejit_f[l_idx]) \
@@ -374,8 +451,8 @@ class DeviceEpisodeRunner:
 
             # ---- stabilisation wait from the service-term delta (rates at
             # the post-load clock) ----
-            rate_st, size_st = workload_rate_grid(self._wl_dev, clock)
-            s_new = service_terms_arrays(cc, self._mc, spec, env.chips,
+            rate_st, size_st = workload_rate_grid(inp["wl"], clock)
+            s_new = service_terms_arrays(cc, inp["mc"], spec, env.chips,
                                          rate_st, size_st, xp=txp)["service"]
             prev = torch.where(last_service < 0.0, s_new, last_service)
             rel = torch.abs(s_new - prev) / torch.clamp(prev, min=1e-6)
@@ -384,8 +461,8 @@ class DeviceEpisodeRunner:
 
             # ---- fused preroll + observation window + reward ----
             (backlog, sfree, clock), stats = step_window(
-                sd.window(), backlog, sfree, clock, cc, self._wl_dev, stab,
-                reconfigs, float(cfgr.window_s), ft=self._ft_dev)
+                sd.window(), backlog, sfree, clock, cc, inp["wl"], stab,
+                reconfigs, float(cfgr.window_s), ft=inp["ft"])
             per_node = stats["per_node"]
             if cfgr.reward_mode == "neg_p99":
                 reward = -stats["p99_ms"] / 1000.0
@@ -425,21 +502,45 @@ class DeviceEpisodeRunner:
     def _chained_episode(self, draws, skey: tuple) -> dict:
         """One episode batch from the carry buffers, its final state
         written back into them (so chained batches need no copies).
-        Returns the per-step outputs."""
-        carry, outs = self._episode(draws.episode(), self._bufs, skey)
-        for buf, x in zip(self._bufs, carry):
-            buf.copy_(x)
-        return outs
+        Returns the per-step outputs. On a fleet mesh the episode runs on
+        this rank's block of the buffers (views, by the table of
+        ``fleet_episode_specs``) and ends with one all-gather of the
+        per-cluster carry and outputs: the buffers and the outputs hold
+        the whole fleet on every rank."""
+        blk = self._block
+        if blk is None:
+            carry, outs = self._episode(draws.episode(), self._bufs, skey)
+            for buf, x in zip(self._bufs, carry):
+                buf.copy_(x)
+            return outs
+        names = shd.episode_carry_leaves(self._R_max,
+                                         self.cfgr.shield is not None)
+        local = tuple(_take(b, name, blk.lo, blk.n)
+                      for b, name in zip(self._bufs, names))
+        carry, outs = self._episode(draws.episode(), local, skey)
+        dims = [shd.cluster_dim(name) for name in names]
+        parts = [(x, d) for x, d in zip(carry, dims) if d is not None]
+        whole = iter(shd.cluster_gather(
+            parts + [(v, 0) for v in outs.values()], blk.n, blk.group))
+        for buf, x, d in zip(self._bufs, carry, dims):
+            # the replicated leaves (the running range) are global already
+            buf.copy_(x if d is None else next(whole))
+        return {k: next(whole) for k in outs}
 
     def _program(self, key: tuple, body) -> Program:
         """The captured program ``key`` (built on first use): ``body(draws)``
-        over the env's current draw source, which the key names — a new
-        source is a new program."""
+        over the env's current draw source (on a fleet mesh, this rank's
+        shard of it), which the key names — a new source is a new
+        program."""
         draws = self.env._dev.draws
+        if self._block is not None:
+            draws = draws.for_shard(self._block.rank)
         pkey = key + (id(draws),)
         prog = self._programs.get(pkey)
         if prog is None:
-            prog = Program(key, lambda: body(draws), self.device, (draws,))
+            prog = Program(key, lambda: body(draws), self.device, (draws,),
+                           eager=self.graph_reason,
+                           collectives=self._block is not None)
             self._programs[pkey] = prog
         return prog
 
@@ -900,7 +1001,12 @@ class DeviceEpisodeRunner:
 
         self._sel_cols = tuple(env.metric_names.index(m)
                                for m in cfgr.hspec.metric_names)
-        self._mc = dev._mc_dev
+        blk = self._block
+        lo, n = (0, env.n_clusters) if blk is None else (blk.lo, blk.n)
+        self._inputs = {"wl": _take(self._wl_dev, "wl", lo, n),
+                        "mc": _take(dev._mc_dev, "mc", lo, n),
+                        "ft": _take(self._ft_dev, "ft", lo, n),
+                        "delays": _take(self._delays, "delays", lo, n)}
         # carried per-node metrics: reuse the previous batch's final window
         # unless someone stepped the env in between (clock moved)
         if (self._per_node is None or self._clock_mark is None
@@ -973,6 +1079,7 @@ class DeviceEpisodeRunner:
                 self._shield[1].cpu().numpy().mean())
         env._dev.adopt_loop_state(backlog_f.clone(), sfree_f.clone(),
                                   clock_f)
+        self._sync_stream()
         env.reconfigs[:] = reconfigs_f.cpu().numpy().astype(np.int64)
         env.last_service[:] = last_service_f.cpu().numpy().astype(np.float64)
         rng_range = cfgr.encoder._range
@@ -982,6 +1089,20 @@ class DeviceEpisodeRunner:
         self._config_idx = config_idx_f
         self._clock_mark = env.clock.copy()
         return config_idx_f
+
+    def _sync_stream(self) -> None:
+        """On a fleet mesh: copy rank 0's engine draw stream to every rank.
+        Only shard 0 drew from it in the episodes (the other ranks drew
+        from their shards' streams), and the engine's later windows must
+        draw the same numbers on every rank. A source without a generator
+        state (a test's replay of the reference's key stream) advances
+        the same on every rank already."""
+        draws = self.env._dev.draws
+        if self._block is None or not hasattr(draws, "get_state"):
+            return
+        dev = self.device if self._block.backend == "nccl" else "cpu"
+        draws.set_state(shd.broadcast_state(draws.get_state(),
+                                            self._block.group, dev))
 
     def _sync_configs(self, idx0: np.ndarray, idx_f: np.ndarray,
                       touched: np.ndarray) -> None:

@@ -1,5 +1,6 @@
-"""The port's train, prefill and decode steps (one device; meshes wait for
-ROADMAP queue 1, item 7)."""
+"""The port's train, prefill and decode steps (one device; LM meshes wait
+for ROADMAP queue 1, item 7.2) and the sharding rules with the fleet mesh
+(``distribution.sharding``)."""
 from repro_torch.distribution.steps import (
     StepBundle,
     make_decode_step,

@@ -10,8 +10,9 @@ arguments that ``jit()`` / ``lower()`` compile for a mesh; one card has no
 mesh and PyTorch compiles nothing, so the port keeps neither and
 ``bundle.fn`` is called directly. A mesh of one device
 (``launch.mesh.make_local_mesh(1, 1)``) is the same as ``mesh=None``;
-larger meshes and expert parallelism wait for the fleet mesh (ROADMAP
-queue 1, item 7).
+larger meshes and expert parallelism wait for the LM mesh (ROADMAP
+queue 1, item 7.2: DTensor placements from ``distribution.sharding``'s
+rules).
 
 The step is the reference's: the loss and its gradients
 (``lm.forward_train`` under autograd, each layer under ``cfg.remat``),
@@ -59,7 +60,7 @@ def _no_mesh(mesh, ep: bool) -> None:
     if not one or ep:
         raise NotImplementedError(
             "meshes of more than one device and expert parallelism wait for "
-            "the fleet mesh (ROADMAP queue 1, item 7); the port's steps run "
+            "the LM mesh (ROADMAP queue 1, item 7.2); the port's steps run "
             "on one device")
 
 
@@ -199,7 +200,7 @@ def make_step_for_cell(cfg: ModelConfig, shape: InputShape,
     The reference first pads the config for its mesh's tensor-parallel
     size (``pad_config_for_mesh``); at TP 1 that is the identity, so on one
     device the config goes through unpadded. The padding comes with the
-    fleet mesh (ROADMAP queue 1, item 7), as does the split-K decode: one
+    LM mesh (ROADMAP queue 1, item 7.2), as does the split-K decode: one
     device never splits the batch, so the decode bundle's ``meta`` says
     ``split_k=False``."""
     kw.update(mesh=mesh, device=device)

@@ -25,6 +25,17 @@ CUDA) whose address tree collapses to a single stream. A test can pass any
 object with these methods — e.g. one that replays the reference's threefry
 draws — and nothing on the main path needs to know.
 
+**Shards (DESIGN.md §11).** On a fleet mesh each rank runs the episode on
+its block of clusters and draws from ``src.for_shard(r)``, as the
+reference folds the shard's ``axis_index`` into the episode key (and the
+unsharded program folds 0). Shard 0 is the source itself, so a mesh of one
+rank draws today's stream bit for bit; every other ordinal gets a stream
+of its own (``PhiloxDraws(seed, device, shard=r)``, seeded from
+``(seed, r)``). The engine's own stream (its observe windows) advances on
+shard 0 only; the runner copies rank 0's stream to every rank after each
+epoch (``get_state`` / ``set_state``), so the whole fleet, its stream
+included, stays the same on every rank.
+
 A CUDA graph draws from a generator other than the default one only when
 the generator is registered with it (``PhiloxDraws.register``); each replay
 then takes the Philox offsets the eager calls would have taken, in the same
@@ -34,6 +45,7 @@ threefry replay) runs eagerly, on the CPU.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 #: smallest positive normal f32: keeps U(0,1) away from 0 under the Gumbel
@@ -44,12 +56,36 @@ _TINY = float(torch.finfo(torch.float32).tiny)
 class PhiloxDraws:
     """Draw source backed by one seeded ``torch.Generator`` on ``device``.
     Every address of the draw tree returns the source itself, so all draws
-    come off the one stream in call order."""
+    come off the one stream in call order. ``shard`` > 0 seeds the stream
+    from ``(seed, shard)`` instead (a fleet mesh's other ranks)."""
 
-    def __init__(self, seed: int, device):
+    def __init__(self, seed: int, device, shard: int = 0):
         self.device = torch.device(device)
+        self.seed, self.shard = int(seed), int(shard)
         self.gen = torch.Generator(device=self.device)
-        self.gen.manual_seed(int(seed))
+        self.gen.manual_seed(self.seed if not self.shard else int(
+            np.random.SeedSequence([self.seed, self.shard]).generate_state(
+                1, np.uint64)[0] >> np.uint64(1)))
+        self._shards: dict = {}
+
+    def for_shard(self, shard: int) -> "PhiloxDraws":
+        """The draw source of fleet-mesh shard ``shard``: this source for
+        shard 0, else a stream of its own, made once."""
+        if shard == self.shard:
+            return self
+        if shard not in self._shards:
+            self._shards[shard] = PhiloxDraws(self.seed, self.device, shard)
+        return self._shards[shard]
+
+    def get_state(self) -> torch.Tensor:
+        """The generator's state, a uint8 CPU tensor (seed and offset on
+        CUDA, the Mersenne state on the CPU)."""
+        return self.gen.get_state()
+
+    def set_state(self, state: torch.Tensor) -> None:
+        """Restore in place: a CUDA graph that registered this generator
+        keeps drawing from it."""
+        self.gen.set_state(state)
 
     def register(self, graph) -> None:
         """Let ``graph`` (a ``torch.cuda.CUDAGraph`` before its capture)

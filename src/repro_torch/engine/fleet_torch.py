@@ -800,7 +800,8 @@ class DeviceFleetEngine:
 # --------------------------------------------------------------------------
 
 def build_step_window(core, sel_cols: tuple, T: int, E: int,
-                      *, slo_ms: float = 0.0, window_impl: str = None):
+                      *, slo_ms: float = 0.0, window_impl: str = None,
+                      clusters: Optional[tuple] = None):
     """Build the window step of the fused training loop: one observation
     window (stabilisation preroll + window + selected metric emission)
     that carries the queueing state, derives its tick geometry from the
@@ -826,7 +827,12 @@ def build_step_window(core, sel_cols: tuple, T: int, E: int,
     service faults ride the kernel's ``fmult`` operand. The window itself
     is one kernel launch: ``fleet_tick`` under ``window_impl="kernel"``,
     ``fleet_scan`` (analytic mean, sampled p99, analytic emitted latency
-    columns) under ``"scan"``; None takes the engine's resolved impl."""
+    columns) under ``"scan"``; None takes the engine's resolved impl.
+
+    ``clusters = (lo, n)`` builds the step for the block of clusters
+    ``[lo, lo+n)`` (a fleet-mesh shard, DESIGN.md §11): the per-cluster
+    emission factors and model constants it closes over are that block's,
+    and every tensor it is called with holds n clusters."""
     from repro_torch.kernels.fleet_tick import pack_tick_consts
 
     dev = core._dev
@@ -841,6 +847,10 @@ def build_step_window(core, sel_cols: tuple, T: int, E: int,
     F_sel = torch.as_tensor(core._emit_factor[:, :, np.asarray(sel_cols)],
                             dtype=torch.float32, device=device)
     mc_dev = dev._mc_dev
+    if clusters is not None:
+        lo, n = clusters
+        F_sel = F_sel[lo:lo + n]
+        mc_dev = {k: v[lo:lo + n] for k, v in mc_dev.items()}
     node_noise = dev.node_noise
     S = window_lanes(T, device)
     t_ax = torch.arange(T, device=device)[:, None]

@@ -27,8 +27,8 @@ What a cell counts (``_cost_triple``), in one pass of the step under a
 * memory: the live storage bytes, each storage counted once however many
   views it has and freed when its last reference dies (so the tensors that
   autograd saves stay counted through the backward), and their peak.
-* collectives: none, with zero counts, until the fleet mesh (ROADMAP
-  queue 1, item 7).
+* collectives: none, with zero counts, until the LM mesh (ROADMAP
+  queue 1, item 7.2).
 
 As in the reference, the terms come from depth probes
 (``layer_delta_costs``): the step at 1 and 2 units of depth
@@ -92,7 +92,7 @@ def _shape_bytes(shape_str: str) -> int:
 def collective_bytes_from_hlo(hlo: str) -> dict:
     """Sum result bytes of every collective op in optimised HLO, by kind
     (the reference's parser; the port has no HLO of its own until the
-    fleet mesh, and keeps the parser for the records it reads).
+    LM mesh, and keeps the parser for the records it reads).
 
     Matches lines like:
       %ag = bf16[2,512]{1,0} all-gather(%x), replica_groups=...
@@ -418,14 +418,14 @@ def main(argv=None):
     ap.add_argument("--mesh", default="local",
                     choices=["local", "single", "multi", "both"],
                     help="local: one device (make_local_mesh(1, 1)); the "
-                         "production meshes wait for ROADMAP queue 1, item 7")
+                         "production meshes wait for ROADMAP queue 1, item 7.2")
     ap.add_argument("--ep", action="store_true", help="expert-parallel MoE layout")
     ap.add_argument("--accum", type=int, default=1, help="grad-accum microbatches")
     ap.add_argument("--out", default="experiments/dryrun_torch")
     args = ap.parse_args(argv)
     if args.mesh != "local" or args.ep:
         print(f"dry-run: --mesh {args.mesh}{' --ep' if args.ep else ''} "
-              "waits for the fleet mesh (ROADMAP queue 1, item 7); the "
+              "waits for the LM mesh (ROADMAP queue 1, item 7.2); the "
               "port runs --mesh local", file=sys.stderr, flush=True)
         return 2
 

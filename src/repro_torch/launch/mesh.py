@@ -1,10 +1,11 @@
 """Production and local mesh descriptions: the port of ``repro.launch.mesh``.
 
 Functions, not module-level constants, as in the reference: importing this
-module touches no device state. Until the fleet mesh is ported (ROADMAP
-queue 1, item 7) there is no process group and no ``DeviceMesh``: each
-function returns a frozen ``Mesh`` that names the axes and their sizes, with
-the ``.shape`` mapping of ``jax.sharding.Mesh``. The port's steps accept a
+module touches no device state. Until the LM mesh is ported (ROADMAP
+queue 1, item 7.2) these are no ``DeviceMesh``es: each function returns a
+frozen ``Mesh`` that names the axes and their sizes, with the ``.shape``
+mapping of ``jax.sharding.Mesh`` (which ``distribution.sharding``'s rules
+read). The port's steps accept a
 mesh of one device as the same thing as ``mesh=None``; any larger mesh
 raises.
 """

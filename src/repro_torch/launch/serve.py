@@ -21,13 +21,20 @@ can be killed at any point and resumed with ``--resume`` bit-for-bit.
     PYTHONPATH=src python -m repro_torch.launch.serve --cycles 2 --quick \\
         --fleet 3 --device cpu --out /tmp/serve
 
+    # the shadow fleet's cluster axis sharded over 2 ranks (DESIGN.md §11)
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --cycles 2 --quick --fleet 4 --device cpu --out /tmp/serve2
+
 Writes ``metrics.prom`` (Prometheus text exposition), ``history.jsonl``
 (the episode store) and ``ck/step_*`` checkpoints under ``--out``; the
 metrics dump is flushed through ``flush_guard`` even on Ctrl-C/SIGTERM.
+Under ``torchrun`` (``WORLD_SIZE`` > 1) every rank runs the controller,
+the shadow fleet's episodes sharded over the ranks, and only rank 0 writes.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 from pathlib import Path
 
@@ -110,11 +117,15 @@ def main(argv=None):
                          "continue mid-tuning")
     args = ap.parse_args(argv)
 
+    from repro_torch.distribution.sharding import init_from_env, is_writer
     from repro_torch.monitoring import flush_guard
     from repro_torch.serve import ServeController
 
+    args.device = init_from_env(args.device)
+    writer = is_writer()
     out = Path(args.out)
-    out.mkdir(parents=True, exist_ok=True)
+    if writer:
+        out.mkdir(parents=True, exist_ok=True)
     workloads = switching_fleet(args.fleet)
 
     kw = dict(backend=args.backend, window_impl=args.window_impl,
@@ -149,9 +160,12 @@ def main(argv=None):
               f"(cycle {ctl.cycle}, incumbent {ctl.incumbent})")
 
     reason = ctl.cfgr.device_loop_reason()
+    mesh = ctl.cfgr._device_runner().mesh if reason is None else None
     print(f"[serve] fleets on {ctl.device}, window "
           f"{ctl.shadow_env.window_impl}; fused device loop (§10): "
-          + ("ACTIVE" if reason is None else f"off — {reason}"))
+          + ("ACTIVE" if reason is None else f"off — {reason}")
+          + (f", cluster axis sharded over {mesh.size()} devices (§11)"
+             if mesh is not None else ""))
     if args.safe:
         print(f"[serve] safe exploration (§16): shield ACTIVE — trust "
               f"radius ±{args.trust_radius} bins, breach budget "
@@ -172,8 +186,10 @@ def main(argv=None):
 
     # SIGTERM/Ctrl-C unwind through the guard: the final metrics dump is
     # always written (the same guard launch/tune.py uses)
+    guard = (flush_guard(out / "metrics.prom", metrics_text) if writer
+             else contextlib.nullcontext())
     try:
-        with flush_guard(out / "metrics.prom", metrics_text):
+        with guard:
             ctl.run(args.cycles, callback=cb)
     except KeyboardInterrupt:
         print(f"[interrupted] final metrics dump at {out}/metrics.prom")
@@ -184,7 +200,9 @@ def main(argv=None):
     print(f"[done] cycles {c.cycles}  promotions {c.promotions}  "
           f"rollbacks {c.rollbacks}  breach_rate {c.breach_rate:.2%}  "
           f"incumbent {json.dumps(ctl.incumbent)}")
-    print(f"[done] wrote {out}/metrics.prom, {out}/history.jsonl, {out}/ck/")
+    if writer:
+        print(f"[done] wrote {out}/metrics.prom, {out}/history.jsonl, "
+              f"{out}/ck/")
 
 
 if __name__ == "__main__":

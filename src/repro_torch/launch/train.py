@@ -25,7 +25,7 @@ Features exercised end to end (DESIGN.md §4), as in the reference's
 
 Parameters are drawn from ``torch.Generator(device).manual_seed(0)``. A
 step's time ends at a device sync (reading its loss). ``--data`` /
-``--model-axis`` above 1 wait for the fleet mesh (ROADMAP queue 1, item 7).
+``--model-axis`` above 1 wait for the LM mesh (ROADMAP queue 1, item 7.2).
 ``main`` returns the run's summary: steps, the step it started from, the
 steps the drill resumed at, each step's loss and time, stragglers.
 """
@@ -67,8 +67,8 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.data != 1 or args.model_axis != 1:
         raise NotImplementedError(
-            "--data / --model-axis above 1: the fleet mesh is not ported yet "
-            "(ROADMAP queue 1, item 7)")
+            "--data / --model-axis above 1: the LM mesh is not ported yet "
+            "(ROADMAP queue 1, item 7.2)")
 
     from repro_torch import configs
     from repro_torch.checkpoint import CheckpointStore

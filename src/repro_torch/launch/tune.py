@@ -21,14 +21,24 @@ otherwise.
     PYTHONPATH=src python -m repro_torch.launch.tune --env local \
         --collect 24 --updates 2 --window 2 --out experiments/tune_local
 
+    # the cluster axis sharded over 2 ranks (DESIGN.md §11): gloo on the
+    # CPU, or NCCL with a card a rank (drop --device cpu)
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.tune \
+        --device cpu --fleet 4 --collect 80 --updates 1 \
+        --steps-per-episode 2 --out /tmp/t2
+
 ``--fleet 1`` (or less) runs the serial ``SimCluster``. Prints the
 Fig-5-style latency trajectory and writes ``analysis.json``,
 ``history.json`` and ``metrics.prom`` (the fused loop's ``ChaosCounters``,
-plus the ``ShieldCounters`` under ``--safe``).
+plus the ``ShieldCounters`` under ``--safe``). Under ``torchrun``
+(``WORLD_SIZE`` > 1) every rank runs the whole pipeline on the whole
+fleet, the fused loop's episodes sharded over the ranks, and only rank 0
+writes the files.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 from pathlib import Path
 
@@ -110,7 +120,11 @@ def main(argv=None):
 
     from repro_torch.core import AutoTuner
     from repro_torch.data.workloads import fleet_workloads, get_workload
+    from repro_torch.distribution.sharding import init_from_env, is_writer
     from repro_torch.engine import FleetEnv, LocalEngine, SimCluster
+
+    args.device = init_from_env(args.device)
+    writer = is_writer()
 
     fleet = args.env == "sim" and args.fleet > 1
     window = args.window
@@ -182,8 +196,11 @@ def main(argv=None):
         print(f"[tune] fused device loop (§10): off — {reason} "
               "(per-step host loop)")
     if fleet and reason is None:
+        mesh = cfgr._device_runner().mesh
         print("[tune] fused device loop (§10): ACTIVE — one fused episode "
-              "batch + one update per outer iteration")
+              "batch + one update per outer iteration"
+              + (f", cluster axis sharded over {mesh.size()} devices (§11)"
+                 if mesh is not None else ""))
 
     def cb(i, stats, history):
         last = history[-steps_per_update:]
@@ -194,7 +211,8 @@ def main(argv=None):
     from repro_torch.monitoring import ChaosCounters, flush_guard
 
     out = Path(args.out)
-    out.mkdir(parents=True, exist_ok=True)
+    if writer:
+        out.mkdir(parents=True, exist_ok=True)
 
     def metrics_text():
         runner = cfgr._runner
@@ -207,8 +225,10 @@ def main(argv=None):
     # the guard remaps SIGTERM to KeyboardInterrupt and writes the dump in
     # its finally: a Ctrl-C'd or killed tune run leaves a metrics.prom
     interrupted = False
+    guard = (flush_guard(out / "metrics.prom", metrics_text) if writer
+             else contextlib.nullcontext())
     try:
-        with flush_guard(out / "metrics.prom", metrics_text):
+        with guard:
             cfgr.tune(args.updates, callback=cb)
     except KeyboardInterrupt:
         interrupted = True
@@ -218,6 +238,8 @@ def main(argv=None):
     best = min(cfgr.history, key=lambda r: r.p99_ms)
     print(f"[done] best p99 {best.p99_ms:.0f} ms "
           f"({100 * (1 - best.p99_ms / base_p99):.0f}% below default)")
+    if not writer:
+        return
 
     tuner.save_analysis(out / "analysis.json")
     hist = [

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.configurator import Configurator
+from repro_torch.distribution import sharding as shd
 from repro_torch.engine import FleetEnv
 from repro_torch.monitoring.metrics import ServeCounters, retrace_counts
 from repro_torch.serve.canary import CanaryGate
@@ -91,8 +92,10 @@ class ServeController:
     ``FleetEnv``), ``window_impl`` for the three fleets' windows (default
     ``"scan"``, the lean ``fleet_scan`` kernel, as the reference defaults
     to ``backend="jax"``; ``"kernel"`` is its ``"pallas"``) and ``device``
-    for the three fleets and the policy; ``mesh`` is kept for the
-    signature: ``"auto"``, ``"off"`` and None run on the one device."""
+    for the three fleets and the policy; ``mesh`` shards the shadow
+    fleet's cluster axis (``Configurator(mesh=...)``, DESIGN.md §11).
+    Under a process group every rank runs the same controller; only rank
+    0 writes ``history_path`` and the checkpoints."""
 
     def __init__(
         self,
@@ -132,11 +135,6 @@ class ServeController:
         history_path=None,
         device=None,
     ):
-        if mesh not in ("auto", "off", None):
-            raise NotImplementedError(
-                f"mesh={mesh!r}: fleet-axis sharding is not ported yet "
-                "(ROADMAP queue 1, item 7); the port runs every fleet on "
-                "one device")
         workloads = list(workloads)
         n = len(workloads)
         self.seed = int(seed)
@@ -191,7 +189,7 @@ class ServeController:
                                  if episodes_per_update is not None else n),
             window_s=self.window_s, reward_mode=reward_mode, slo_ms=slo_ms,
             slo_hinge_w=slo_hinge_w, slo_breach_w=slo_breach_w, seed=seed,
-            bin_kw=bin_kw, device_loop=device_loop, safe=safe,
+            bin_kw=bin_kw, device_loop=device_loop, mesh=mesh, safe=safe,
             shield_kw=skw if safe else None, device=self.device)
 
         base = self.live_env.current_configs()[0]
@@ -209,7 +207,9 @@ class ServeController:
 
         self.gate = CanaryGate(k=k_promote, margin=margin)
         self.counters = ServeCounters()
-        self.history = EpisodeStore(history_path)
+        # every rank reads the rows a resumed run left; rank 0 writes them
+        self.history = EpisodeStore(history_path, write=shd.is_writer())
+        shd.barrier()   # no rank reads a row another rank already wrote
         self.store = None
         if checkpoint_dir is not None:
             from repro_torch.checkpoint import CheckpointStore

@@ -50,15 +50,19 @@ def workload_features(workload, t: float = 0.0) -> dict:
 
 class EpisodeStore:
     """Append-only episode history, JSONL on disk (or in-memory when
-    ``path`` is None — tests and throwaway runs)."""
+    ``path`` is None — tests and throwaway runs). ``write=False`` reads the
+    rows on disk and keeps every later one in memory only (the ranks of a
+    process group other than the one that writes)."""
 
-    def __init__(self, path: Optional[str | Path] = None):
+    def __init__(self, path: Optional[str | Path] = None, *,
+                 write: bool = True):
         self.path = Path(path) if path is not None else None
+        self.write = write
         self._rows: list[dict] = []
         if self.path is not None and self.path.exists():
             self._rows = [json.loads(line) for line in
                           self.path.read_text().splitlines() if line.strip()]
-        elif self.path is not None:
+        elif self.path is not None and write:
             self.path.parent.mkdir(parents=True, exist_ok=True)
 
     def __len__(self) -> int:
@@ -72,7 +76,7 @@ class EpisodeStore:
                          "config": config, "reward": float(reward),
                          "p99_ms": float(p99_ms), "breached": bool(breached)})
         self._rows.append(row)
-        if self.path is not None:
+        if self.path is not None and self.write:
             with self.path.open("a") as f:
                 f.write(json.dumps(row) + "\n")
                 f.flush()
@@ -91,7 +95,7 @@ class EpisodeStore:
         dropped = len(self._rows) - len(keep)
         if dropped:
             self._rows = keep
-            if self.path is not None:
+            if self.path is not None and self.write:
                 self.path.write_text(
                     "".join(json.dumps(r) + "\n" for r in keep))
         return dropped

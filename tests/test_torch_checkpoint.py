@@ -5,8 +5,8 @@ on the CPU.
   async save, GC of old steps and of torn writes, latest / specific step,
   the missing-checkpoint error, the manifest's schema, and a policy's
   parameters and rmsprop state round-tripping mid-training (here on torch
-  tensors). The reference's reshard case waits for the fleet mesh: the
-  port's ``shardings=`` raises and names ROADMAP queue 1, item 7.
+  tensors). The reference's reshard case waits for the LM mesh: the
+  port's ``shardings=`` raises and names ROADMAP queue 1, item 7.2.
 * Against the reference's store: the same tree saved by both stores gives
   the same files byte for byte, and a checkpoint written by either one
   reads back bitwise through the other — f64, int64 and uint64 leaves
@@ -114,7 +114,7 @@ def test_restore_with_shardings_waits_for_the_mesh(tmp_path):
     store = CheckpointStore(tmp_path)
     t = {"w": torch.arange(16.0).reshape(4, 4)}
     store.save(3, t)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+    with pytest.raises(NotImplementedError, match=r"queue 1, item 7\.2"):
         store.restore(t, shardings={"w": None})
     restored, step, _ = store.restore(t)
     assert step == 3 and torch.equal(restored["w"], t["w"])

@@ -522,7 +522,9 @@ def test_the_card_is_the_default_and_the_mesh_waits_for_item_7(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA card"):
             serve.main(["--cycles", "1", "--quick", "--fleet", "1",
                         "--out", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+    # the mesh is a fleet DeviceMesh (tests/test_torch_fleet_mesh.py); an
+    # LM mesh's axes are refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ServeController(wls, metrics=METRICS, levers=LEVERS, device="cpu",
                         mesh=("data",))
     with pytest.raises(ValueError, match="backend"):

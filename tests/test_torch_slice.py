@@ -212,11 +212,18 @@ def test_unported_paths_raise_instead_of_falling_back():
               configurator_kw=dict(steps_per_episode=2, device_loop="on"))
     assert tuner.configurator.agent.n_updates == 1
     assert len(tuner.configurator.history) == 2 * 2 * 2
-    # the serve handoff is ported: a controller on the tuner's device; the
-    # fleet mesh it could take is not (ROADMAP queue 1, item 7)
+    # the serve handoff is ported: a controller on the tuner's device; its
+    # mesh is a fleet DeviceMesh (tests/test_torch_fleet_mesh.py), and an
+    # LM mesh's axes are refused, not run on one device
     wls = [TPoisson(10_000, 0.5) for _ in range(2)]
     ctl = tuner.build_serve_controller(wls)
     assert ctl.device == tuner.device and ctl.seed == tuner.seed
     assert ctl.cfgr.hspec.metric_names == list(tuner.selected_metrics)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tuner.build_serve_controller(wls, mesh=("data",))
+    # the LM side's meshes still raise, naming their ROADMAP item
+    from repro_torch.distribution import make_train_step
+    from repro_torch.launch.mesh import make_local_mesh
+
+    with pytest.raises(NotImplementedError, match=r"queue 1, item 7\.2"):
+        make_train_step(None, None, None, mesh=make_local_mesh(2, 1))

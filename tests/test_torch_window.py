@@ -124,9 +124,10 @@ class JaxStep:
 
 
 class JaxEpisode:
-    def __init__(self, key):
-        # the unsharded reference program folds shard ordinal 0 first
-        self.key = jax.random.fold_in(key, 0)
+    def __init__(self, key, shard=0):
+        # the reference program folds the shard's ordinal first (the
+        # unsharded program folds 0)
+        self.key = jax.random.fold_in(key, shard)
 
     def step(self, t):
         return JaxStep(jax.random.fold_in(self.key, t))
@@ -150,6 +151,25 @@ class JaxDraws:
 
     def episode(self):
         return JaxEpisode(self._next())
+
+    def for_shard(self, shard):
+        """Fleet-mesh shard ``shard``'s draws: the same key stream, the
+        shard's ordinal folded into each episode key. Every rank's source
+        advances its counter once a batch, so the ranks stay in step."""
+        if shard == 0:
+            return self
+        return JaxShard(self, shard)
+
+
+class JaxShard:
+    def __init__(self, src, shard):
+        self.src, self.shard = src, shard
+
+    def window(self):
+        return self.src.window()
+
+    def episode(self):
+        return JaxEpisode(self.src._next(), self.shard)
 
 
 def _close(name, got, ref, rtol=RTOL, atol=ATOL):
