@@ -355,6 +355,10 @@ TRAIN_RTOL, TRAIN_FAR = 1e-5, 1e-3
 #: a fixed order: measured 0 on an H100 for both. The limit is ~10 f32 ulps
 #: of the ~10.9 loss; a resume from any other state shows at 1e-2
 DRILL_RTOL = 1e-6
+#: phase 17(b)'s steps, the step its failure is injected at and the
+#: checkpoint interval (the reference launcher's 60 / 30 / 20 cut in half to
+#: keep the script inside its time limit)
+DRILL_STEPS, DRILL_FAIL, DRILL_CKPT = 30, 15, 10
 #: phases 18-19, decode after S - 1 tokens against prefill's last logits on
 #: S, at full width in f32 cut to 4 layers (a hybrid to 2 periods) with
 #: full-precision f32 products: the two routes compute the same f32
@@ -3045,38 +3049,41 @@ def _train_card_vs_host(dev, facts: str) -> None:
 
 
 def _train_drill(dev, facts: str, tmp: Path) -> None:
-    """17(b): launch/train.py at the reference launcher's defaults on the
-    full model, 60 steps with a failure at 30, against an uninterrupted
-    run. The checkpoint written at step 20 and the tree restored from it
-    are held bitwise equal."""
+    """17(b): launch/train.py at the reference launcher's batch and
+    sequence on the full model, DRILL_STEPS steps with a failure at
+    DRILL_FAIL, against an uninterrupted run. The checkpoint written at
+    step DRILL_CKPT and the tree restored from it are held bitwise
+    equal."""
     from unittest import mock
 
     from repro_torch.checkpoint import CheckpointStore
-    from repro_torch.checkpoint.store import _flatten, _to_host
+    from repro_torch.checkpoint.store import _host_leaves
     from repro_torch.launch import train as ltrain
 
     seen = {}
     write, restore = CheckpointStore._write, CheckpointStore.restore
 
     def spy_write(self, step, host_flat, extra):
-        if step == 20 and "saved" not in seen:
+        if step == DRILL_CKPT and "saved" not in seen:
             seen["saved"] = {k: v.copy() for k, v in host_flat.items()}
-        if step == 60:
+        if step == DRILL_STEPS:
             seen[self.dir.parent.name] = {k: v.copy()
                                           for k, v in host_flat.items()}
         return write(self, step, host_flat, extra)
 
     def spy_restore(self, skeleton, **kw):
         out = restore(self, skeleton, **kw)
-        seen["restored"] = (out[1], _to_host(_flatten(out[0])))
+        seen["restored"] = (out[1], _host_leaves(out[0]))
         return out
 
-    args = ["--full", "--batch", "8", "--seq", "128", "--steps", "60",
-            "--ckpt-every", "20", "--log-every", "20"]
+    n, fail, ck = DRILL_STEPS, DRILL_FAIL, DRILL_CKPT
+    args = ["--full", "--batch", "8", "--seq", "128", "--steps", str(n),
+            "--ckpt-every", str(ck), "--log-every", str(ck)]
     t0 = time.perf_counter()
     with mock.patch.object(CheckpointStore, "_write", spy_write), \
             mock.patch.object(CheckpointStore, "restore", spy_restore):
-        drill = ltrain.main(args + ["--inject-failure", "30", "--ckpt-dir",
+        drill = ltrain.main(args + ["--inject-failure", str(fail),
+                                    "--ckpt-dir",
                                     str(tmp / "drill")])
         t_drill = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -3084,18 +3091,19 @@ def _train_drill(dev, facts: str, tmp: Path) -> None:
         t_plain = time.perf_counter() - t0
     step, got = seen["restored"]
     saved = seen["saved"]
-    same = (step == 20 and set(got) == set(saved) and all(
+    same = (step == ck and set(got) == set(saved) and all(
         got[k].dtype == saved[k].dtype and got[k].tobytes() == saved[k].tobytes()
         for k in saved))
-    # the drill's steps are 0-29, then 20-59 again from the checkpoint
+    # the drill's steps are 0..fail-1, then ck..n-1 again from the checkpoint
     d_loss = np.array(drill["losses"], np.float64)
     p_loss = np.array(plain["losses"], np.float64)
-    if len(d_loss) != 70 or len(p_loss) != 60:
+    if len(d_loss) != fail + n - ck or len(p_loss) != n:
         raise AssertionError(f"17(b) {len(d_loss)} drill / {len(p_loss)} "
-                             f"uninterrupted losses, expected 70 / 60")
-    at = np.r_[np.arange(30), np.arange(20, 60)]
+                             f"uninterrupted losses, expected "
+                             f"{fail + n - ck} / {n}")
+    at = np.r_[np.arange(fail), np.arange(ck, n)]
     rel = np.abs(d_loss - p_loss[at]) / np.abs(p_loss[at])
-    move = abs(p_loss[20] - p_loss[59]) / p_loss[59]
+    move = abs(p_loss[ck] - p_loss[n - 1]) / p_loss[n - 1]
     fin_d, fin_p = seen["drill"], seen["plain"]
     leaf_rel = {}
     for k, v in fin_p.items():
@@ -3108,21 +3116,24 @@ def _train_drill(dev, facts: str, tmp: Path) -> None:
                                                     or 1.0)
     worst_leaf = max(leaf_rel, key=leaf_rel.get)
     ms = 1e3 * np.median(plain["step_s"][5:])
-    print(f"  (b) launch/train.main --full --batch 8 --seq 128, 60 steps: "
+    print(f"  (b) launch/train.main --full --batch 8 --seq 128, {n} steps: "
           f"drill resumed at {drill['resumed_at']}, restored tree of step "
           f"{step} bitwise equal to the saved one: {same} ({len(saved)} "
           f"leaves); each step's loss vs the uninterrupted run's: max rel "
-          f"{rel.max():.3e} (steps 20-59 after the resume {rel[30:].max():.3e},"
+          f"{rel.max():.3e} (steps {ck}-{n - 1} after the resume "
+          f"{rel[fail:].max():.3e},"
           f" limit {DRILL_RTOL}); final loss {d_loss[-1]:.7f} / "
-          f"{p_loss[-1]:.7f}; the loss moves {move:.3e} from step 20 to 59; "
+          f"{p_loss[-1]:.7f}; the loss moves {move:.3e} from step {ck} to "
+          f"{n - 1}; "
           f"final params and moments, {len(fin_p)} leaves: worst "
           f"{leaf_rel[worst_leaf]:.3e} of its max ({worst_leaf}), bitwise "
           f"equal {all(fin_d[k].tobytes() == v.tobytes() for k, v in fin_p.items())}"
           f"; losses {p_loss[0]:.4f} -> {p_loss[-1]:.4f}; median step "
           f"{ms:.3f} ms; wall {t_drill:.1f} s (drill) / {t_plain:.1f} s, "
           f"checkpoints included [{facts}]")
-    if drill["resumed_at"] != [20] or not same:
-        raise AssertionError("17(b) drill did not resume bitwise at step 20")
+    if drill["resumed_at"] != [ck] or not same:
+        raise AssertionError(f"17(b) drill did not resume bitwise at step "
+                             f"{ck}")
     if not (np.isfinite(d_loss).all() and np.isfinite(p_loss).all()):
         raise AssertionError("17(b) non-finite loss")
     if rel.max() > DRILL_RTOL or leaf_rel[worst_leaf] > DRILL_RTOL:
@@ -3130,7 +3141,8 @@ def _train_drill(dev, facts: str, tmp: Path) -> None:
                              f"{rel.max()}, leaf {worst_leaf} "
                              f"{leaf_rel[worst_leaf]}")
     if not move > DRILL_RTOL:
-        raise AssertionError(f"17(b) the loss moved {move} over steps 20-59")
+        raise AssertionError(f"17(b) the loss moved {move} over steps "
+                             f"{ck}-{n - 1}")
 
 
 def _train_accum(dev, cfg) -> None:
@@ -3232,6 +3244,12 @@ def phase_train(dev, facts: str) -> dict:
 def _free() -> None:
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def _sync(dev) -> None:
+    """Wait for the card (nothing to wait for on the host)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
 
 
 def _nbytes(tree) -> int:
@@ -4215,10 +4233,13 @@ def _mesh_rank(fn, rank: int, world: int, backend: str, store: str,
                args: tuple, q) -> None:
     """One spawned rank: join the group (NCCL with card ``rank``, or
     gloo), run ``fn(rank, world, *args)``, put its result (or the
-    traceback) on ``q``."""
+    traceback) on ``q``; a hard crash prints the Python stacks."""
+    import faulthandler
     import traceback
 
     import torch.distributed as dist
+
+    faulthandler.enable()
 
     kw = {}
     if backend == "nccl":
@@ -4268,8 +4289,9 @@ def _mesh_group(fn, world: int, backend: str, tmp: Path, *args) -> list:
                 p.join()
     for r in range(world):
         if r not in out or "error" in out[r]:
+            codes = [p.exitcode for p in procs]
             raise AssertionError(f"{fn.__name__} rank {r} of {world} "
-                                 f"({backend}) failed:\n"
+                                 f"({backend}) failed (exit codes {codes}):\n"
                                  f"{out.get(r, {}).get('error', 'no result')}")
     return [out[r] for r in range(world)]
 
@@ -4518,6 +4540,501 @@ def phase_mesh(dev, facts: str, N: int = MESH_N,
                                 for r in ranks]}
 
 
+#: phase 22: the LM mesh's 1-rank NCCL arm (phase 18's qwen2-7b prefill
+#: and decode, phase 17's SmolLM-135M train shape) and its dry-run cells
+LM_MESH_B, LM_MESH_P, LM_MESH_STEPS = 16, 512, 8
+LM_MESH_TRAIN = (8, 1024, 3)       # batch, sequence, steps
+LM_MESH_CELLS = (("qwen2_7b", "train_4k", False, False),
+                 ("qwen2_moe_a2p7b", "decode_32k", False, True),
+                 ("zamba2_2p7b", "long_500k", True, False))  # multi, ep
+CARD_GB = 80.0
+#: phase 22(c), 2 gloo ranks sharing the card: qwen2-7b's width cut to
+#: LM_MESH_GLOO_LAYERS layers, (batch, prompt, context, steps) on a (1, 2)
+#: mesh and its first prompt split-K on (2, 1); SmolLM-135M's train step
+#: (batch, sequence) on (1, 2)
+LM_MESH_GLOO_LAYERS = 4
+LM_MESH_GLOO = (4, 512, 1024, 4)
+LM_MESH_GLOO_TRAIN = (4, 512)
+#: a bf16 loss: the order of the bf16 products' sums moves it by a few bf16
+#: roundings
+LM_MESH_LOSS_REL = 1e-2
+#: the host rehearsal's reduced configs in place of the card's
+LM_MESH_REDUCED = False
+
+
+def _bitwise(label: str, got, want) -> None:
+    """Raise unless two trees of tensors (DTensors taken whole) are equal
+    bit for bit."""
+    from repro_torch.distribution.sharding import whole
+
+    g = [whole(t) for t in _leaves(got) if t is not None]
+    w = [t for t in _leaves(want) if t is not None]
+    if len(g) != len(w):
+        raise AssertionError(f"{label}: {len(g)} leaves vs {len(w)}")
+    for i, (a, b) in enumerate(zip(g, w)):
+        if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(
+                a.view(torch.uint8) if a.dtype == torch.bool else a, b):
+            raise AssertionError(f"{label}: leaf {i} {tuple(a.shape)} "
+                                 f"differs")
+
+
+def _lm_mesh_one_rank(rank: int, world: int, dev, facts: str) -> dict:
+    """Phase 22(a) on a 1-rank NCCL ``DeviceMesh`` (1x1): qwen2-7b's prefill
+    on the attention kernel and LM_MESH_STEPS greedy steps, then SmolLM-135M
+    train steps, each sharded bundle against the unsharded one. Every
+    placement on a 1x1 mesh is replicated, so this holds the mesh's
+    dispatch, not its split arithmetic (that is (c)'s)."""
+    from repro_torch import configs
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.distribution.steps import (make_decode_step,
+                                                make_prefill_step,
+                                                make_train_step)
+    from repro_torch.launch.mesh import make_local_mesh, mesh_name
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    mesh = make_local_mesh(1, 1)
+    assert mesh.device_type == dev.type and mesh_name(mesh) == "1x1"
+    out = {}
+    cfg = dataclasses.replace(configs.get("qwen2_7b"), attn_impl="pallas")
+    B, P = LM_MESH_B, LM_MESH_P
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, P)).astype(np.int32)).to(dev)
+    pshape = InputShape("p", P, B, "prefill")
+    dshape = InputShape("d", DECODE_CONTEXT, B, "decode")
+    runs = {}
+    for tag, m in (("unsharded", None), ("mesh", mesh)):
+        pre = make_prefill_step(cfg, pshape, max_seq=DECODE_CONTEXT,
+                                device=dev, mesh=m)
+        dec = make_decode_step(cfg, dshape, device=dev, mesh=m)
+        p = params if m is None else sh.distribute_tree(
+            params, pre.meta["pspecs"], mesh)
+        batch = {"tokens": toks}
+        if m is not None:
+            batch = sh.distribute_tree(batch, pre.meta["bspecs"], mesh)
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = pre.fn(p, batch)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        counts = _counts()
+        tok = lm.whole_vocab(logits)[:, -1].argmax(dim=-1).to(
+            torch.int32)[:, None]
+        toks_out, walls = [tok], []
+        for _ in range(LM_MESH_STEPS):
+            t0 = time.perf_counter()
+            tok, state = dec.fn(p, tok, state)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            toks_out.append(tok)
+        full = sh.whole
+        # the first and last layers' K/V caches to the host (the whole
+        # caches are 30 GB a run: both on the card beside the weights would
+        # not fit 80 GB, and copying them out costs the phase ~30 s)
+        runs[tag] = dict(logits=full(logits), tokens=torch.cat(
+            [full(t) for t in toks_out], dim=1),
+            kv=[full(t)[i].cpu() for t in (state.kv_k, state.kv_v)
+                for i in (0, cfg.num_layers - 1)],
+            counts=counts, prefill_ms=pre_ms,
+            step_ms=float(np.median(walls[2:])) * 1e3)
+        del logits, state
+        _free()
+    a, b = runs["unsharded"], runs["mesh"]
+    _bitwise("qwen2-7b prefill logits, 1x1 mesh vs unsharded",
+             b["logits"], a["logits"])
+    if not torch.equal(a["tokens"], b["tokens"]):
+        raise AssertionError("qwen2-7b greedy tokens differ on the 1x1 mesh")
+    _bitwise("qwen2-7b first and last layers' K/V caches after the steps",
+             b["kv"], a["kv"])
+    want = {**{n: 0 for n in KERNEL_MODULES},
+            "flash_attention": cfg.num_layers if dev.type == "cuda" else 0}
+    for tag in runs:
+        if runs[tag]["counts"] != want:
+            raise AssertionError(f"{tag} prefill launches "
+                                 f"{runs[tag]['counts']}, expected {want}")
+    print(f"  (a) {cfg.name} bf16 on the attention kernel, {B} x {P} into "
+          f"{DECODE_CONTEXT} positions + {LM_MESH_STEPS} greedy steps: 1x1 "
+          f"NCCL mesh bitwise against unsharded (prefill logits, every "
+          f"token, the first and last layers' K/V caches); flash_attention "
+          f"launches "
+          f"{b['counts']['flash_attention']} in the mesh prefill; prefill "
+          f"{a['prefill_ms']:.3f} vs {b['prefill_ms']:.3f} ms, decode step "
+          f"median {a['step_ms']:.3f} vs {b['step_ms']:.3f} ms (unsharded vs "
+          f"mesh) [{facts}]", flush=True)
+    out["prefill"] = {k: {kk: runs[k][kk] for kk in
+                          ("prefill_ms", "step_ms")} for k in runs}
+    out["launches"] = b["counts"]["flash_attention"]
+    del runs, a, b, params
+    _free()
+
+    tcfg = configs.get("smollm_135m")
+    Bt, St, steps = LM_MESH_TRAIN
+    opt = adamw()
+    shape = InputShape("t", St, Bt, "train")
+    params = lm.init_params(tcfg, torch.Generator(device=dev).manual_seed(0),
+                            St)
+    from repro_torch.data.synthetic import make_batch
+
+    res = {}
+    for tag, m in (("unsharded", None), ("mesh", mesh)):
+        bundle = make_train_step(tcfg, opt, shape, device=dev, mesh=m)
+        p, o = params, opt.init(params)
+        if m is not None:
+            p = sh.distribute_tree(p, bundle.meta["pspecs"], mesh)
+            o = sh.distribute_tree(o, bundle.meta["ospecs"], mesh)
+        losses, walls = [], []
+        for i in range(steps):
+            batch = make_batch(tcfg, Bt, St, seed=i, device=dev)
+            if m is not None:
+                batch = sh.distribute_tree(batch, bundle.meta["bspecs"], mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, o, met = bundle.fn(p, o, batch)
+            losses.append(met["ce_loss"].clone())
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        res[tag] = dict(params=p, losses=torch.stack(losses),
+                        ms=float(np.median(walls[1:])) * 1e3)
+    _bitwise("smollm-135m losses, 1x1 mesh vs unsharded",
+             res["mesh"]["losses"], res["unsharded"]["losses"])
+    _bitwise("smollm-135m parameters after the steps",
+             res["mesh"]["params"], res["unsharded"]["params"])
+    print(f"  (a) {tcfg.name} train {Bt} x {St}, {steps} steps: losses "
+          f"{[round(float(x), 6) for x in res['mesh']['losses']]} and every "
+          f"parameter bitwise on the 1x1 mesh; ms a step (after the first) "
+          f"{res['unsharded']['ms']:.3f} vs {res['mesh']['ms']:.3f} "
+          f"(unsharded vs mesh) [{facts}]", flush=True)
+    out["train_ms"] = {k: v["ms"] for k, v in res.items()}
+    return out
+
+
+def _lm_prompts(cfg, n: int, P: int) -> np.ndarray:
+    """``n`` random prompts of ``P`` tokens (seed 0; the first rows of a
+    larger draw are the smaller draw's)."""
+    return np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (n, P)).astype(np.int32)
+
+
+def _lm_serve(cfg, dev, toks: np.ndarray, ctx: int, steps: int, mesh=None,
+              floor: bool = False) -> tuple:
+    """Prefill of ``toks`` into ``ctx`` positions, then ``steps`` greedy
+    steps, on one device or over ``mesh`` (weights from Generator(0); a
+    batch that splits over no data axis decodes split-K, the prefill's
+    state moved to that layout). Returns (the last prefill logits (n, V)
+    f32 on the host, the tokens (n, 1 + steps) on the host, prefill ms,
+    median step ms after the first two, split_k, and with ``floor`` the
+    largest distance of those logits from the f32 prefill of the same
+    weights, else None)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.distribution.steps import (make_decode_step,
+                                                make_prefill_step)
+    from repro_torch.models import lm
+
+    n, P = toks.shape
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    pre = make_prefill_step(cfg, InputShape("p", P, n, "prefill"),
+                            max_seq=ctx, device=dev, mesh=mesh)
+    dec = make_decode_step(cfg, InputShape("d", ctx, n, "decode"),
+                           device=dev, mesh=mesh)
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    if mesh is not None:
+        params = sh.distribute_tree(params, pre.meta["pspecs"], mesh)
+        batch = sh.distribute_tree(batch, pre.meta["bspecs"], mesh)
+        _free()
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, state = pre.fn(params, batch)
+    _sync(dev)
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    logits = sh.whole(lm.whole_vocab(logits))[:, -1].float()
+    gap = None
+    if floor:
+        f32 = _f32_last_logits(params, cfg, batch)
+        gap = float((logits - f32).abs().max())
+        del f32
+    if dec.meta["split_k"]:   # the prefill's layout to the split-K decode's
+        state = sh._map_specs(
+            lambda t, s: t if t.ndim == 0 else t.redistribute(
+                mesh, sh.placements_for(s, mesh)), state, dec.meta["sspecs"])
+    tok = logits.argmax(dim=-1).to(torch.int32)[:, None]
+    if mesh is not None:
+        tok = sh.distribute_tree(tok, (sh._n(dec.meta["dp"]), None), mesh)
+    out, walls = [sh.whole(tok)], []
+    for _ in range(steps):
+        _sync(dev)
+        t0 = time.perf_counter()
+        tok, state = dec.fn(params, tok, state)
+        _sync(dev)
+        walls.append(time.perf_counter() - t0)
+        out.append(sh.whole(tok))
+    res = (logits.cpu(), torch.cat(out, dim=1).cpu(), pre_ms,
+           float(np.median(walls[2:])) * 1e3, dec.meta["split_k"], gap)
+    del params, state, logits, pre, dec
+    _free()
+    return res
+
+
+def _lm_train(cfg, dev, shape: tuple, mesh=None) -> tuple:
+    """One AdamW step of ``cfg`` on a (batch, sequence) ``shape`` batch
+    (weights from Generator(0), the batch from seed 0), on one device or
+    over ``mesh``: (loss, the parameters before and after, f32 on the
+    host)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.distribution.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.utils import tree_leaves
+
+    Bt, St = shape
+    opt = adamw()
+    bundle = make_train_step(cfg, opt, InputShape("t", St, Bt, "train"),
+                             device=dev, mesh=mesh)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            St)
+    state = opt.init(params)
+    batch = make_batch(cfg, Bt, St, seed=0, device=dev)
+    if mesh is not None:
+        params = sh.distribute_tree(params, bundle.meta["pspecs"], mesh)
+        state = sh.distribute_tree(state, bundle.meta["ospecs"], mesh)
+        batch = sh.distribute_tree(batch, bundle.meta["bspecs"], mesh)
+    before = [t.float().cpu() for t in tree_leaves(sh.whole(params))]
+    p, _, met = bundle.fn(params, state, batch)
+    after = [t.float().cpu() for t in tree_leaves(sh.whole(p))]
+    return float(met["ce_loss"]), before, after
+
+
+def _lm_mesh_cfgs() -> tuple:
+    """Phase 22(c)'s configs: qwen2-7b (bf16, the attention kernel) cut to
+    LM_MESH_GLOO_LAYERS layers, and SmolLM-135M; the reduced ones for the
+    host rehearsal."""
+    from repro_torch import configs
+
+    if LM_MESH_REDUCED:
+        return (dataclasses.replace(configs.get("qwen2_7b", reduced=True),
+                                    dtype="bfloat16"),
+                configs.get("smollm_135m", reduced=True))
+    return (dataclasses.replace(configs.get("qwen2_7b"), attn_impl="pallas",
+                                num_layers=LM_MESH_GLOO_LAYERS),
+            configs.get("smollm_135m"))
+
+
+#: the library that holds ``_gloo_cuda_all_gather``'s kernel (alive while
+#: the registration is wanted)
+_GLOO_LIB = None
+
+
+def _gloo_cuda_all_gather() -> None:
+    """Route the functional all-gather of CUDA tensors (the collective
+    DTensor's ``Shard -> Replicate`` issues) through c10d's
+    ``all_gather_into_tensor`` in this process. torch 2.11's
+    ``_c10d_functional.all_gather_into_tensor`` segfaults in its
+    ``wait_tensor`` on a gloo group's CUDA tensors, where c10d's own call,
+    the functional all-reduce and reduce-scatter all work (checked on an
+    H100, 2 gloo ranks); NCCL, which the port runs on, is not touched."""
+    global _GLOO_LIB
+    import torch.distributed as dist
+    from torch.distributed import distributed_c10d as c10d
+
+    if _GLOO_LIB is not None:
+        return
+
+    def all_gather(inp, group_size, group_name):
+        out = inp.new_empty((inp.shape[0] * group_size,) + tuple(
+            inp.shape[1:]))
+        dist.all_gather_into_tensor(
+            out, inp.contiguous(),
+            group=c10d._resolve_process_group(group_name))
+        return out
+    _GLOO_LIB = torch.library.Library("_c10d_functional", "IMPL")
+    _GLOO_LIB.impl("all_gather_into_tensor", all_gather, "CUDA")
+
+
+def _lm_mesh_gloo(rank: int, world: int, dev, setup: tuple) -> dict:
+    """Phase 22(c) on one of 2 gloo ranks sharing the card, on ``cuda``
+    meshes: qwen2-7b's prefill and steps on (1, 2) (the heads and the
+    vocab split over the ranks: ``on_blocks`` runs the attention kernel on
+    each rank's heads, the embedding is vocab-parallel), its first prompt
+    split-K on (2, 1), and a SmolLM-135M train step on (1, 2) (the
+    vocab-parallel loss). Each rank's attention launches in the two
+    prefills; the readings from rank 0, as numpy arrays. ``setup`` is the
+    parent's (LM_MESH_REDUCED, LM_MESH_GLOO, LM_MESH_GLOO_TRAIN): a spawned
+    rank imports this module afresh."""
+    global LM_MESH_REDUCED, LM_MESH_GLOO, LM_MESH_GLOO_TRAIN
+    LM_MESH_REDUCED, LM_MESH_GLOO, LM_MESH_GLOO_TRAIN = setup
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if dev.type == "cuda":
+        _gloo_cuda_all_gather()
+    # launch.mesh gives a gloo group cpu meshes; these hold the card's
+    m12, m21 = (init_device_mesh(dev.type, shape,
+                                 mesh_dim_names=("data", "model"))
+                for shape in ((1, 2), (2, 1)))
+    cfg, tcfg = _lm_mesh_cfgs()
+    B, P, ctx, steps = LM_MESH_GLOO
+    toks = _lm_prompts(cfg, B, P)
+    launches = []
+    _zero_counts()
+    big = _lm_serve(cfg, dev, toks, ctx, steps, mesh=m12)
+    launches.append(_counts()["flash_attention"])
+    _zero_counts()
+    one = _lm_serve(cfg, dev, toks[:1], ctx, steps, mesh=m21)
+    launches.append(_counts()["flash_attention"])
+    loss, before, after = _lm_train(tcfg, dev, LM_MESH_GLOO_TRAIN, m12)
+    if rank:
+        return {"launches": launches}
+    # the unsharded step here: its 1 GB of f32 parameters stay in this rank
+    tloss, tbefore, tafter = _lm_train(tcfg, dev, LM_MESH_GLOO_TRAIN)
+    drift = max(float(((a - b) - (c - d)).abs().max()) for a, b, c, d in
+                zip(after, before, tafter, tbefore))
+    moved = max(float((c - d).abs().max()) for c, d in zip(tafter, tbefore))
+    np_ = lambda x: x.numpy() if isinstance(x, torch.Tensor) else x  # noqa: E731,E501
+    return {"launches": launches, "big": tuple(map(np_, big)),
+            "one": tuple(map(np_, one)),
+            "train": (loss, tloss, drift, moved)}
+
+
+def _lm_mesh_sharded(dev, facts: str) -> list:
+    """Phase 22(c): the unsharded runs here, then the two gloo ranks
+    (``_lm_mesh_gloo``) held against them: the (1, 2) prefill's last
+    logits within DECODE_BF16_X of the bf16 depth floor and the first
+    greedy token on every row past twice the floor's margin; the split-K
+    tokens equal; the train loss within LM_MESH_LOSS_REL of rank 0's
+    unsharded step; each rank's attention launches a layer a prefill.
+    Returns the ranks' launches."""
+    import tempfile
+
+    cfg, tcfg = _lm_mesh_cfgs()
+    B, P, ctx, steps = LM_MESH_GLOO
+    toks = _lm_prompts(cfg, B, P)
+    base = _lm_serve(cfg, dev, toks, ctx, steps, floor=True)
+    base1 = _lm_serve(cfg, dev, toks[:1], ctx, steps)
+    floor = base[5]
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = _mesh_group(_lm_mesh_gloo, 2, "gloo", Path(tmp), dev,
+                            (LM_MESH_REDUCED, LM_MESH_GLOO,
+                             LM_MESH_GLOO_TRAIN))
+    r0 = ranks[0]
+    t_ = lambda x: torch.from_numpy(x) if isinstance(x, np.ndarray) else x  # noqa: E731,E501
+    logits, tk, pre_ms, step_ms, split, _ = map(t_, r0["big"])
+    err = float((logits - base[0]).abs().max())
+    top2 = base[0].topk(2, dim=-1).values
+    robust = (top2[:, 0] - top2[:, 1]) > 2 * floor
+    first = tk[:, 0] == base[1][:, 0]
+    same = (tk == base[1]).all(dim=1)
+    print(f"  (c) 2 gloo ranks on one card, {cfg.name} cut to "
+          f"{cfg.num_layers} layers, {B} x {P} into {ctx} positions + "
+          f"{steps} steps on (1, 2) (heads and vocab split): last prefill "
+          f"logits max_abs {err:.4e} from the unsharded run's "
+          f"({err / floor:.3f} of the bf16 depth floor {floor:.4e}, limit "
+          f"{DECODE_BF16_X}); first token equal on {int(first.sum())} of "
+          f"{B} rows ({int(robust.sum())} past the margin, all required), "
+          f"all {1 + steps} on {int(same.sum())}; prefill {base[2]:.3f} vs "
+          f"{pre_ms:.3f} ms, step {base[3]:.3f} vs {step_ms:.3f} ms "
+          f"(unsharded vs mesh) [{facts}]", flush=True)
+    fails = []
+    if not err <= DECODE_BF16_X * floor:
+        fails.append(f"(1, 2) logits {err} from unsharded, floor {floor}")
+    if not bool(first[robust].all()):
+        fails.append(f"(1, 2) first tokens {first.tolist()} on robust rows "
+                     f"{robust.tolist()}")
+    l1, t1, _, s1, split1, _ = map(t_, r0["one"])
+    print(f"  (c) split-K (split_k={split1}) on (2, 1), batch 1: tokens "
+          f"{t1.flatten().tolist()} vs unsharded "
+          f"{base1[1].flatten().tolist()}; last prefill logits max_abs "
+          f"{float((l1 - base1[0]).abs().max()):.4e}; step {base1[3]:.3f} "
+          f"vs {s1:.3f} ms [{facts}]", flush=True)
+    if not split1 or not torch.equal(t1, base1[1]):
+        fails.append("(2, 1) split-K tokens differ from the unsharded run")
+    loss, tloss, drift, moved = r0["train"]
+    print(f"  (c) {tcfg.name} train step {LM_MESH_GLOO_TRAIN[0]} x "
+          f"{LM_MESH_GLOO_TRAIN[1]} on (1, 2) (the vocab-parallel loss): "
+          f"loss {loss:.6f} vs {tloss:.6f} unsharded "
+          f"({abs(loss - tloss) / tloss:.3e}, limit {LM_MESH_LOSS_REL}); the "
+          f"largest update {moved:.3e}, its largest difference {drift:.3e} "
+          f"[{facts}]", flush=True)
+    if not abs(loss - tloss) < LM_MESH_LOSS_REL * tloss:
+        fails.append(f"(1, 2) train loss {loss} vs {tloss}")
+    want = [cfg.num_layers if dev.type == "cuda" else 0] * 2
+    launches = [r["launches"] for r in ranks]
+    print(f"  (c) flash_attention launches a rank in the (1, 2) and (2, 1) "
+          f"prefills: {launches} (expected {want} each)", flush=True)
+    if any(x != want for x in launches):
+        fails.append(f"attention launches {launches}, expected {want}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return launches
+
+
+def _lm_mesh_dryrun(facts: str) -> list:
+    """Phase 22(b): LM_MESH_CELLS on the production meshes, each mesh in a
+    child process on a ``fake`` process group, on the meta device."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import PRODUCTION
+
+    rows = []
+    for multi in (False, True):
+        cells = [c for c in LM_MESH_CELLS if c[2] == multi]
+        jobs = [(dryrun.run_cell, (arch, shape, Path(".")),
+                 dict(ep=ep, save=False, roofline=not multi))
+                for arch, shape, _, ep in cells]
+        for (arch, shape, _, ep), rec in zip(
+                cells, dryrun.run_mesh_cells(*PRODUCTION[multi], jobs)):
+            if isinstance(rec, str):
+                raise AssertionError(f"dry-run {arch} x {shape}: {rec}")
+            if rec["status"] != "ok":
+                raise AssertionError(f"dry-run {arch} x {shape}: {rec}")
+            mem = rec["bytes_per_device"]
+            coll = rec["collectives"]
+            kinds = {k: coll[k] for k in dryrun._COLLECTIVES if coll[k]}
+            fits = mem["peak"] / 1e9 <= CARD_GB
+            print(f"  (b) {arch} x {shape} x {rec['mesh']}"
+                  f"{' --ep' if ep else ''}: per device argument "
+                  f"{mem['argument'] / 1e9:.3f} GB, peak "
+                  f"{mem['peak'] / 1e9:.3f} GB (fits {CARD_GB:.0f} GB: "
+                  f"{fits}); collective bytes "
+                  f"{ {k: f'{v / 1e9:.3f} GB' for k, v in kinds.items()} } by "
+                  f"axis { {k: f'{v / 1e9:.3f} GB' for k, v in coll.get('by_axis', {}).items()} }; "
+                  f"t_compute {rec['t_compute_s'] * 1e3:.3f} ms, t_memory "
+                  f"{rec['t_memory_s'] * 1e3:.3f} ms, t_collective "
+                  f"{rec['t_collective_s'] * 1e3:.3f} ms: {rec['dominant']} "
+                  f"dominates; useful {rec['useful_ratio']:.4f} "
+                  f"(passes {rec['compile_s']} s on the host)", flush=True)
+            if not (rec["dominant"] and rec["flops"] > 0):
+                raise AssertionError(f"{arch} x {shape}: {rec}")
+            rows.append(rec)
+    return rows
+
+
+def phase_lm_mesh(dev, facts: str, backend: str = "nccl") -> dict:
+    """The LM mesh (DESIGN.md §4): (a) a 1-rank NCCL mesh in a spawned child
+    against the unsharded steps, bitwise, at full qwen2-7b and SmolLM-135M
+    width (every placement replicated: the mesh's dispatch, no split);
+    (b) the dry-run's production-mesh cells on the meta device; (c) 2 gloo
+    ranks sharing the card, the sharded arithmetic (heads, vocab, split-K)
+    against the unsharded runs. ``backend`` "gloo" with a cpu ``dev``
+    rehearses (a) and (b) on the host."""
+    import tempfile
+
+    t_start = time.perf_counter()
+    if dev.type == "cuda":
+        mods = _kernel_mods()
+        mods["flash_attention"]._launcher()   # built once, loaded by the child
+    with tempfile.TemporaryDirectory() as tmp:
+        (a,) = _mesh_group(_lm_mesh_one_rank, 1, backend, Path(tmp), dev,
+                           facts)
+    rows = _lm_mesh_dryrun(facts)
+    _free()
+    gloo = _lm_mesh_sharded(dev, facts)
+    print(f"  phase 22 took {time.perf_counter() - t_start:.1f} s")
+    return {"nccl": a, "dryrun": rows, "gloo": gloo}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4638,6 +5155,12 @@ def main() -> int:
           "NCCL mesh on captured graphs and 2 gloo ranks on one card")
     _free()
     mesh_row = phase_mesh(dev, facts)
+    print("[22] lm mesh: the train, prefill and decode steps on a 1-rank "
+          "NCCL DeviceMesh against the unsharded steps, the production-"
+          "mesh dry-run, and 2 gloo ranks on one card splitting heads, "
+          "vocab and KV positions")
+    _free()
+    lm_mesh_row = phase_lm_mesh(dev, facts)
     kernels = [
         {"name": "fleet_tick_window", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fleet_tick.cu",
@@ -4657,6 +5180,9 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:88",
          "launches": serve_row["launches"], **attn_row,
+         "launches_lm_mesh": lm_mesh_row["nccl"]["launches"],
+         "launches_lm_mesh_gloo_rank0": lm_mesh_row["gloo"][0][0],
+         "launches_lm_mesh_gloo_rank1": lm_mesh_row["gloo"][1][0],
          "max_abs_err_decode": decode_attn["max_abs_err"],
          "ms_decode": decode_attn["ms"],
          "bound_ms_decode": decode_attn["bound_ms"],

@@ -19,13 +19,20 @@ tolerance) — the port of ``repro.checkpoint.store``.
   ``ml_dtypes`` bf16 arrays: 2-byte void records holding the bits, with
   ``"bfloat16"`` in the manifest; it restores as a bf16 tensor.
 * **Restore** returns numpy leaves exactly as saved with ``host=True``;
-  by default each leaf is a tensor on the store's ``device``. The
-  reference's ``shardings=`` (reshard onto an LM mesh) waits for ROADMAP
-  queue 1, item 7.2.
-* **Process groups** (a fleet mesh, DESIGN.md §11): every rank holds the
-  whole state, so only rank 0 writes, every rank restores, and a barrier
-  separates the two (after a synchronous save; at ``wait()`` after an
-  async one). A checkpoint restores onto any world size.
+  by default each leaf is a tensor on the store's ``device``.
+  ``shardings=`` is the reference's reshard-on-restore: a tree like the
+  skeleton whose leaves place each leaf on an LM mesh (a ``DTensor``,
+  whose mesh and placements are taken: the tree being resumed, or its
+  meta-device skeleton; None keeps the leaf whole), and each such leaf
+  comes back as a DTensor, every rank keeping its own block of the saved
+  whole.
+* **Process groups** (a fleet mesh, DESIGN.md §11, or an LM mesh): only
+  rank 0 writes, every rank restores, and a barrier separates the two
+  (after a synchronous save; at ``wait()`` after an async one). A DTensor
+  leaf is saved whole (every rank takes part in gathering it, then rank
+  0 copies it to the host), one leaf at a time, so that a device holds at
+  most one whole leaf beside its shards; a checkpoint taken on one mesh
+  restores onto another mesh, onto any world size, or onto none.
 """
 from __future__ import annotations
 
@@ -39,7 +46,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.distribution.sharding import barrier, is_writer
+from repro_torch.distribution import sharding as sh
 
 PyTree = Any
 _SEP = "/"
@@ -93,17 +100,18 @@ class CheckpointStore:
     def save(self, step: int, tree: PyTree, *, extra: Optional[dict] = None) -> Path:
         self.wait()
         final = self.dir / f"step_{step:08d}"
-        if is_writer():
-            final = self._write(step, _to_host(_flatten(tree)), extra or {})
-        barrier()
+        host_flat = _host_leaves(tree)
+        if host_flat is not None:
+            final = self._write(step, host_flat, extra or {})
+        sh.barrier()
         return final
 
     def save_async(self, step: int, tree: PyTree, *, extra: Optional[dict] = None) -> None:
         self.wait()
         self._pending = True
-        if not is_writer():
+        host_flat = _host_leaves(tree)  # snapshot before returning
+        if host_flat is None:
             return
-        host_flat = _to_host(_flatten(tree))  # snapshot before returning
 
         def run():
             self._write(step, host_flat, extra or {})
@@ -117,7 +125,7 @@ class CheckpointStore:
             self._thread = None
         if self._pending:
             self._pending = False
-            barrier()
+            sh.barrier()
 
     def _write(self, step: int, host_flat: dict[str, np.ndarray], extra: dict) -> Path:
         t0 = time.perf_counter()
@@ -171,22 +179,24 @@ class CheckpointStore:
                 host: bool = False) -> tuple[PyTree, int, dict]:
         """Load into the structure of ``skeleton``. ``host=True`` returns
         the numpy leaves exactly as saved; the default returns each leaf as
-        a tensor on the store's device, of the saved dtype."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...): resharding onto an LM mesh is not "
-                "ported yet (ROADMAP queue 1, item 7.2)")
+        a tensor on the store's device, of the saved dtype, and with
+        ``shardings`` (a tree like ``skeleton``; see the module docstring)
+        each placed leaf as a DTensor of the rank's own block."""
+        if shardings is not None and host:
+            raise ValueError("restore: host=True returns numpy leaves; "
+                             "shardings= places tensors")
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
         d = self.dir / f"step_{step:08d}"
         manifest = json.loads((d / "manifest.json").read_text())
+        layouts = {} if shardings is None else _flatten(shardings)
         flat = {}
-        for key, info in manifest["leaves"].items():
+        for key, info in manifest["leaves"].items():   # a leaf at a time
             arr = np.load(d / info["file"])
-            flat[key] = arr if host else _to_device(arr, self.device,
-                                                    info["dtype"])
+            flat[key] = arr if host else _place(
+                _to_device(arr, self.device, info["dtype"]), layouts.get(key))
         tree = _unflatten_into(skeleton, flat)
         return tree, manifest["step"], manifest.get("extra", {})
 
@@ -204,8 +214,36 @@ def _to_numpy(v) -> np.ndarray:
     return np.asarray(v)
 
 
-def _to_host(flat: dict[str, Any]) -> dict[str, np.ndarray]:
-    return {k: _to_numpy(v) for k, v in flat.items()}
+def _host_leaves(tree: PyTree) -> Optional[dict[str, np.ndarray]]:
+    """The tree's leaves on the host, on the writer (None on the other
+    ranks), taken one leaf at a time: a DTensor leaf is gathered whole (a
+    collective every rank of its mesh takes part in), copied to the host
+    and dropped before the next, so that a device never holds more than
+    one whole leaf beside its shards."""
+    writer = sh.is_writer()
+    out = {}
+    for k, v in _flatten(tree).items():
+        v = sh.whole(v)
+        if writer:
+            out[k] = _to_numpy(v)
+        del v
+    return out if writer else None
+
+
+def _place(t: torch.Tensor, where) -> torch.Tensor:
+    """``t`` (the whole leaf, the same on every rank) as a DTensor with the
+    mesh and placements of the DTensor ``where``, with no communication,
+    its block a copy (a view would keep the whole leaf alive); ``t``
+    itself when ``where`` is None."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    if where is None:
+        return t
+    x = distribute_tensor(t, where.device_mesh, list(where.placements),
+                          src_data_rank=None)
+    return DTensor.from_local(x.to_local().clone(), x.device_mesh,
+                              x.placements, run_check=False, shape=x.shape,
+                              stride=x.stride())
 
 
 def _to_device(arr: np.ndarray, device: torch.device,

@@ -1,5 +1,5 @@
-"""The port's train, prefill and decode steps (one device; LM meshes wait
-for ROADMAP queue 1, item 7.2) and the sharding rules with the fleet mesh
+"""The port's train, prefill and decode steps, on one device or an LM mesh,
+and the sharding rules, their DTensor placements and the fleet mesh
 (``distribution.sharding``)."""
 from repro_torch.distribution.steps import (
     StepBundle,

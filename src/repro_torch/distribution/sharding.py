@@ -13,15 +13,25 @@ Two halves, as in the reference (DESIGN.md §4, §11):
   (``cluster_gather``), so the update runs replicated on the whole batch.
   ``fleet_episode_specs`` is the one table of which episode leaves are
   per-cluster and which are replicated.
-* **The LM rules**, as plain functions over configurations and shapes:
-  ``MeshSpec``, ``dp_axes_for``, ``pad_config_for_mesh``,
-  ``padding_flops_ratio``, ``param_pspecs``, ``batch_pspecs`` and
-  ``state_pspecs``. A mesh is anything with ``.shape`` (axis name -> size)
-  and ``.axis_names``, such as ``repro_torch.launch.mesh.Mesh``. Each spec
-  is a tuple with one entry per tensor dimension: an axis name, a tuple of
-  names, or None, which is what the reference's ``PartitionSpec`` holds.
-  Placing tensors by these specs (``make_shard_fn`` and DTensor
-  placements in the steps) waits for ROADMAP queue 1, item 7.2.
+* **The LM mesh** (DESIGN.md §4): the rules as plain functions over
+  configurations and shapes (``MeshSpec``, ``dp_axes_for``,
+  ``pad_config_for_mesh``, ``padding_flops_ratio``, ``param_pspecs``,
+  ``batch_pspecs``, ``state_pspecs``), and what places tensors by them:
+  ``placements_for`` / ``distribute_tree`` (DTensor placements of a spec)
+  and ``make_shard_fn`` (the models' ``shard(name, x)`` hook). A mesh is a
+  ``torch.distributed`` ``DeviceMesh`` (axis names ``mesh_dim_names``) or a
+  description with ``.shape`` (axis name -> size) and ``.axis_names``, such
+  as ``repro_torch.launch.mesh.Mesh``; ``axis_sizes`` reads either. Each
+  spec is a tuple with one entry per tensor dimension: an axis name, a
+  tuple of names, or None, which is what the reference's ``PartitionSpec``
+  holds.
+
+  Parameters are FSDP+TP: the hook's ``"weights"`` entry gathers a layer's
+  leaves to their TP-only layout where the layer uses them (an all-gather
+  over the data axes, whose backward is the gradients' reduce-scatter: the
+  per-layer all-gather GSPMD inserts for the reference, ZeRO-3). A matmul
+  is never left to DTensor with a weight still sharded on its contracting
+  dimension.
 """
 from __future__ import annotations
 
@@ -51,9 +61,24 @@ class MeshSpec:
 
     @staticmethod
     def for_mesh(mesh) -> "MeshSpec":
-        names = tuple(mesh.axis_names)
+        names = axis_names(mesh)
         data = tuple(n for n in names if n in ("pod", "data"))
         return MeshSpec(data=data, model="model" if "model" in names else names[-1])
+
+
+def axis_names(mesh) -> tuple[str, ...]:
+    """The axis names of a ``DeviceMesh`` or of a mesh description."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    return tuple(names if names is not None else mesh.axis_names)
+
+
+def axis_sizes(mesh) -> dict[str, int]:
+    """Axis name -> size, in axis order, of a ``DeviceMesh``
+    (``mesh_dim_names``, ``size(i)``) or of a description whose ``.shape``
+    maps names to sizes (``jax.sharding.Mesh.shape``)."""
+    if getattr(mesh, "mesh_dim_names", None) is not None:
+        return {n: mesh.size(i) for i, n in enumerate(mesh.mesh_dim_names)}
+    return dict(mesh.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -251,11 +276,12 @@ def barrier() -> None:
 
 
 def tp_size(mesh, ms: MeshSpec) -> int:
-    return mesh.shape[ms.model]
+    return axis_sizes(mesh)[ms.model]
 
 
 def dp_size(mesh, ms: MeshSpec) -> int:
-    return int(math.prod(mesh.shape[a] for a in ms.data))
+    sizes = axis_sizes(mesh)
+    return int(math.prod(sizes[a] for a in ms.data))
 
 
 def dp_axes_for(batch: int, mesh, ms: MeshSpec) -> tuple[str, ...]:
@@ -264,12 +290,13 @@ def dp_axes_for(batch: int, mesh, ms: MeshSpec) -> tuple[str, ...]:
     E.g. batch=32 on ("pod","data")=(2,16) -> both axes; batch=8 -> ("data",)
     only if 8 % 16 == 0 fails -> (); batch=1 -> ().
     """
+    sizes = axis_sizes(mesh)
     axes: tuple[str, ...] = ()
     prod = 1
     for a in reversed(ms.data):
-        if batch % (prod * mesh.shape[a]) == 0:
+        if batch % (prod * sizes[a]) == 0:
             axes = (a,) + axes
-            prod *= mesh.shape[a]
+            prod *= sizes[a]
         else:
             break
     return axes
@@ -471,3 +498,214 @@ def state_pspecs(cfg: ModelConfig, state_shape: PyTree, ms: MeshSpec,
         return (None,) * nd
 
     return _map_with_path(one, state_shape)
+
+
+# ---------------------------------------------------------------------------
+# DTensor placements of the specs
+# ---------------------------------------------------------------------------
+
+
+def placements_for(spec: tuple, mesh) -> list:
+    """The DTensor placements (one a mesh axis) of a spec (one entry a
+    tensor dim): ``Shard(d)`` on each mesh axis that tensor dim ``d``
+    names, ``Replicate()`` on the others. A dim that names several axes,
+    such as ``("pod", "data")``, is split over them with the first-named
+    axis major, as JAX's ``NamedSharding`` splits it; DTensor splits in
+    mesh-axis order, so the names must come in that order. An axis of
+    size one holds the whole dim: it stays ``Replicate()`` (DTensor
+    refuses to reshape a dim it counts as split, even over one rank)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = axis_names(mesh)
+    sizes = axis_sizes(mesh)
+    out = [Replicate()] * len(names)
+    for d, s in enumerate(spec):
+        if s is None:
+            continue
+        axes = s if isinstance(s, tuple) else (s,)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec} names {axes} out of the mesh's "
+                             f"axis order {names}")
+        for i in idx:
+            if sizes[names[i]] > 1:   # a block of one rank is the whole
+                out[i] = Shard(d)
+    return out
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, tuple) and all(
+        s is None or isinstance(s, (str, tuple)) for s in x)
+
+
+def _map_specs(fn, tree: PyTree, specs: PyTree) -> PyTree:
+    """``fn(leaf, spec)`` over a tree and its spec tree (a spec is a tuple
+    of axis entries, so it is a leaf here, not a container)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_specs(fn, getattr(tree, f),
+                                       getattr(specs, f))
+                            for f in tree._fields))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_specs(fn, v, s) for v, s in zip(tree, specs))
+    assert _is_spec(specs), specs
+    return fn(tree, specs)
+
+
+def distribute_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
+    """Every tensor of ``tree`` as a DTensor placed by its spec. Each rank
+    already holds the whole tree (drawn from the same seed, read from the
+    same file, or on the ``meta`` device) and keeps its own block, with no
+    communication."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return _map_specs(
+        lambda t, s: distribute_tensor(t, mesh, placements_for(s, mesh),
+                                       src_data_rank=None),
+        tree, specs)
+
+
+def mesh_zeros(shape, dtype, spec: tuple, mesh, device) -> torch.Tensor:
+    """A DTensor of zeros of global ``shape`` placed by ``spec``: each rank
+    allocates only its own block."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    pl = placements_for(spec, mesh)
+    local, _ = compute_local_shape_and_global_offset(shape, mesh, pl)
+    return DTensor.from_local(torch.zeros(local, dtype=dtype, device=device),
+                              mesh, pl, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def whole(tree: PyTree) -> PyTree:
+    """``tree`` (or one leaf) with every DTensor gathered into a plain
+    tensor, the whole of it on every rank (a collective: every rank of the
+    mesh calls it); other leaves as they are."""
+    from torch.distributed.tensor import DTensor
+
+    def one(x):
+        return x.full_tensor() if isinstance(x, DTensor) else x
+    return _map_with_path(lambda _, x: one(x), tree)
+
+
+def block_index(mesh, dims: Sequence[int]) -> int:
+    """This rank's block of a dim split over the mesh dims ``dims``, the
+    first of them major (``placements_for``'s order): the block's offset
+    is this index times the block's length."""
+    block = 0
+    for i in dims:
+        block = block * mesh.size(i) + mesh.get_local_rank(i)
+    return block
+
+
+def drop_nondividing(spec: tuple, shape, mesh) -> tuple:
+    """``spec`` with every entry whose axes' sizes multiply to a number
+    that does not divide its dim set to None: the reference's rule for an
+    axis that does not divide a dim (an unpadded config's kv heads, an
+    odd batch)."""
+    sizes = axis_sizes(mesh)
+    out = []
+    for dim, s in zip(shape, spec):
+        axes = () if s is None else s if isinstance(s, tuple) else (s,)
+        n = math.prod(sizes[a] for a in axes)
+        out.append(s if n and dim % n == 0 else None)
+    return tuple(out)
+
+
+def even_placements(placements, shape, mesh) -> list:
+    """A DTensor's ``placements`` with every ``Shard(d)`` whose mesh axis
+    does not divide ``shape[d]`` made ``Replicate()``: ``drop_nondividing``
+    on placements. ``shape`` may count a dim in whole units (heads, not
+    head-dim elements), so that a block holds whole units."""
+    from torch.distributed.tensor import Replicate
+
+    return [Replicate() if p.is_shard() and shape[p.dim] % mesh.size(i)
+            else p for i, p in enumerate(placements)]
+
+
+def tp_only(x, mesh_dims: Sequence[int]):
+    """A DTensor regathered over the mesh dims ``mesh_dims`` (the data
+    axes), and over any axis that splits a dim unevenly (qwen2-moe's 60
+    experts over a model axis of 16 under ``ep``, ``even_placements``):
+    its placements there become ``Replicate()``, the others stay. A plain
+    tensor is returned as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    pl = list(x.placements)
+    new = [Replicate() if i in mesh_dims else p for i, p in
+           enumerate(even_placements(pl, x.shape, mesh))]
+    if new == pl:
+        return x
+    return x.redistribute(mesh, new)
+
+
+class ShardFn:
+    """The models' ``shard(name, x)`` hook on a mesh (``make_shard_fn``).
+
+    Activation names redistribute ``x`` to the reference's table (below);
+    ``"weights"`` regathers a tree of parameter DTensors to their TP-only
+    layout (``tp_only`` over the data axes); any other name, and any plain
+    tensor, passes through."""
+
+    def __init__(self, mesh, ms: MeshSpec, dp: tuple[str, ...]):
+        self.mesh, self.ms, self.dp = mesh, ms, tuple(dp)
+        names = axis_names(mesh)
+        self.data_dims = tuple(names.index(a) for a in ms.data
+                               if a in names)
+        m, d = ms.model, _n(self.dp)
+        # the reference's table; ``act_moe_ff`` is written for the port's
+        # (E, B·C, m) expert activations, the reference's (B, E, C, m)
+        self.table = {
+            "act_btd": (d, None, None),
+            "act_btd_dec": (d, None, None),
+            "act_heads": (d, None, m, None),
+            "act_kv_heads": (d, None, m, None),
+            "act_ff": (d, None, m),
+            "act_ssm": (d, None, m),
+            "act_moe_ff": (None, d, m),
+            "logits": (d, None, m),
+        }
+
+    def spec(self, name: str, shape) -> Optional[tuple]:
+        """The table's spec for ``name`` at ``shape``, each axis that does
+        not divide its dimension dropped (the reference's rule); None for
+        a name not in the table."""
+        spec = self.table.get(name)
+        return None if spec is None else drop_nondividing(spec, shape,
+                                                          self.mesh)
+
+    def __call__(self, name: str, x):
+        from torch.distributed.tensor import DTensor
+
+        if name == "weights":
+            return _map_with_path(lambda _, t: tp_only(t, self.data_dims), x)
+        spec = self.spec(name, getattr(x, "shape", ()))
+        if spec is None or not isinstance(x, DTensor):
+            return x
+        pl = placements_for(spec + (None,) * (x.ndim - len(spec)), self.mesh)
+        if tuple(pl) == tuple(x.placements):
+            return x
+        return x.redistribute(self.mesh, pl)
+
+
+def make_shard_fn(mesh, ms: MeshSpec, dp: tuple[str, ...]) -> ShardFn:
+    """Returns the ``shard(name, x)`` hook the model layers call (see
+    ``ShardFn``)."""
+    return ShardFn(mesh, ms, dp)
+
+
+def opt_state_specs(opt_state: PyTree, pspecs: PyTree) -> PyTree:
+    """The optimizer state's specs: the moment trees (``mu``, ``nu``)
+    mirror the parameters' specs, every other leaf (``count``) is
+    replicated (the reference's ``_opt_state_specs``)."""
+    return {k: (pspecs if k in ("mu", "nu") else
+                _map_with_path(lambda _, t: (None,) * t.ndim, v))
+            for k, v in opt_state.items()}

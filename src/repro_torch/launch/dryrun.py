@@ -1,15 +1,26 @@
-"""Dry-run of the port on one device: trace every (architecture × input
-shape) cell's step on the ``meta`` device and extract its roofline terms.
-The port of ``repro.launch.dryrun``.
+"""Dry-run of the port: trace every (architecture × input shape) cell's
+step on the ``meta`` device and extract its roofline terms, on one device
+or on the reference's production meshes. The port of
+``repro.launch.dryrun``.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh both [--ep]
 
-Results land in ``experiments/dryrun_torch/<arch>__<shape>__1x1.json``
-(``--out``), one record a cell with the reference's keys. Nothing here
-allocates device memory or needs a card: the step runs on ``meta`` tensors,
-which carry shapes and dtypes and no data, and importing the module touches
-no device. Unlike the reference it sets no ``XLA_FLAGS``: there is no
-compiler to force devices on.
+Results land in ``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``
+(``--out``; ``<mesh>`` is ``1x1``, ``16x16`` or ``2x16x16``), one record a
+cell with the reference's keys. Nothing here allocates device memory or
+needs a card: the step runs on ``meta`` tensors, which carry shapes and
+dtypes and no data, and importing the module touches no device. Unlike the
+reference it sets no ``XLA_FLAGS``: there is no compiler to force devices
+on.
+
+``--mesh local`` (the default) runs one device. ``--mesh single`` /
+``multi`` / ``both`` run the 16x16 and / or 2x16x16 meshes
+(``launch.mesh.make_production_mesh``): a child process per mesh joins a
+``fake`` process group of 256 or 512 ranks (collectives that move
+nothing), builds the ``DeviceMesh`` and runs each cell's sharded step
+(``make_step_for_cell(mesh=)``, ``--ep`` the expert-parallel MoE layout)
+on meta DTensors, as rank 0; the caller keeps no process group.
 
 What a cell counts (``_cost_triple``), in one pass of the step under a
 ``TorchDispatchMode``:
@@ -27,8 +38,20 @@ What a cell counts (``_cost_triple``), in one pass of the step under a
 * memory: the live storage bytes, each storage counted once however many
   views it has and freed when its last reference dies (so the tensors that
   autograd saves stay counted through the backward), and their peak.
-* collectives: none, with zero counts, until the LM mesh (ROADMAP
-  queue 1, item 7.2).
+* collectives, on a mesh: every ``_c10d_functional`` collective the
+  DTensors issue (their redistributes, the split-K decode's gathers) by
+  the reference's kinds (``all-gather``, ``all-reduce``,
+  ``reduce-scatter``, ``all-to-all``, ``collective-permute``) and their
+  ``counts``, which ``CommDebugMode`` counts alongside; the bytes are each
+  collective's result, as ``collective_bytes_from_hlo`` sums them, and
+  ``by_axis`` splits them by the mesh axis whose group ran them.
+
+Every count is **per device**, as the reference's ``roofline_terms``
+reads its terms: the mode sees the ops each rank runs on its own blocks
+(a DTensor op is handed on to DTensor, whose local ops the mode then
+counts; the shape propagation DTensor runs on fake tensors is not
+counted), so a matmul on a weight split four ways counts a quarter of its
+FLOPs, and memory is the rank's own blocks.
 
 As in the reference, the terms come from depth probes
 (``layer_delta_costs``): the step at 1 and 2 units of depth
@@ -40,7 +63,14 @@ depth's argument specs.
 
 Hardware model (NVIDIA H100 SXM, data sheet, dense, at its 700 W limit):
 989 TFLOP/s bf16 on the tensor cores, 3.35 TB/s of HBM3, NVLink 4 at 18
-links of 25 GB/s a direction.
+links of 25 GB/s a direction (450 GB/s a card, within a node of 8), and
+between nodes one ConnectX-7 NDR InfiniBand port of 400 Gb/s (50 GB/s) a
+card (the DGX H100 / HGX H100 reference design: 8 cards a node, a NIC a
+card). A mesh is laid out row-major over nodes of 8 ranks, so an axis
+whose ranks stay within one node (the innermost axis of at most 8) is
+charged the NVLink rate, and any other axis (the 16-wide model axis, whose
+ring spans two nodes; the data and pod axes, whose ranks are 16 apart) the
+InfiniBand rate (``axis_rates``).
 """
 from __future__ import annotations
 
@@ -65,6 +95,8 @@ PEAK_FLOPS = 989e12        # bf16 tensor-core FLOP/s
 HBM_BW = 3.35e12           # HBM3 bytes/s
 NVLINK_BW = 25e9           # bytes/s per NVLink 4 link, per direction
 NVLINK_LINKS = 18          # NVLink 4 links of one H100 SXM
+IB_BW = 50e9               # bytes/s: one NDR 400 Gb/s port a card
+NODE_GPUS = 8              # cards of one NVLink node (DGX / HGX H100)
 
 _DTYPE_BYTES = {
     "pred": 1, "s8": 1, "u8": 1, "s16": 2, "u16": 2, "bf16": 2, "f16": 2,
@@ -118,14 +150,32 @@ def collective_bytes_from_hlo(hlo: str) -> dict:
     return out
 
 
-def roofline_terms(flops: float, hbm_bytes: float, coll: dict, chips: int) -> dict:
+def axis_rates(sizes: dict) -> dict:
+    """Mesh axis -> the bytes/s a card moves its collectives at (the module
+    docstring's layout): NVLink for the innermost axis when it fits in a
+    node, InfiniBand for every other axis."""
+    names = list(sizes)
+    return {a: (NVLINK_BW * NVLINK_LINKS
+                if i == len(names) - 1 and sizes[a] <= NODE_GPUS else IB_BW)
+            for i, a in enumerate(names)}
+
+
+def roofline_terms(flops: float, hbm_bytes: float, coll: dict, chips: int,
+                   rates: dict | None = None) -> dict:
     """All inputs are PER-DEVICE quantities, so each term divides by one
     card's peak; ``chips`` is kept only for bookkeeping, as in the
-    reference. The collective term runs over every NVLink of the card."""
+    reference. The collective term charges each axis's bytes
+    (``coll["by_axis"]``) at its rate (``rates``, from ``axis_rates``);
+    bytes with no axis run over every NVLink of the card."""
     coll_bytes = sum(v for k, v in coll.items() if k in _COLLECTIVES)
     t_compute = flops / PEAK_FLOPS
     t_memory = hbm_bytes / HBM_BW
-    t_collective = coll_bytes / (NVLINK_BW * NVLINK_LINKS)
+    by_axis = coll.get("by_axis") or {}
+    rates = rates or {}
+    t_collective = sum(b / rates.get(a, NVLINK_BW * NVLINK_LINKS)
+                       for a, b in by_axis.items())
+    t_collective += (coll_bytes - sum(by_axis.values())) / (
+        NVLINK_BW * NVLINK_LINKS)
     dominant = max(
         ("compute", t_compute), ("memory", t_memory), ("collective", t_collective),
         key=lambda kv: kv[1],
@@ -173,7 +223,20 @@ _SCATTER = {"index_copy_": ("source", False), "index_add_": ("source", True),
 
 
 def _tensors(tree) -> list:
-    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+    """The tensors of ``tree``, each DTensor as its own rank's block."""
+    from torch.distributed.tensor import DTensor
+
+    return [t.to_local() if isinstance(t, DTensor) else t
+            for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+#: ``_c10d_functional`` collectives -> the reference's kinds
+_FUNCOL = {"all_gather_into_tensor": "all-gather",
+           "all_gather_into_tensor_coalesced": "all-gather",
+           "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+           "reduce_scatter_tensor": "reduce-scatter",
+           "reduce_scatter_tensor_coalesced": "reduce-scatter",
+           "all_to_all_single": "all-to-all"}
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -223,8 +286,12 @@ class _CostMode(TorchDispatchMode):
     bytes they read and write, and the live storage bytes with their
     peak."""
 
-    def __init__(self):
+    def __init__(self, groups: dict | None = None):
         super().__init__()
+        self.groups = groups or {}   # process-group name -> mesh axis
+        self.coll = {k: 0 for k in _COLLECTIVES}
+        self.coll["counts"] = {k: 0 for k in _COLLECTIVES}
+        self.coll["by_axis"] = {}
         self.flops = 0
         self.flops_by_op: collections.Counter = collections.Counter()
         self.hbm_bytes = 0
@@ -252,8 +319,33 @@ class _CostMode(TorchDispatchMode):
         self.live -= self._sizes.pop(key)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch._subclasses.fake_tensor import FakeTensor
+        from torch.distributed.tensor import DTensor
+
         kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented        # DTensor runs it on the blocks
         out = func(*args, **kwargs)
+        if any(issubclass(t, FakeTensor) for t in types):
+            return out                   # DTensor's shape propagation
+        ns, _, name = func._schema.name.partition("::")
+        kind = _FUNCOL.get(name) if ns == "_c10d_functional" else None
+        if kind is not None:
+            n = sum(_nbytes(t) for t in _tensors(out))
+            self.coll[kind] += n
+            self.coll["counts"][kind] += 1
+            axis = next((self.groups[a] for a in args
+                         if isinstance(a, str) and a in self.groups), None)
+            if axis is not None:
+                by = self.coll["by_axis"]
+                by[axis] = by.get(axis, 0) + n
+            self.track(out)
+            return out
+        if self.groups and name in _NO_WRITE:
+            # on a mesh an allocation counts from its first write: DTensor's
+            # sharding propagation allocates global-shape tensors it never
+            # writes
+            return out
         count = flop_registry.get(func._overloadpacket)
         if count is not None:
             n = int(count(*args, **kwargs, out_val=out))
@@ -270,24 +362,46 @@ def _storage_bytes(tree) -> int:
                 for t in _tensors(tree)}.values())
 
 
-def _cost_triple(bundle) -> tuple[float, float, dict, dict]:
+def _groups(mesh) -> dict:
+    """Process-group name -> axis name of each axis of a ``DeviceMesh``."""
+    if mesh is None:
+        return {}
+    return {mesh.get_group(i).group_name: n
+            for i, n in enumerate(mesh.mesh_dim_names)}
+
+
+def _cost_triple(bundle, mesh=None) -> tuple[float, float, dict, dict]:
     """(flops, hbm_bytes, collective-bytes-by-kind, memory) of one call of
     ``bundle.fn`` on its meta-device ``arg_specs`` (the reference's triple
     from XLA's cost analysis, and the memory that its compiled executable's
     ``memory_analysis`` gives): memory is ``{"argument", "output", "temp",
     "peak"}``, the arguments' storages, the results' new storages, and the
     peak of live storage bytes over the call, ``peak = argument + output +
-    temp``."""
+    temp``. On a mesh every quantity is rank 0's (the module docstring);
+    ``CommDebugMode``'s count of the collectives must agree with the
+    mode's."""
     args = bundle.arg_specs
-    mode = _CostMode()
+    mode = _CostMode(_groups(mesh))
     argument = mode.track(args)
-    with mode:
-        out = bundle.fn(*args)
+    if mesh is None:
+        with mode:
+            out = bundle.fn(*args)
+        coll = {k: mode.coll[k] for k in _COLLECTIVES}
+        coll["counts"] = mode.coll["counts"]
+    else:
+        from torch.distributed.tensor.debug import CommDebugMode
+
+        comm = CommDebugMode()
+        with comm, mode:
+            out = bundle.fn(*args)
+        coll = mode.coll
+        if comm.get_total_counts() != sum(coll["counts"].values()):
+            raise RuntimeError(f"CommDebugMode counted "
+                               f"{comm.get_total_counts()} collectives, the "
+                               f"cost mode {coll['counts']}")
     arg_keys = {_key(t) for t in _tensors(args)}
     output = _storage_bytes([t for t in _tensors(out)
                              if _key(t) not in arg_keys])
-    coll = {k: 0 for k in _COLLECTIVES}
-    coll["counts"] = {k: 0 for k in _COLLECTIVES}
     mem = dict(argument=argument, output=output,
                temp=mode.peak - argument - output, peak=mode.peak)
     return float(mode.flops), float(mode.hbm_bytes), coll, mem
@@ -308,6 +422,17 @@ def _bundle(cfg, shape, **kw):
     return make_step_for_cell(cfg, shape, device="meta", **kw)
 
 
+def _ext_coll(c1: dict, c2: dict, ext) -> dict:
+    coll = {k: ext(c1[k], c2[k]) for k in _COLLECTIVES}
+    coll["counts"] = {k: ext(c1["counts"][k], c2["counts"][k])
+                      for k in _COLLECTIVES}
+    if "by_axis" in c1:
+        axes = list(dict.fromkeys(list(c1["by_axis"]) + list(c2["by_axis"])))
+        coll["by_axis"] = {a: ext(c1["by_axis"].get(a, 0),
+                                  c2["by_axis"].get(a, 0)) for a in axes}
+    return coll
+
+
 def layer_delta_costs(cfg, shape, **step_kw) -> dict:
     """Whole-model costs extrapolated from 1-unit vs 2-unit probes at full
     width: FLOPs, bytes, and the output / temp / peak memory; the argument
@@ -319,15 +444,13 @@ def layer_delta_costs(cfg, shape, **step_kw) -> dict:
         if cfg.encoder_layers:
             over["encoder_layers"] = n_layers
         return _cost_triple(_bundle(dataclasses.replace(cfg, **over), shape,
-                                    **step_kw))
+                                    **step_kw), step_kw.get("mesh"))
 
     f1, b1, c1, m1 = probe(L1)
     f2, b2, c2, m2 = probe(L2)
     scale = n_units - 1
     ext = lambda a, b: a + scale * (b - a)  # noqa: E731
-    coll = {k: ext(c1[k], c2[k]) for k in _COLLECTIVES}
-    coll["counts"] = {k: ext(c1["counts"][k], c2["counts"][k])
-                      for k in _COLLECTIVES}
+    coll = _ext_coll(c1, c2, ext)
     argument = _storage_bytes(_bundle(cfg, shape, **step_kw).arg_specs)
     output, temp = ext(m1["output"], m2["output"]), ext(m1["temp"], m2["temp"])
     mem = dict(argument=argument, output=output, temp=temp,
@@ -339,24 +462,38 @@ def layer_delta_costs(cfg, shape, **step_kw) -> dict:
                            peak1=m1["peak"], peak2=m2["peak"]))
 
 
-def cell_costs(cfg, shape, *, accum: int = 1, roofline: bool = True) -> dict:
-    """One cell's costs and roofline terms on one device: the record of
+def cell_costs(cfg, shape, *, accum: int = 1, roofline: bool = True,
+               mesh=None, ep: bool = False, fsdp: bool = True) -> dict:
+    """One cell's costs and roofline terms, per device: the record of
     ``run_cell`` from ``status`` on, for a config and shape given
-    directly. ``compile_s`` is the wall of the meta-device passes (nothing
-    is compiled)."""
+    directly, on one device or over ``mesh`` (a ``DeviceMesh``; ``ep`` and
+    ``fsdp=False`` as the steps take them; ``fsdp`` applies to inference
+    cells only, as in the reference). ``compile_s`` is the wall of the
+    meta-device passes (nothing is compiled)."""
+    from repro_torch.distribution.sharding import axis_sizes
+
     kw = {"accum_steps": accum} if accum > 1 else {}
+    if mesh is not None:
+        kw["mesh"] = mesh
+        if ep:
+            kw["ep"] = True
+        if not fsdp and shape.kind != "train":
+            kw["fsdp"] = False
     t0 = time.perf_counter()
     if roofline:
         delta = layer_delta_costs(cfg, shape, **kw)
     else:
-        f, b, c, m = _cost_triple(_bundle(cfg, shape, **kw))
+        f, b, c, m = _cost_triple(_bundle(cfg, shape, **kw), mesh)
         delta = dict(flops=f, hbm_bytes=b, collectives=c, memory=m,
                      probe=None)
     dt = time.perf_counter() - t0
     coll, flops, hbm_bytes = (delta["collectives"], delta["flops"],
                               delta["hbm_bytes"])
+    sizes = axis_sizes(mesh) if mesh is not None else {}
     chips = 1
-    terms = roofline_terms(flops, hbm_bytes, coll, chips)
+    for n in sizes.values():
+        chips *= n
+    terms = roofline_terms(flops, hbm_bytes, coll, chips, axis_rates(sizes))
     mflops = model_flops(cfg, shape)
     peak_step = max(terms["t_compute_s"], terms["t_memory_s"],
                     terms["t_collective_s"])
@@ -380,87 +517,175 @@ def run_cell(arch: str, shape_name: str, out_dir: Path, *, mesh=None,
              ep: bool = False, accum: int = 1, save: bool = True,
              roofline: bool = True, overrides: dict | None = None,
              fsdp: bool = True) -> dict:
-    """The reference's record of one (arch × shape) cell on one device
-    (``mesh`` ``"1x1"``, ``chips`` 1): ``cell_costs`` of the config, with
-    ``overrides`` (attn_chunk, remat, dtype, ...) applied. A mesh of more
-    than one device and ``ep`` raise. ``fsdp`` (the reference's TP-only
-    inference layout when False) has no effect on one device: the record
-    is the same either way."""
+    """The reference's record of one (arch × shape) cell: ``cell_costs``
+    of the config, with ``overrides`` (attn_chunk, remat, dtype, ...)
+    applied, on one device (``mesh`` None: ``"1x1"``, ``chips`` 1) or over
+    a ``DeviceMesh`` in the calling process's group (``run_mesh_cells``
+    runs the production meshes in a child). ``ep`` needs a mesh;
+    ``fsdp`` (the reference's TP-only inference layout when False) has
+    no effect on one device."""
     from repro_torch import configs
-    from repro_torch.distribution.steps import _no_mesh
-    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.mesh import Mesh, mesh_name
 
-    mesh = make_local_mesh(1, 1) if mesh is None else mesh
-    _no_mesh(mesh, ep)
+    if ep and mesh is None:
+        raise ValueError("--ep shards the experts over a mesh's model "
+                         "axis; one device has none")
     cfg = configs.get(arch)
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     shape = configs.SHAPES[shape_name]
     ok, why = configs.shape_applicable(cfg, shape)
-    rec = dict(arch=arch, shape=shape_name, mesh=mesh.name, status="skip",
+    name = mesh_name(mesh if mesh is not None else Mesh((1, 1),
+                                                        ("data", "model")))
+    rec = dict(arch=arch, shape=shape_name, mesh=name, status="skip",
                why=why)
     if not ok:
         return rec
-    rec.update(cell_costs(cfg, shape, accum=accum, roofline=roofline))
+    rec.update(cell_costs(cfg, shape, accum=accum, roofline=roofline,
+                          mesh=mesh, ep=ep, fsdp=fsdp))
     if save:
         out_dir.mkdir(parents=True, exist_ok=True)
-        tag = "__".join((configs.canonical(arch), shape_name, mesh.name))
+        tag = "__".join((configs.canonical(arch), shape_name, name))
         (out_dir / f"{tag}.json").write_text(json.dumps(rec, indent=2))
     return rec
 
 
+def _mesh_child(sizes, names, jobs, q) -> None:
+    """A child's work (``run_mesh_cells``): join a ``fake`` group of
+    prod(sizes) ranks as rank 0, build the mesh, run each job's cell and
+    put ``(index, record or the error's text)`` on ``q``."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import device_mesh
+
+    n = 1
+    for k in sizes:
+        n *= k
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        mesh = device_mesh(tuple(sizes), tuple(names))
+        for i, (fn, args, kw) in enumerate(jobs):
+            try:
+                q.put((i, fn(*args, mesh=mesh, **kw)))
+            except Exception:  # reported to the caller, cell by cell
+                q.put((i, traceback.format_exc()))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_mesh_cells(sizes: tuple, names: tuple, jobs: list,
+                   timeout_s: float = 3600.0) -> list:
+    """Run ``jobs`` — ``(fn, args, kwargs)``, each called as
+    ``fn(*args, mesh=mesh, **kwargs)`` — in ONE child process on a
+    ``fake`` process group of a ``sizes`` mesh named ``names``; returns
+    their results in order (a failed job's traceback text in its place).
+    The caller keeps no process group."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    proc = ctx.Process(target=_mesh_child,
+                       args=(tuple(sizes), tuple(names), jobs, q))
+    proc.start()
+    out = {}
+    deadline = time.monotonic() + timeout_s
+    try:
+        while len(out) < len(jobs) and time.monotonic() < deadline:
+            try:
+                i, res = q.get(timeout=1.0)
+                out[i] = res
+            except queue.Empty:
+                if proc.exitcode is not None:
+                    break
+    finally:
+        proc.join(10 if len(out) == len(jobs) else 0)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    return [out.get(i, f"the mesh child ended (exit {proc.exitcode}) "
+                       "before this cell") for i in range(len(jobs))]
+
+
+def _print_record(tag: str, rec: dict) -> None:
+    mem = rec["bytes_per_device"]
+    coll = rec["collectives"]
+    by_kind = "  ".join(f"{k} {coll[k] / 1e9:.3f}GB" for k in _COLLECTIVES
+                        if coll[k])
+    print(
+        f"[ ok ] {tag}: passes {rec['compile_s']}s  "
+        f"flops {rec['flops']:.4g}  bytes {rec['hbm_bytes']:.4g}  "
+        f"args {mem['argument'] / 1e9:.3f} GB  "
+        f"peak {mem['peak'] / 1e9:.3f} GB  "
+        f"t_comp {rec['t_compute_s']*1e3:.3f}ms  "
+        f"t_mem {rec['t_memory_s']*1e3:.3f}ms  "
+        f"t_coll {rec['t_collective_s']*1e3:.3f}ms  "
+        f"dom={rec['dominant']}  useful={rec['useful_ratio']:.3f}"
+        + (f"  coll: {by_kind}" if by_kind else ""),
+        flush=True,
+    )
+
+
 def main(argv=None):
     from repro_torch import configs
+    from repro_torch.launch.mesh import PRODUCTION, Mesh
 
-    ap = argparse.ArgumentParser(description="one-device dry-run")
+    ap = argparse.ArgumentParser(description="dry-run on the meta device")
     ap.add_argument("--arch", default="all", help="arch id or 'all'")
     ap.add_argument("--shape", default="all", help="shape name or 'all'")
     ap.add_argument("--mesh", default="local",
                     choices=["local", "single", "multi", "both"],
-                    help="local: one device (make_local_mesh(1, 1)); the "
-                         "production meshes wait for ROADMAP queue 1, item 7.2")
+                    help="local: one device; single: 16x16; multi: "
+                         "2x16x16; both: the two production meshes")
     ap.add_argument("--ep", action="store_true", help="expert-parallel MoE layout")
     ap.add_argument("--accum", type=int, default=1, help="grad-accum microbatches")
     ap.add_argument("--out", default="experiments/dryrun_torch")
     args = ap.parse_args(argv)
-    if args.mesh != "local" or args.ep:
-        print(f"dry-run: --mesh {args.mesh}{' --ep' if args.ep else ''} "
-              "waits for the LM mesh (ROADMAP queue 1, item 7.2); the "
-              "port runs --mesh local", file=sys.stderr, flush=True)
+    if args.ep and args.mesh == "local":
+        print("dry-run: --ep shards the experts over a production mesh's "
+              "model axis; give --mesh single|multi|both", file=sys.stderr,
+              flush=True)
         return 2
 
     archs = list(configs.ARCH_IDS) if args.arch == "all" else [args.arch]
     shapes = list(configs.SHAPES) if args.shape == "all" else [args.shape]
     out_dir = Path(args.out)
+    meshes = {"local": [None], "single": [False], "multi": [True],
+              "both": [False, True]}[args.mesh]
 
     n_ok = n_skip = n_fail = 0
-    for arch in archs:
-        for shape in shapes:
-            tag = f"{arch} × {shape} × 1x1"
-            try:
-                rec = run_cell(arch, shape, out_dir, accum=args.accum)
-            except Exception as e:  # a dry-run failure is a bug in the system
+    for multi in meshes:
+        cells = [(a, s) for a in archs for s in shapes]
+        if multi is None:
+            name = "1x1"
+            results = []
+            for arch, shape in cells:
+                try:
+                    results.append(run_cell(arch, shape, out_dir,
+                                            accum=args.accum))
+                except Exception:  # a dry-run failure is a bug in the system
+                    results.append(traceback.format_exc())
+        else:
+            sizes, names = PRODUCTION[multi]
+            name = Mesh(sizes, names).name
+            # roofline probes are single-pod only, as in the reference; the
+            # multi-pod pass proves the "pod" axis shards and fits
+            jobs = [(run_cell, (arch, shape, out_dir),
+                     dict(ep=args.ep, accum=args.accum, roofline=not multi))
+                    for arch, shape in cells]
+            results = run_mesh_cells(sizes, names, jobs)
+        for (arch, shape), rec in zip(cells, results):
+            tag = f"{arch} × {shape} × {name}"
+            if isinstance(rec, str):
                 n_fail += 1
-                print(f"[FAIL] {tag}: {type(e).__name__}: {e}", flush=True)
-                traceback.print_exc()
-                continue
-            if rec["status"] == "skip":
+                print(f"[FAIL] {tag}:\n{rec}", flush=True)
+            elif rec["status"] == "skip":
                 n_skip += 1
                 print(f"[skip] {tag}: {rec['why']}", flush=True)
             else:
                 n_ok += 1
-                mem = rec["bytes_per_device"]
-                print(
-                    f"[ ok ] {tag}: passes {rec['compile_s']}s  "
-                    f"flops {rec['flops']:.4g}  bytes {rec['hbm_bytes']:.4g}  "
-                    f"args {mem['argument'] / 1e9:.3f} GB  "
-                    f"peak {mem['peak'] / 1e9:.3f} GB  "
-                    f"t_comp {rec['t_compute_s']*1e3:.3f}ms  "
-                    f"t_mem {rec['t_memory_s']*1e3:.3f}ms  "
-                    f"t_coll {rec['t_collective_s']*1e3:.3f}ms  "
-                    f"dom={rec['dominant']}  useful={rec['useful_ratio']:.3f}",
-                    flush=True,
-                )
+                _print_record(tag, rec)
     print(f"\ndry-run: {n_ok} ok, {n_skip} skip, {n_fail} FAIL", flush=True)
     return 1 if n_fail else 0
 

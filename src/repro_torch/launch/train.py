@@ -13,6 +13,11 @@ unless told otherwise.
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --steps 6 --batch 2 --seq 16 --ckpt-every 2 --inject-failure 3
 
+    # on an LM mesh of data x model ranks (one card a rank; gloo with
+    # --device cpu)
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --data 2 --model-axis 2 --steps 6 --batch 4 --seq 16
+
 Features exercised end to end (DESIGN.md §4), as in the reference's
 ``repro.launch.train``:
   * the train step built by ``distribution/steps.py::make_train_step``;
@@ -24,10 +29,17 @@ Features exercised end to end (DESIGN.md §4), as in the reference's
     median are counted and logged.
 
 Parameters are drawn from ``torch.Generator(device).manual_seed(0)``. A
-step's time ends at a device sync (reading its loss). ``--data`` /
-``--model-axis`` above 1 wait for the LM mesh (ROADMAP queue 1, item 7.2).
-``main`` returns the run's summary: steps, the step it started from, the
-steps the drill resumed at, each step's loss and time, stragglers.
+step's time ends at a device sync (reading its loss). ``main`` returns the
+run's summary: steps, the step it started from, the steps the drill resumed
+at, each step's loss and time, stragglers.
+
+``--data`` / ``--model-axis`` above 1 run the step SPMD on an LM mesh
+(``launch.mesh.make_local_mesh(data, model)``) under ``torchrun`` (world =
+data x model): NCCL with ``LOCAL_RANK``'s card, or gloo with ``--device
+cpu`` (``distribution.sharding.init_from_env``). Every rank draws the same
+parameters and batches and keeps its own blocks (FSDP+TP parameters and
+moments, the batch over the data axis); checkpoints hold whole leaves
+written by rank 0, so a run resumes onto another mesh; only rank 0 logs.
 """
 from __future__ import annotations
 
@@ -65,42 +77,53 @@ def main(argv=None) -> dict:
                     help="torch device of the model (default: the CUDA card; "
                          "'cpu' runs on the host)")
     args = ap.parse_args(argv)
-    if args.data != 1 or args.model_axis != 1:
-        raise NotImplementedError(
-            "--data / --model-axis above 1: the LM mesh is not ported yet "
-            "(ROADMAP queue 1, item 7.2)")
 
     from repro_torch import configs
     from repro_torch.checkpoint import CheckpointStore
     from repro_torch.configs.base import InputShape
     from repro_torch.data.synthetic import make_batch
+    from repro_torch.distribution import sharding as sh
     from repro_torch.distribution.steps import make_train_step
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import init_params
     from repro_torch.optim import adamw
     from repro_torch.utils import resolve_device
 
+    n_mesh = args.data * args.model_axis
+    if n_mesh > 1:
+        args.device = sh.init_from_env(args.device)
     device = resolve_device(args.device, "repro_torch.launch.train")
+    mesh = make_local_mesh(args.data, args.model_axis) if n_mesh > 1 \
+        else None
+    log = print if sh.is_writer() else (lambda *a, **k: None)
     cfg = configs.get(args.arch, reduced=args.reduced)
     shape = InputShape("cli", args.seq, args.batch, "train")
     opt = adamw(lr=args.lr)
     store = CheckpointStore(Path(args.ckpt_dir) / configs.canonical(args.arch),
                             device=device)
+    bundle = make_train_step(cfg, opt, shape, accum_steps=args.accum,
+                             device=device, mesh=mesh)
+    step_fn = bundle.fn
+    place = (lambda tree, key: tree) if mesh is None else \
+        (lambda tree, key: sh.distribute_tree(tree, bundle.meta[key], mesh))
 
     def fresh():
         params = init_params(cfg, torch.Generator(device).manual_seed(0),
                              args.seq)
-        return params, opt.init(params)
+        return place(params, "pspecs"), place(opt.init(params), "ospecs")
 
-    step_fn = make_train_step(cfg, opt, shape, accum_steps=args.accum,
-                              device=device).fn
+    def restore(skel):
+        restored, at, _ = store.restore(
+            skel, shardings=None if mesh is None else skel)
+        return restored["params"], restored["opt"], at
+
     params, opt_state = fresh()
 
     start = 0
     if store.latest_step() is not None:
-        skel = {"params": params, "opt": opt_state}
-        restored, start, _ = store.restore(skel)
-        params, opt_state = restored["params"], restored["opt"]
-        print(f"[resume] restored step {start} from {store.dir}")
+        params, opt_state, start = restore({"params": params,
+                                            "opt": opt_state})
+        log(f"[resume] restored step {start} from {store.dir}")
 
     injected = {"done": start >= args.inject_failure > 0}
     durations: list[float] = []
@@ -112,8 +135,8 @@ def main(argv=None) -> dict:
     step = start
     while step < args.steps:
         try:
-            batch = make_batch(cfg, args.batch, args.seq, seed=step,
-                               device=device)
+            batch = place(make_batch(cfg, args.batch, args.seq, seed=step,
+                                     device=device), "bspecs")
             t0 = time.perf_counter()
             if args.inject_failure and step == args.inject_failure and not injected["done"]:
                 injected["done"] = True
@@ -126,31 +149,30 @@ def main(argv=None) -> dict:
             med = float(np.median(durations[-50:]))
             if len(durations) > 5 and dt > args.straggler_factor * med:
                 stragglers += 1
-                print(f"[straggler] step {step}: {dt:.2f}s vs median {med:.2f}s")
+                log(f"[straggler] step {step}: {dt:.2f}s vs median {med:.2f}s")
             step += 1
             if step % args.log_every == 0:
-                print(f"step {step}: loss {loss:.4f} "
+                log(f"step {step}: loss {loss:.4f} "
                       f"({dt*1000:.0f} ms/step)")
             if args.ckpt_every and step % args.ckpt_every == 0:
                 store.save_async(step, {"params": params, "opt": opt_state})
         except InjectedFailure as e:
-            print(f"[failure] {e} -> restoring latest checkpoint")
+            log(f"[failure] {e} -> restoring latest checkpoint")
             store.wait()
             latest = store.latest_step()
             if latest is None:
-                print("[failure] no checkpoint yet; restarting from step 0")
+                log("[failure] no checkpoint yet; restarting from step 0")
                 params, opt_state = fresh()
                 step = 0
             else:
-                skel = {"params": params, "opt": opt_state}
-                restored, step, _ = store.restore(skel)
-                params, opt_state = restored["params"], restored["opt"]
+                params, opt_state, step = restore({"params": params,
+                                                   "opt": opt_state})
             resumed_at.append(step)
-            print(f"[failure] resumed at step {step}")
+            log(f"[failure] resumed at step {step}")
     store.wait()
     store.save(step, {"params": params, "opt": opt_state})
     total = time.perf_counter() - t_train0
-    print(f"done: {step} steps in {total:.1f}s "
+    log(f"done: {step} steps in {total:.1f}s "
           f"({1000*total/max(step-start,1):.0f} ms/step avg), "
           f"stragglers={stragglers}, final loss {loss:.4f}")
     return {"steps": step, "start": start, "resumed_at": resumed_at,

@@ -30,6 +30,16 @@ Conventions
   plain jnp in the reference (its ``mamba2_mix`` runs its own chunked scan,
   ``_ssd_scan`` here, not the SSD kernel). Decode writes its caches and
   states in place (``attention_decode``, ``lm.forward_decode``).
+* ``shard(name, x)`` is the reference's injection point for its sharding
+  constraints, called at the reference's points; the default is the
+  identity. On an LM mesh (``distribution.sharding.make_shard_fn``) the
+  activations are DTensors and the hook redistributes them. The kernels
+  and the scans run on each rank's own block (``on_blocks``: the batch
+  where it is sharded, the heads on the model axis), since heads are
+  independent and DTensor has no rule for a hand-written kernel; the
+  decode attention's split-K mode (the cache's positions sharded over the
+  data axes) combines each rank's softmax partials itself
+  (``_decode_attend``).
 * ``moe_apply`` is the reference's GShard capacity dispatch in plain torch
   (its dispatch and combine are one-hot einsums outside any Pallas kernel
   there): an f32 router, top-k with renormalised gates, each (token,
@@ -50,6 +60,88 @@ from repro_torch.configs.base import ModelConfig
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def _noshard(name: str, x):
+    return x
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward hands a contiguous gradient on: a
+    gradient that leaves a local block in another layout (an einsum's
+    backward) would reach DTensor's ``view`` of the block's producer,
+    which cannot view it."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def on_blocks(fn, args: tuple, dims: tuple, out_dims: tuple):
+    """``fn`` on each rank's own block of DTensor ``args``, outputs wrapped
+    back as DTensors. ``dims[i]`` is ``(batch dim, head dim)`` of
+    ``args[i]`` (None where it has none; non-tensor args pass through) and
+    ``out_dims`` the same for each output. The mesh axes that split the
+    first argument's batch or head dim keep splitting them, in every
+    argument and output; the others are replicated. A head split that some
+    argument's head count does not divide (GQA's kv heads below the model
+    axis) runs the heads whole on every rank instead. Plain tensors count
+    as replicated. ``to_local`` / ``from_local`` carry the gradients; an
+    argument replicated over an axis that splits the others' blocks gets a
+    partial gradient there (each rank's share of it)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    lead = args[0]
+    mesh = lead.device_mesh
+    b0, h0 = dims[0]
+    roles = []
+    for pl in lead.placements:
+        d = pl.dim if isinstance(pl, Shard) else None
+        roles.append("b" if d is not None and d == b0 else
+                     "h" if d is not None and d == h0 else None)
+    for role, k in (("b", 0), ("h", 1)):
+        n = 1
+        for i, r in enumerate(roles):
+            n *= mesh.size(i) if r == role else 1
+        if any(isinstance(a, torch.Tensor) and dd[k] is not None
+               and a.shape[dd[k]] % n for a, dd in zip(args, dims)):
+            roles = [None if r == role else r for r in roles]
+
+    def placement(dd):
+        return [Shard(dd[0]) if r == "b" and dd[0] is not None else
+                Shard(dd[1]) if r == "h" and dd[1] is not None else
+                Replicate() for r in roles]
+
+    def local(a, dd):
+        if not isinstance(a, torch.Tensor):
+            return a
+        if not isinstance(a, DTensor):
+            a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        pl = placement(dd)
+        grad_pl = [Partial() if p.is_replicate() and r is not None else p
+                   for p, r in zip(pl, roles)]
+        x = a.redistribute(mesh, pl).to_local(grad_placements=grad_pl)
+        return _ContiguousGrad.apply(x) if x.requires_grad else x
+
+    out = fn(*(local(a, dd) for a, dd in zip(args, dims)))
+    single = not isinstance(out, tuple)
+    outs = (out,) if single else out
+    wrapped = tuple(
+        DTensor.from_local(o, mesh, placement(dd), run_check=False)
+        if isinstance(o, torch.Tensor) else o
+        for o, dd in zip(outs, out_dims))
+    return wrapped[0] if single else wrapped
 
 
 def _init(gen: Optional[torch.Generator], shape, scale, dtype,
@@ -133,6 +225,20 @@ def init_attention(gen, cfg: ModelConfig, device, *,
     return p
 
 
+def split_heads(x, n: int, hd: int):
+    """(..., n·hd) -> (..., n, hd). On an LM mesh, an axis that would split
+    the heads unevenly (an unpadded config's GQA kv heads below the model
+    axis) is gathered first: its blocks would not be whole heads."""
+    if _is_dtensor(x):
+        from repro_torch.distribution.sharding import even_placements
+
+        mesh = x.device_mesh
+        pl = even_placements(x.placements, x.shape[:-1] + (n,), mesh)
+        if pl != list(x.placements):
+            x = x.redistribute(mesh, pl)
+    return x.reshape(*x.shape[:-1], n, hd)
+
+
 def _project_qkv(p, cfg: ModelConfig, x, kv_src):
     """Returns q (B,S,nq,hd), k,v (B,Skv,nkv,hd)."""
     hd = cfg.resolved_head_dim
@@ -143,9 +249,9 @@ def _project_qkv(p, cfg: ModelConfig, x, kv_src):
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     B, S = x.shape[:2]
     Skv = kv_src.shape[1]
-    q = q.reshape(B, S, cfg.num_heads, hd)
-    k = k.reshape(B, Skv, cfg.num_kv_heads, hd)
-    v = v.reshape(B, Skv, cfg.num_kv_heads, hd)
+    q = split_heads(q, cfg.num_heads, hd)
+    k = split_heads(k, cfg.num_kv_heads, hd)
+    v = split_heads(v, cfg.num_kv_heads, hd)
     return q, k, v
 
 
@@ -159,6 +265,12 @@ def attention_core(q, k, v, *, causal: bool, chunk: int, q_offset: int = 0,
     flash-attention kernel (``kernels/ops.py::flash_attention``; its plain
     version on CPU tensors).
     """
+    if _is_dtensor(q):  # an LM mesh: each rank's batch rows and heads
+        return on_blocks(
+            lambda q, k, v: attention_core(q, k, v, causal=causal,
+                                           chunk=chunk, q_offset=q_offset,
+                                           impl=impl),
+            (q, k, v), ((0, 2),) * 3, ((0, 2),))
     if impl == "pallas":
         from repro_torch.kernels import ops as kops
 
@@ -210,7 +322,7 @@ def attention_core(q, k, v, *, causal: bool, chunk: int, q_offset: int = 0,
 
 
 def attention_apply(p: dict, cfg: ModelConfig, x, *, kv_src=None,
-                    causal: Optional[bool] = None):
+                    causal: Optional[bool] = None, shard=_noshard):
     """Full prefill attention (self by default, cross if kv_src given).
     ``causal`` overrides ``cfg.causal`` (whisper's encoder runs non-causal);
     cross-attention is never causal and never takes the kernel, as in the
@@ -222,16 +334,21 @@ def attention_apply(p: dict, cfg: ModelConfig, x, *, kv_src=None,
         pos = torch.arange(x.shape[1], device=x.device)
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
+    q = shard("act_heads", q)
+    k = shard("act_kv_heads", k)
+    v = shard("act_kv_heads", v)
     is_causal = cfg.causal if causal is None else causal
     o = attention_core(
         q, k, v, causal=is_causal and not cross, chunk=cfg.attn_chunk,
         impl=cfg.attn_impl if cfg.attn_impl != "pallas" or not cross else "chunked",
     )
+    o = shard("act_heads", o)
     B, S = x.shape[:2]
     return o.reshape(B, S, -1) @ p["wo"]
 
 
-def attention_decode(p: dict, cfg: ModelConfig, x, cache_k, cache_v, pos):
+def attention_decode(p: dict, cfg: ModelConfig, x, cache_k, cache_v, pos, *,
+                     shard=_noshard):
     """One-token decode. x (B,1,d); cache (B,Smax,nkv,hd); pos a 0-d int32
     tensor on x's device.
 
@@ -244,28 +361,117 @@ def attention_decode(p: dict, cfg: ModelConfig, x, cache_k, cache_v, pos):
     masked to positions <= pos, so the step is linear in Smax, as in the
     reference; each cache is read through one f32 copy in (B, nkv, Smax, hd)
     order. ``pos`` is only ever used as a tensor: no step waits on the
-    host."""
+    host.
+
+    On an LM mesh the caches are DTensors (``_decode_attend_mesh``): each
+    rank attends over its own block of the cache, and a cache whose
+    positions are split over the data axes (split-K) combines the ranks'
+    partial softmaxes."""
     q, k, v = _project_qkv(p, cfg, x, x)
-    B, Smax, nkv, hd = cache_k.shape
+    B = cache_k.shape[0]
     posv = pos.reshape(1, 1).expand(B, 1)
     q = apply_rope(q, posv, cfg.rope_theta)
     k = apply_rope(k, posv, cfg.rope_theta)
-    at = pos.clamp(max=Smax - 1).reshape(1).long()
-    cache_k.index_copy_(1, at, k.to(cache_k.dtype))
-    cache_v.index_copy_(1, at, v.to(cache_v.dtype))
-    g = cfg.num_heads // nkv
+    if _is_dtensor(cache_k):
+        o = _decode_attend_mesh(q, k, v, cache_k, cache_v, pos)
+    else:
+        o = _decode_attend(q, k, v, cache_k, cache_v, pos)
+    return o.to(x.dtype) @ p["wo"], cache_k, cache_v
+
+
+def _decode_attend(q, k, v, cache_k, cache_v, pos, *, offset=0,
+                   smax: Optional[int] = None, gather=None):
+    """The decode attention on plain tensors: write k/v at ``pos`` and
+    attend q (B,1,nq,hd) over the cache (B,S,nkv,hd); returns (B,1,nq·hd)
+    f32. With ``gather`` the cache holds positions ``offset`` ..
+    ``offset + S - 1`` of ``smax`` (a block of a split-K cache): the row at
+    ``pos`` is written only by the rank that owns it (the others write
+    back what is there), the softmax partials (max, sum of exponentials,
+    weighted values) over the block go through ``gather`` (stacked over
+    the blocks on a new leading axis) and are combined, the flash-decoding
+    combine."""
+    B, S, nkv, hd = cache_k.shape
+    smax = S if smax is None else smax
+    at = pos.clamp(max=smax - 1).reshape(1).long()
+    if gather is None:
+        cache_k.index_copy_(1, at, k.to(cache_k.dtype))
+        cache_v.index_copy_(1, at, v.to(cache_v.dtype))
+    else:
+        loc = at - offset
+        owns = (loc >= 0) & (loc < S)
+        loc = loc.clamp(0, S - 1)
+        for cache, new in ((cache_k, k), (cache_v, v)):
+            row = torch.where(owns, new.to(cache.dtype),
+                              cache.index_select(1, loc))
+            cache.index_copy_(1, loc, row)
+    nq = q.shape[2]
+    g = nq // nkv
     scale = float(1.0 / np.sqrt(hd))
     qf = (q.float() * scale).reshape(B, nkv, g, hd)
 
-    def f32(cache):  # (B, nkv, Smax, hd), one contiguous f32 copy
+    def f32(cache):  # (B, nkv, S, hd), one contiguous f32 copy
         return cache.transpose(1, 2).to(torch.float32,
                                         memory_format=torch.contiguous_format)
 
-    s = qf @ f32(cache_k).transpose(-1, -2)  # (B, nkv, g, Smax)
-    valid = torch.arange(Smax, device=x.device) <= pos
-    w = torch.softmax(s.masked_fill(~valid, float("-inf")), dim=-1)
-    o = (w @ f32(cache_v)).reshape(B, 1, cfg.num_heads * hd).to(x.dtype)
-    return o @ p["wo"], cache_k, cache_v
+    s = qf @ f32(cache_k).transpose(-1, -2)  # (B, nkv, g, S)
+    valid = torch.arange(S, device=q.device)
+    valid = (valid + offset if offset else valid) <= pos
+    s = s.masked_fill(~valid, float("-inf"))
+    if gather is None:
+        w = torch.softmax(s, dim=-1)
+        return (w @ f32(cache_v)).reshape(B, 1, nq * hd)
+    m = s.amax(dim=-1, keepdim=True)
+    pexp = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))
+    part = torch.cat([m, pexp.sum(dim=-1, keepdim=True),
+                      pexp @ f32(cache_v)], dim=-1)  # (B, nkv, g, 2 + hd)
+    parts = gather(part)                             # (n, B, nkv, g, 2 + hd)
+    mx = parts[..., :1].amax(dim=0)
+    w = torch.exp(parts[..., :1] - mx)
+    den = (w * parts[..., 1:2]).sum(dim=0)
+    o = (w * parts[..., 2:]).sum(dim=0) / den
+    return o.reshape(B, 1, nq * hd)
+
+
+def _decode_attend_mesh(q, k, v, cache_k, cache_v, pos):
+    """``_decode_attend`` on each rank's block of DTensor caches (B, Smax,
+    nkv, hd): q, k and v take the caches' batch and head placements and
+    are replicated over the axes that split the positions; those axes
+    (split-K) gather the softmax partials, one all-gather an axis. Returns
+    a (B, 1, nq·hd) f32 DTensor."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.distribution.sharding import block_index, whole
+
+    mesh = cache_k.device_mesh
+    cp = cache_k.placements
+    seq = [i for i, pl in enumerate(cp) if pl == Shard(1)]
+    tp = [pl if pl in (Shard(0), Shard(2)) else Replicate() for pl in cp]
+    q, k, v = (t.redistribute(mesh, tp).to_local() for t in (q, k, v))
+    ck, cv = cache_k.to_local(), cache_v.to_local()
+    posl = whole(pos)
+    smax = cache_k.shape[1]
+    offset, gather = 0, None
+    if seq:
+        n = 1
+        for i in seq:
+            n *= mesh.size(i)
+        if smax % n:
+            raise ValueError(f"a split-K cache of {smax} positions over {n} "
+                             "ranks must split evenly")
+        offset = block_index(mesh, seq) * (smax // n)
+
+        def gather(part):
+            out = part[None]
+            for i in seq:
+                out = funcol.all_gather_tensor(out, 0, (mesh, i))
+            return funcol.wait_tensor(out) if hasattr(funcol, "wait_tensor") \
+                else out
+    o = _decode_attend(q, k, v, ck, cv, posl, offset=offset, smax=smax,
+                       gather=gather)
+    opl = [Shard(0) if pl == Shard(0) else Shard(2) if pl == Shard(2)
+           else Replicate() for pl in tp]
+    return DTensor.from_local(o, mesh, opl, run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -292,8 +498,9 @@ def _act(name: str):
             "relu": F.relu}[name]
 
 
-def mlp_apply(p: dict, cfg: ModelConfig, x) -> torch.Tensor:
+def mlp_apply(p: dict, cfg: ModelConfig, x, *, shard=_noshard) -> torch.Tensor:
     h = _act(cfg.act)(x @ p["wg"]) * (x @ p["wu"])
+    h = shard("act_ff", h)
     return h @ p["wd"]
 
 
@@ -358,22 +565,31 @@ def moe_queue(gate_idx, E: int):
     return torch.stack(pos, dim=-1), counts
 
 
-def moe_apply(p: dict, cfg: ModelConfig, x):
+def moe_apply(p: dict, cfg: ModelConfig, x, *, shard=_noshard):
     """x (B,S,d) -> (out, aux). Dispatch groups are the batch rows or,
     where ``cfg.moe_group_size`` G is set, below S and divides it, rows of
     G tokens (the one-hot products cost O(S·E·C·d) with C ∝ S). aux:
     ``moe_drop_frac`` (the share of routed choices dropped for capacity)
     and ``moe_lb_loss`` (E · Σ mean prob · first-choice share)."""
+    if _is_dtensor(x) and any(pl.is_shard(1) for pl in x.placements):
+        # a group's queue runs over all its tokens: gather them (an MoE
+        # decode step's group is the batch, split over the data axes)
+        from torch.distributed.tensor import Replicate
+
+        whole = [Replicate() if pl.is_shard(1) else pl for pl in x.placements]
+        out, aux = moe_apply(p, cfg, x.redistribute(x.device_mesh, whole),
+                             shard=shard)
+        return out.redistribute(x.device_mesh, x.placements), aux
     B0, S0, d0 = x.shape
     G = cfg.moe_group_size
     if G and S0 > G and S0 % G == 0:
         out, aux = _moe_apply_grouped(p, cfg,
-                                      x.reshape(B0 * (S0 // G), G, d0))
+                                      x.reshape(B0 * (S0 // G), G, d0), shard)
         return out.reshape(B0, S0, d0), aux
-    return _moe_apply_grouped(p, cfg, x)
+    return _moe_apply_grouped(p, cfg, x, shard)
 
 
-def _moe_apply_grouped(p: dict, cfg: ModelConfig, x):
+def _moe_apply_grouped(p: dict, cfg: ModelConfig, x, shard=_noshard):
     B, S, d = x.shape
     E = cfg.num_experts
     C = moe_capacity(cfg, S)
@@ -389,13 +605,14 @@ def _moe_apply_grouped(p: dict, cfg: ModelConfig, x):
     xin = torch.bmm(dispatch.transpose(1, 2), x)  # (B, E·C, d)
     xe = xin.reshape(B, E, C, d).transpose(0, 1).reshape(E, B * C, d)
     h = _act(cfg.act)(torch.bmm(xe, p["wg"])) * torch.bmm(xe, p["wu"])
+    h = shard("act_moe_ff", h)
     out_e = torch.bmm(h, p["wd"])  # (E, B·C, d)
     out_e = out_e.reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)
     out = torch.bmm(combine, out_e)  # (B, S, d)
 
     if "shared" in p:
         g = torch.sigmoid(x @ p["shared_gate"])
-        out = out + g * mlp_apply(p["shared"], cfg, x)
+        out = out + g * mlp_apply(p["shared"], cfg, x, shard=shard)
 
     dropped = 1.0 - counts.clamp(max=C).sum() / counts.sum().clamp(min=1)
     me = probs.mean(dim=(0, 1))
@@ -492,7 +709,7 @@ def _ssd_scan(xdt, Bf, Cf, loga, chunk: int):
 
 
 def mamba2_mix(p: dict, cfg: ModelConfig, x, *, state: Optional[dict] = None,
-               chunk: int = 64, return_state: bool = False):
+               chunk: int = 64, return_state: bool = False, shard=_noshard):
     """Chunked SSD. x (B,S,d). state={'conv_x','conv_B','conv_C','ssm'} for
     decode (S == 1), which returns the new state; ``return_state=True`` makes
     the full-sequence path return its final state too (prefill)."""
@@ -523,6 +740,7 @@ def mamba2_mix(p: dict, cfg: ModelConfig, x, *, state: Optional[dict] = None,
         y = y.reshape(B, S, d_in)
         y = rmsnorm(p["norm"], (y * F.silu(z.float())).to(x.dtype),
                     cfg.norm_eps)
+        y = shard("act_ssm", y)
         return y @ p["out_proj"], new_state
 
     if state is not None:  # single-token decode
@@ -532,7 +750,12 @@ def mamba2_mix(p: dict, cfg: ModelConfig, x, *, state: Optional[dict] = None,
         y = y + p["D"][None, :, None] * xh[:, 0]
         return out(y, {**conv_state, "ssm": h_new})
 
-    y, h_last = _ssd_scan(xdt, Bf, Cf, loga, chunk)
+    if _is_dtensor(xdt):  # an LM mesh: each rank's batch rows and heads
+        y, h_last = on_blocks(
+            lambda *a: _ssd_scan(*a, chunk), (xdt, Bf, Cf, loga),
+            ((0, 2), (0, None), (0, None), (0, 2)), ((0, 2), (0, 1)))
+    else:
+        y, h_last = _ssd_scan(xdt, Bf, Cf, loga, chunk)
     y = y + p["D"][None, None, :, None] * xh
     return out(y, {**conv_state, "ssm": h_last} if return_state else None)
 
@@ -641,7 +864,7 @@ def wkv6_chunked(r, k, v, logw, u, state: Optional[torch.Tensor] = None,
 
 
 def rwkv6_time_mix(p: dict, cfg: ModelConfig, x, *, state: Optional[dict] = None,
-                   impl: str = "chunked"):
+                   impl: str = "chunked", shard=_noshard):
     B, S, d = x.shape
     H, hd = cfg.num_heads, cfg.ssm_head_dim
     prev = None if state is None else state["shift_tm"]
@@ -663,16 +886,14 @@ def rwkv6_time_mix(p: dict, cfg: ModelConfig, x, *, state: Optional[dict] = None
     u = p["u_bonus"].reshape(H, hd)
 
     wkv_state = None if state is None else state["wkv"]
-    if impl == "pallas":
-        from repro_torch.kernels import ops as kops
-
-        o, S_fin = kops.rwkv6_wkv(r, k, v, logw, u, chunk=cfg.wkv_chunk,
-                                  state=wkv_state)
+    if _is_dtensor(r):  # an LM mesh: each rank's batch rows and heads
+        o, S_fin = on_blocks(
+            lambda *a: _wkv(impl, cfg, *a), (r, k, v, logw, u, wkv_state),
+            ((0, 2),) * 4 + ((None, 0), (0, 1)), ((0, 2), (0, 1)))
     else:
-        o, S_fin = wkv6_chunked(r, k, v, logw, u, chunk=cfg.wkv_chunk,
-                                state=wkv_state)
+        o, S_fin = _wkv(impl, cfg, r, k, v, logw, u, wkv_state)
     o = rmsnorm(p["ln_x"], o.reshape(B, S, d).to(x.dtype), cfg.norm_eps)
-    o = o * g.to(o.dtype)
+    o = shard("act_ssm", o * g.to(o.dtype))
     out = o @ p["wo"]
     new_state = None
     if state is not None:
@@ -680,13 +901,25 @@ def rwkv6_time_mix(p: dict, cfg: ModelConfig, x, *, state: Optional[dict] = None
     return out, new_state
 
 
+def _wkv(impl: str, cfg: ModelConfig, r, k, v, logw, u, state):
+    """The wkv recurrence by ``impl``: the kernel (``pallas``) or the plain
+    ``wkv6_chunked``."""
+    if impl == "pallas":
+        from repro_torch.kernels import ops as kops
+
+        return kops.rwkv6_wkv(r, k, v, logw, u, chunk=cfg.wkv_chunk,
+                              state=state)
+    return wkv6_chunked(r, k, v, logw, u, chunk=cfg.wkv_chunk, state=state)
+
+
 def rwkv6_channel_mix(p: dict, cfg: ModelConfig, x, *,
-                      state: Optional[dict] = None):
+                      state: Optional[dict] = None, shard=_noshard):
     prev = None if state is None else state["shift_cm"]
     xs = _token_shift(x, prev)
     xk = x + (xs - x) * p["mix_cm"][0]
     xr = x + (xs - x) * p["mix_cm"][1]
     kk = torch.square(F.relu(xk @ p["cm_k"]))
+    kk = shard("act_ff", kk)
     out = torch.sigmoid(xr @ p["cm_r"]) * (kk @ p["cm_v"])
     new_state = None if state is None else {**state, "shift_cm": x[:, -1:]}
     return out, new_state

@@ -45,6 +45,15 @@ wkv kernel is reached through ``rwkv6_time_mix(..., impl="pallas")``, as in
 the reference. Under ``attn_impl="pallas"`` every self-attention of a full
 sequence (whisper's non-causal encoder included) runs the flash-attention
 kernel; cross-attention and decode attention stay plain, as there.
+
+Every entry point takes the reference's ``shard(name, x)`` hook (identity by
+default) and calls it at the reference's points. On an LM mesh
+(``distribution.steps`` with ``mesh=``) the parameters, the batch and the
+decode state are DTensors and the hook is
+``distribution.sharding.make_shard_fn``'s: besides the activation
+constraints, each layer's parameters go through ``shard("weights", p)``
+where the layer uses them (inside its remat), which gathers FSDP shards to
+their TP-only layout.
 """
 from __future__ import annotations
 
@@ -237,38 +246,55 @@ def load_reference_opt_state(state: PyTree, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 
-def _dense_block(p, cfg, x, causal=None):
+_noshard = L._noshard
+
+
+def _dense_block(p, cfg, x, shard=_noshard, causal=None):
+    p = shard("weights", p)
     x = x + L.attention_apply(p["attn"], cfg,
                               L.rmsnorm(p["norm1"], x, cfg.norm_eps),
-                              causal=causal)
-    return x + L.mlp_apply(p["mlp"], cfg, L.rmsnorm(p["norm2"], x, cfg.norm_eps))
+                              causal=causal, shard=shard)
+    x = shard("act_btd", x)
+    x = x + L.mlp_apply(p["mlp"], cfg, L.rmsnorm(p["norm2"], x, cfg.norm_eps),
+                        shard=shard)
+    return shard("act_btd", x)
 
 
-def _moe_block(p, cfg, x):
+def _moe_block(p, cfg, x, shard=_noshard):
     """A dense block with the MoE in the MLP's place: (x, aux)."""
+    p = shard("weights", p)
     x = x + L.attention_apply(p["attn"], cfg,
-                              L.rmsnorm(p["norm1"], x, cfg.norm_eps))
-    y, aux = L.moe_apply(p["moe"], cfg, L.rmsnorm(p["norm2"], x, cfg.norm_eps))
-    return x + y, aux
+                              L.rmsnorm(p["norm1"], x, cfg.norm_eps),
+                              shard=shard)
+    x = shard("act_btd", x)
+    y, aux = L.moe_apply(p["moe"], cfg, L.rmsnorm(p["norm2"], x, cfg.norm_eps),
+                         shard=shard)
+    return shard("act_btd", x + y), aux
 
 
-def _xattn_block(p, cfg, x, enc_out):
+def _xattn_block(p, cfg, x, enc_out, shard=_noshard):
     """Whisper's decoder block: causal self-attention, cross-attention over
     the encoder's output, the MLP."""
+    p = shard("weights", p)
     x = x + L.attention_apply(p["attn"], cfg,
                               L.rmsnorm(p["norm1"], x, cfg.norm_eps),
-                              causal=True)
+                              causal=True, shard=shard)
     x = x + L.attention_apply(p["xattn"], cfg,
                               L.rmsnorm(p["norm2"], x, cfg.norm_eps),
-                              kv_src=enc_out)
-    return x + L.mlp_apply(p["mlp"], cfg, L.rmsnorm(p["norm3"], x, cfg.norm_eps))
+                              kv_src=enc_out, shard=shard)
+    x = x + L.mlp_apply(p["mlp"], cfg, L.rmsnorm(p["norm3"], x, cfg.norm_eps),
+                        shard=shard)
+    return shard("act_btd", x)
 
 
-def _rwkv_block(p, cfg, x):
-    h, _ = L.rwkv6_time_mix(p, cfg, L.rmsnorm(p["tm_norm"], x, cfg.norm_eps))
-    x = x + h
-    h, _ = L.rwkv6_channel_mix(p, cfg, L.rmsnorm(p["cm_norm"], x, cfg.norm_eps))
-    return x + h
+def _rwkv_block(p, cfg, x, shard=_noshard):
+    p = shard("weights", p)
+    h, _ = L.rwkv6_time_mix(p, cfg, L.rmsnorm(p["tm_norm"], x, cfg.norm_eps),
+                            shard=shard)
+    x = shard("act_btd", x + h)
+    h, _ = L.rwkv6_channel_mix(p, cfg, L.rmsnorm(p["cm_norm"], x, cfg.norm_eps),
+                               shard=shard)
+    return shard("act_btd", x + h)
 
 
 def _unstack(tree: PyTree) -> list:
@@ -315,9 +341,11 @@ def _maybe_remat(fn, cfg: ModelConfig):
     return lambda p, x: ckpt.checkpoint(fn, p, x, **kw)
 
 
-def _mamba_block(p, cfg, x):
-    return x + L.mamba2_mix(p["mamba"], cfg,
-                            L.rmsnorm(p["norm"], x, cfg.norm_eps))[0]
+def _mamba_block(p, cfg, x, shard=_noshard):
+    p = shard("weights", p)
+    return shard("act_btd", x + L.mamba2_mix(
+        p["mamba"], cfg, L.rmsnorm(p["norm"], x, cfg.norm_eps),
+        shard=shard)[0])
 
 
 def _mean_aux(auxs: list) -> dict:
@@ -327,47 +355,90 @@ def _mean_aux(auxs: list) -> dict:
     return {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
 
 
-def _embed(params, cfg: ModelConfig, tokens, batch: Optional[dict]):
+def embed_lookup(table, tokens):
+    """``table[tokens]``. On an LM mesh whose model axis splits the vocab
+    (more than one rank) the lookup is vocab-parallel: each rank looks up
+    the tokens that fall in its block of rows, zeros for the others, and
+    the result is a partial sum over that axis (DTensor's ``Partial``,
+    reduced by the next redistribute), so the table is never gathered."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from repro_torch.distribution.sharding import block_index
+
+    vdims = []
+    if isinstance(table, DTensor):
+        mesh = table.device_mesh
+        vdims = [i for i, p in enumerate(table.placements)
+                 if p.is_shard(0) and mesh.size(i) > 1]
+    if not vdims:
+        return table[tokens]
+    if any(not p.is_replicate() for i, p in enumerate(table.placements)
+           if i not in vdims):
+        raise ValueError(f"a vocab-parallel lookup takes a table split on "
+                         f"its rows only, not {table.placements}")
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    rows = [p if p.is_shard(0) else Replicate() for p in tokens.placements]
+    tok = tokens.redistribute(mesh, rows).to_local()
+    # each rank's table gradient covers its own token rows: a partial sum
+    # over the axes that split the rows
+    w = table.to_local(grad_placements=[
+        Partial() if p.is_replicate() and rows[i].is_shard() else p
+        for i, p in enumerate(table.placements)])
+    vl = w.shape[0]
+    local = tok.long() - block_index(mesh, vdims) * vl
+    mine = (local >= 0) & (local < vl)
+    x = w[local.clamp(0, vl - 1)] * mine[..., None].to(w.dtype)
+    return DTensor.from_local(
+        x, mesh, [Partial() if i in vdims else p for i, p in enumerate(rows)],
+        run_check=False)
+
+
+def _embed(params, cfg: ModelConfig, tokens, batch: Optional[dict],
+           shard=_noshard):
     """Token embeddings; a VLM's patch embeddings ahead of them, whisper's
     learned positions ``dec_pos[:S]`` added."""
-    x = params["embed"][tokens]
+    x = embed_lookup(shard("weights", params["embed"]), tokens)
     if cfg.family == "vlm":
         x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
     if cfg.family == "audio":
-        x = x + params["dec_pos"][:x.shape[1]][None]
-    return x
+        x = x + shard("weights", params["dec_pos"])[:x.shape[1]][None]
+    return shard("act_btd", x)
 
 
-def _encoder(params, cfg: ModelConfig, frames):
+def _encoder(params, cfg: ModelConfig, frames, shard=_noshard):
     """Whisper's encoder: the frames plus ``enc_pos``, non-causal dense
     blocks (each under ``_maybe_remat``), the final norm."""
-    x = frames.to(L._dtype(cfg)) + params["enc_pos"][None, :frames.shape[1]]
-    layer = _maybe_remat(lambda p, h: _dense_block(p, cfg, h, causal=False),
-                         cfg)
+    x = frames.to(L._dtype(cfg)) + shard("weights", params["enc_pos"])[
+        None, :frames.shape[1]]
+    layer = _maybe_remat(
+        lambda p, h: _dense_block(p, cfg, h, shard, causal=False), cfg)
     for p in _layers(params["enc_layers"], cfg):
         x = layer(p, x)
-    return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+    return L.rmsnorm(shard("weights", params["enc_norm"]), x, cfg.norm_eps)
 
 
-def _backbone(params, cfg: ModelConfig, x, batch: Optional[dict] = None):
+def _backbone(params, cfg: ModelConfig, x, batch: Optional[dict] = None,
+              shard=_noshard):
     """(B,S,d) -> ((B,S,d), aux) through the family's blocks, in order; each
     block (a hybrid's Mamba2 layer and each call of its shared block) under
     ``_maybe_remat``. aux holds an MoE's per-layer aux averaged over the
     layers, and is empty for the other families. ``batch`` carries
     whisper's ``frames``."""
     fam = cfg.family
-    enc_out = _encoder(params, cfg, batch["frames"]) if fam == "audio" \
-        else None
+    enc_out = _encoder(params, cfg, batch["frames"], shard) \
+        if fam == "audio" else None
     plain = {"ssm": _rwkv_block, "hybrid": _mamba_block,
              "moe": _moe_block}.get(fam, _dense_block)
 
     def block(p, h):
         if fam == "audio":
-            return _xattn_block(p, cfg, h, enc_out)
-        return plain(p, cfg, h)
+            return _xattn_block(p, cfg, h, enc_out, shard)
+        return plain(p, cfg, h, shard)
 
     layer = _maybe_remat(block, cfg)
-    shared = _maybe_remat(lambda p, h: _dense_block(p, cfg, h), cfg)
+    shared = _maybe_remat(lambda p, h: _dense_block(p, cfg, h, shard), cfg)
     auxs = []
     for i, p in enumerate(_layers(params["layers"], cfg)):
         x = layer(p, x)
@@ -379,10 +450,11 @@ def _backbone(params, cfg: ModelConfig, x, batch: Optional[dict] = None):
     return x, _mean_aux(auxs)
 
 
-def _logits(params, cfg: ModelConfig, x):
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = x @ w
+def _logits(params, cfg: ModelConfig, x, shard=_noshard):
+    x = L.rmsnorm(shard("weights", params["final_norm"]), x, cfg.norm_eps)
+    w = shard("weights", params["embed"]).T if cfg.tie_embeddings \
+        else shard("weights", params["lm_head"])
+    logits = shard("logits", x @ w)
     vt = cfg.vocab_true or cfg.vocab_size
     if vt != cfg.vocab_size:  # mask padded vocab slots
         mask = torch.arange(cfg.vocab_size, device=logits.device) < vt
@@ -392,21 +464,95 @@ def _logits(params, cfg: ModelConfig, x):
     return logits
 
 
-def forward_train(params: PyTree, cfg: ModelConfig,
-                  batch: dict) -> tuple[torch.Tensor, dict]:
+def whole_vocab(logits):
+    """Logits with their vocab dim whole on every rank: on an LM mesh the
+    model axis splits it (``shard("logits")``), and the loss's gather of
+    each label's logit and the decode step's argmax read all of it, so the
+    vocab blocks are all-gathered over that axis here; plain logits as they
+    are."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(logits, DTensor):
+        return logits
+    pl = [Replicate() if p.is_shard(logits.ndim - 1) else p
+          for p in logits.placements]
+    return logits.redistribute(logits.device_mesh, pl)
+
+
+def cross_entropy(logits, labels):
+    """``softmax_cross_entropy`` of (B, S, V) logits against (B, S) labels.
+    On an LM mesh whose model axis splits the vocab (more than one rank)
+    it runs vocab-parallel, as GSPMD partitions the reference's: each rank
+    takes its block's max (all-reduced, MAX), its sum of exponentials and
+    the logit of each label that falls in its block (both partial sums,
+    all-reduced through DTensor's ``Partial``, which carries their
+    gradients); the (B, S, V) logits are never gathered. Otherwise (no
+    mesh, or a vocab that no rank splits) the logits are taken whole."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from repro_torch.distribution.sharding import block_index
+
+    vd = logits.ndim - 1
+    if isinstance(logits, DTensor):
+        mesh = logits.device_mesh
+        vdims = [i for i, p in enumerate(logits.placements)
+                 if p.is_shard(vd) and mesh.size(i) > 1]
+    if not isinstance(logits, DTensor) or not vdims:
+        return softmax_cross_entropy(whole_vocab(logits), labels)
+    from torch.distributed import _functional_collectives as funcol
+
+    rows = [p if p.is_shard(0) else Replicate() for p in logits.placements]
+    part = [Partial() if i in vdims else p for i, p in enumerate(rows)]
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh,
+                                    [Replicate()] * mesh.ndim, run_check=False)
+    lab = labels.redistribute(mesh, rows).to_local()
+    x = logits.to_local().float()
+    vl = x.shape[-1]
+    off = block_index(mesh, vdims) * vl
+    m = x.detach().amax(dim=-1, keepdim=True)
+    for i in vdims:
+        m = funcol.all_reduce(m, "max", (mesh, i))
+    m = funcol.wait_tensor(m) if hasattr(funcol, "wait_tensor") else m
+    sumexp = torch.exp(x - m).sum(dim=-1)
+    mine = (lab >= off) & (lab < off + vl)
+    gold = torch.gather(x, -1, (lab - off).clamp(0, vl - 1)[..., None]
+                        .long())[..., 0] * mine
+
+    def whole(t, pl):
+        return DTensor.from_local(t.contiguous(), mesh, pl, run_check=False)
+    lse = torch.log(whole(sumexp, part).redistribute(mesh, rows)) \
+        + whole(m[..., 0], rows)
+    return lse - whole(gold, part).redistribute(mesh, rows)
+
+
+def _whole_sum(t):
+    """``t.sum()``; a DTensor's is reduced over the mesh here (a partial
+    sum left to the division after it breaks DTensor's backward)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    total = t.sum()
+    if isinstance(total, DTensor):
+        total = total.redistribute(total.device_mesh,
+                                   [Replicate()] * total.device_mesh.ndim)
+    return total
+
+
+def forward_train(params: PyTree, cfg: ModelConfig, batch: dict, *,
+                  shard=_noshard) -> tuple[torch.Tensor, dict]:
     """CE loss over the batch. batch: tokens, labels, [mask, patch_embeds,
     frames]. A VLM's loss runs over the text region only; an MoE adds
     0.01 · ``moe_lb_loss``, and its aux enters ``metrics`` (whose
     ``ce_loss`` is the loss returned, as in the reference)."""
-    x = _embed(params, cfg, batch["tokens"], batch)
-    x, aux = _backbone(params, cfg, x, batch)
-    logits = _logits(params, cfg, x)
+    x = _embed(params, cfg, batch["tokens"], batch, shard)
+    x, aux = _backbone(params, cfg, x, batch, shard)
+    logits = _logits(params, cfg, x, shard)
     if cfg.family == "vlm":  # loss only over the text region
         logits = logits[:, batch["patch_embeds"].shape[1]:]
-    ce = softmax_cross_entropy(logits, batch["labels"])
+    ce = cross_entropy(logits, batch["labels"])
     mask = batch.get("mask")
     if mask is not None:
-        loss = (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        loss = _whole_sum(ce * mask) / torch.clamp(_whole_sum(mask), min=1.0)
     else:
         loss = ce.mean()
     if "moe_lb_loss" in aux:
@@ -456,7 +602,9 @@ def _pos_tensor(n: int, device) -> torch.Tensor:
 
 
 def forward_prefill(params: PyTree, cfg: ModelConfig, batch: dict,
-                    max_seq: int) -> tuple[torch.Tensor, DecodeState]:
+                    max_seq: int, *, shard=_noshard,
+                    state: Optional[DecodeState] = None
+                    ) -> tuple[torch.Tensor, DecodeState]:
     """Run the full prompt, return last-position logits (B, 1, V) + a primed
     DecodeState.
 
@@ -467,71 +615,82 @@ def forward_prefill(params: PyTree, cfg: ModelConfig, batch: dict,
     positions (a VLM's patch positions, then its tokens) and ``pos`` = Sp.
     Whisper's cross K/V are each decoder layer's projections of the
     encoder's output. An ssm model keeps each layer's final recurrent state
-    (``_prefill_ssm``); a hybrid both (``_prefill_hybrid``)."""
+    (``_prefill_ssm``); a hybrid both (``_prefill_hybrid``). ``state`` is
+    the fresh state to fill (an LM mesh's, placed on it), by default
+    ``init_decode_state``'s."""
     tokens = batch["tokens"]
     B = tokens.shape[0]
-    x = _embed(params, cfg, tokens, batch)
-    state = init_decode_state(cfg, B, max_seq, device=x.device)
+    x = _embed(params, cfg, tokens, batch, shard)
+    if state is None:
+        state = init_decode_state(cfg, B, max_seq, device=x.device)
     if cfg.family == "ssm":
-        return _prefill_ssm(params, cfg, x, state)
+        return _prefill_ssm(params, cfg, x, state, shard)
     if cfg.family == "hybrid":
-        return _prefill_hybrid(params, cfg, x, state)
+        return _prefill_hybrid(params, cfg, x, state, shard)
     fam = cfg.family
     hd, nkv = cfg.resolved_head_dim, cfg.num_kv_heads
     Sp = x.shape[1]
     pos = torch.arange(Sp, device=x.device)
-    enc_out = _encoder(params, cfg, batch["frames"]) if fam == "audio" \
-        else None
+    enc_out = _encoder(params, cfg, batch["frames"], shard) \
+        if fam == "audio" else None
 
     def kv_of(p, h):
         src = L.rmsnorm(p["norm1"], h, cfg.norm_eps)
-        k = (src @ p["attn"]["wk"]).reshape(B, -1, nkv, hd)
-        v = (src @ p["attn"]["wv"]).reshape(B, -1, nkv, hd)
+        k = L.split_heads(src @ p["attn"]["wk"], nkv, hd)
+        v = L.split_heads(src @ p["attn"]["wv"], nkv, hd)
         if "bk" in p["attn"]:
-            k = k + p["attn"]["bk"].reshape(1, 1, nkv, hd)
-            v = v + p["attn"]["bv"].reshape(1, 1, nkv, hd)
+            k = k + L.split_heads(p["attn"]["bk"], nkv, hd)
+            v = v + L.split_heads(p["attn"]["bv"], nkv, hd)
         k = L.apply_rope(k, pos, cfg.rope_theta)
         return k, v
 
     for i, p in enumerate(_layers(params["layers"], cfg)):
+        p = shard("weights", p)
         k, v = kv_of(p, x)
         if fam == "moe":
-            x, _ = _moe_block(p, cfg, x)
+            x, _ = _moe_block(p, cfg, x, shard)
         elif fam == "audio":
-            x = _xattn_block(p, cfg, x, enc_out)
-            state.cross_k[i] = (enc_out @ p["xattn"]["wk"]).reshape(
-                B, -1, nkv, hd).to(state.cross_k.dtype)
-            state.cross_v[i] = (enc_out @ p["xattn"]["wv"]).reshape(
-                B, -1, nkv, hd).to(state.cross_v.dtype)
+            x = _xattn_block(p, cfg, x, enc_out, shard)
+            state.cross_k[i] = L.split_heads(
+                enc_out @ p["xattn"]["wk"], nkv, hd).to(state.cross_k.dtype)
+            state.cross_v[i] = L.split_heads(
+                enc_out @ p["xattn"]["wv"], nkv, hd).to(state.cross_v.dtype)
         else:
-            x = _dense_block(p, cfg, x)
+            x = _dense_block(p, cfg, x, shard)
         state.kv_k[i, :, :Sp] = k.to(state.kv_k.dtype)
         state.kv_v[i, :, :Sp] = v.to(state.kv_v.dtype)
     state = state._replace(pos=_pos_tensor(Sp, x.device))
-    return _logits(params, cfg, x[:, -1:]), state
+    return _logits(params, cfg, x[:, -1:], shard), state
 
 
-def _prefill_ssm(params, cfg: ModelConfig, x, state: DecodeState):
+def _prefill_ssm(params, cfg: ModelConfig, x, state: DecodeState,
+                 shard=_noshard):
     """The ssm branch: every layer's time mix and channel mix run from a
     fresh zero state, so the wkv recurrence takes the state path
     (``wkv6_chunked``) and its final state is kept per layer."""
     B, S = x.shape[:2]
     sts = []
-    for p in _layers(params["layers"], cfg):
-        st0 = L.init_rwkv6_state(cfg, B, x.device)
+    for i, p in enumerate(_layers(params["layers"], cfg)):
+        p = shard("weights", p)
+        st0 = ({k: torch.zeros_like(v[i]) for k, v in state.ssm.items()}
+               if L._is_dtensor(state.ssm["wkv"])   # on the mesh's layout
+               else L.init_rwkv6_state(cfg, B, x.device))
         o, st = L.rwkv6_time_mix(p, cfg, L.rmsnorm(p["tm_norm"], x,
-                                                   cfg.norm_eps), state=st0)
-        x = x + o
+                                                   cfg.norm_eps), state=st0,
+                                 shard=shard)
+        x = shard("act_btd", x + o)
         o, st = L.rwkv6_channel_mix(p, cfg, L.rmsnorm(p["cm_norm"], x,
                                                       cfg.norm_eps),
-                                    state={**st, "shift_cm": st0["shift_cm"]})
-        x = x + o
+                                    state={**st, "shift_cm": st0["shift_cm"]},
+                                    shard=shard)
+        x = shard("act_btd", x + o)
         sts.append(st)
     state = state._replace(pos=_pos_tensor(S, x.device), ssm=_stack(sts))
-    return _logits(params, cfg, x[:, -1:]), state
+    return _logits(params, cfg, x[:, -1:], shard), state
 
 
-def _prefill_hybrid(params, cfg: ModelConfig, x, state: DecodeState):
+def _prefill_hybrid(params, cfg: ModelConfig, x, state: DecodeState,
+                    shard=_noshard):
     """The hybrid branch: each Mamba2 layer returns its final conv / SSM
     state from its chunked scan (no recompute), and each call of the shared
     block fills its own K/V cache, recomputed from the call's input as the
@@ -539,25 +698,26 @@ def _prefill_hybrid(params, cfg: ModelConfig, x, state: DecodeState):
     B, S = x.shape[:2]
     hd = cfg.resolved_head_dim
     pos = torch.arange(S, device=x.device)
-    sp = params["shared_block"]
+    sp = shard("weights", params["shared_block"])
     inv, m_states = 0, []
     for i, p in enumerate(_layers(params["layers"], cfg)):
+        p = shard("weights", p)
         y, mst = L.mamba2_mix(p["mamba"], cfg,
                               L.rmsnorm(p["norm"], x, cfg.norm_eps),
-                              return_state=True)
+                              return_state=True, shard=shard)
         m_states.append(mst)
-        x = x + y
+        x = shard("act_btd", x + y)
         if _shared_after(cfg, i):
             src = L.rmsnorm(sp["norm1"], x, cfg.norm_eps)
-            k = (src @ sp["attn"]["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
-            v = (src @ sp["attn"]["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+            k = L.split_heads(src @ sp["attn"]["wk"], cfg.num_kv_heads, hd)
+            v = L.split_heads(src @ sp["attn"]["wv"], cfg.num_kv_heads, hd)
             state.kv_k[inv, :, :S] = L.apply_rope(k, pos, cfg.rope_theta).to(
                 state.kv_k.dtype)
             state.kv_v[inv, :, :S] = v.to(state.kv_v.dtype)
-            x = _dense_block(sp, cfg, x)
+            x = _dense_block(sp, cfg, x, shard)
             inv += 1
     state = state._replace(pos=_pos_tensor(S, x.device), ssm=_stack(m_states))
-    return _logits(params, cfg, x[:, -1:]), state
+    return _logits(params, cfg, x[:, -1:], shard), state
 
 
 def _write(dst: dict, src: dict) -> None:
@@ -568,7 +728,8 @@ def _write(dst: dict, src: dict) -> None:
 
 @torch.no_grad()
 def forward_decode(params: PyTree, cfg: ModelConfig, tokens,
-                   state: DecodeState) -> tuple[torch.Tensor, DecodeState]:
+                   state: DecodeState, *, shard=_noshard
+                   ) -> tuple[torch.Tensor, DecodeState]:
     """One greedy-decode step. tokens (B,1) int -> logits (B,1,V), new state.
 
     The step CONSUMES ``state``: each layer's K/V cache slot at ``pos`` and
@@ -581,26 +742,29 @@ def forward_decode(params: PyTree, cfg: ModelConfig, tokens,
     ``dynamic_slice_in_dim`` clamps the start) and attends over its cross
     K/V (``_cross_decode``); an MoE's step dispatches the whole batch as one
     group of B tokens, as the reference's does. Runs without autograd."""
-    x = params["embed"][tokens]
+    x = embed_lookup(shard("weights", params["embed"]), tokens)
     pos = state.pos
     fam = cfg.family
     if fam == "audio":
-        table = params["dec_pos"]
+        table = shard("weights", params["dec_pos"])
         at = pos.clamp(0, table.shape[0] - 1).reshape(1).long()
         x = x + table.index_select(0, at)[None]
+    x = shard("act_btd_dec", x)
 
     def self_attn(p, h, i):
         o, _, _ = L.attention_decode(p["attn"], cfg,
                                      L.rmsnorm(p["norm1"], h, cfg.norm_eps),
-                                     state.kv_k[i], state.kv_v[i], pos)
-        return h + o
+                                     state.kv_k[i], state.kv_v[i], pos,
+                                     shard=shard)
+        return shard("act_btd", h + o)
 
     def attn_step(p, h, i):
         h = self_attn(p, h, i)
-        return h + L.mlp_apply(p["mlp"], cfg,
-                               L.rmsnorm(p["norm2"], h, cfg.norm_eps))
+        return shard("act_btd", h + L.mlp_apply(
+            p["mlp"], cfg, L.rmsnorm(p["norm2"], h, cfg.norm_eps),
+            shard=shard))
 
-    layers = _layers(params["layers"], cfg)
+    layers = (shard("weights", p) for p in _layers(params["layers"], cfg))
     if fam in ("dense", "vlm"):
         for i, p in enumerate(layers):
             x = attn_step(p, x, i)
@@ -609,49 +773,53 @@ def forward_decode(params: PyTree, cfg: ModelConfig, tokens,
             x = self_attn(p, x, i)
             # the batch's B tokens are one dispatch group: (B,1,d) -> (1,B,d)
             hn = L.rmsnorm(p["norm2"], x, cfg.norm_eps).transpose(0, 1)
-            y, _ = L.moe_apply(p["moe"], cfg, hn)
-            x = x + y.transpose(0, 1)
+            y, _ = L.moe_apply(p["moe"], cfg, hn, shard=shard)
+            x = shard("act_btd", x + y.transpose(0, 1))
     elif fam == "audio":
         for i, p in enumerate(layers):
             x = self_attn(p, x, i)
             x = x + _cross_decode(p["xattn"], cfg,
                                   L.rmsnorm(p["norm2"], x, cfg.norm_eps),
-                                  state.cross_k[i], state.cross_v[i])
-            x = x + L.mlp_apply(p["mlp"], cfg,
-                                L.rmsnorm(p["norm3"], x, cfg.norm_eps))
+                                  state.cross_k[i], state.cross_v[i], shard)
+            x = shard("act_btd", x + L.mlp_apply(
+                p["mlp"], cfg, L.rmsnorm(p["norm3"], x, cfg.norm_eps),
+                shard=shard))
     elif fam == "ssm":
         for i, p in enumerate(layers):
             st = {k: v[i] for k, v in state.ssm.items()}
             o, st2 = L.rwkv6_time_mix(
-                p, cfg, L.rmsnorm(p["tm_norm"], x, cfg.norm_eps), state=st)
-            x = x + o
+                p, cfg, L.rmsnorm(p["tm_norm"], x, cfg.norm_eps), state=st,
+                shard=shard)
+            x = shard("act_btd", x + o)
             o, st3 = L.rwkv6_channel_mix(
-                p, cfg, L.rmsnorm(p["cm_norm"], x, cfg.norm_eps), state=st2)
-            x = x + o
+                p, cfg, L.rmsnorm(p["cm_norm"], x, cfg.norm_eps), state=st2,
+                shard=shard)
+            x = shard("act_btd", x + o)
             _write(st, st3)
     elif fam == "hybrid":
         inv = 0
+        shared = shard("weights", params["shared_block"])
         for i, p in enumerate(layers):
             st = {k: v[i] for k, v in state.ssm.items()}
             y, st2 = L.mamba2_mix(p["mamba"], cfg,
                                   L.rmsnorm(p["norm"], x, cfg.norm_eps),
-                                  state=st)
-            x = x + y
+                                  state=st, shard=shard)
+            x = shard("act_btd", x + y)
             _write(st, st2)
             if _shared_after(cfg, i):
-                x = attn_step(params["shared_block"], x, inv)
+                x = attn_step(shared, x, inv)
                 inv += 1
     else:
         raise ValueError(fam)
-    return _logits(params, cfg, x), state._replace(pos=pos + 1)
+    return _logits(params, cfg, x, shard), state._replace(pos=pos + 1)
 
 
-def _cross_decode(p, cfg: ModelConfig, q_in, xk, xv):
+def _cross_decode(p, cfg: ModelConfig, q_in, xk, xv, shard=_noshard):
     """Cross-attention for one decoder position against the cached encoder
     K/V: plain, non-causal, chunks of 512 frames, as the reference's."""
     B = q_in.shape[0]
     hd = cfg.resolved_head_dim
-    q = (q_in @ p["wq"]).reshape(B, 1, cfg.num_heads, hd)
+    q = shard("act_heads", L.split_heads(q_in @ p["wq"], cfg.num_heads, hd))
     o = L.attention_core(q, xk.to(q.dtype), xv.to(q.dtype), causal=False,
                          chunk=512, impl="chunked")
     return o.reshape(B, 1, -1) @ p["wo"]

@@ -571,7 +571,8 @@ class ServeController:
                              else np.zeros((), np.float32)),
                 "config_idx": runner._config_idx if has_runner else z64,
                 "hist": (runner._hist if runner is not None
-                         and runner._hist is not None else z64)},
+                         and runner._hist is not None else z64),
+                "shard_draws": self._shard_draws()},
         }
         if self.cfgr.shield is not None:
             # shield carry rides the same placeholder pattern; the keys are
@@ -584,6 +585,28 @@ class ServeController:
                 shield_risk=(sh[3] if sh is not None
                              else np.zeros((), np.float32)))
         return tree
+
+    def _shard_draws(self) -> np.ndarray:
+        """On a fleet mesh, every rank's own draw stream of the shadow
+        fleet, in rank order: rank r draws its block's windows from
+        ``draws.for_shard(r)`` (rank 0's is the fleet's own stream, saved
+        with it), so a resume must give each rank back its own. One
+        all-gather of the generator states, a (world, n) uint8 array; a
+        placeholder 0-d array off a mesh or before the runner exists."""
+        runner = self.cfgr._runner
+        blk = None if runner is None else runner._block
+        draws = self.shadow_env._dev.draws
+        if blk is None or not hasattr(draws, "for_shard"):
+            return np.zeros((), np.uint8)
+        import torch.distributed as dist
+
+        dev = runner.device if blk.backend == "nccl" else "cpu"
+        mine = draws.for_shard(blk.rank).get_state().to(dev)
+        world = dist.get_world_size(blk.group)
+        out = torch.empty((world * mine.numel(),), dtype=torch.uint8,
+                          device=dev)
+        dist.all_gather_into_tensor(out, mine, group=blk.group)
+        return out.cpu().numpy().reshape(world, -1)
 
     def _dev_extra(self, env) -> dict:
         dev = env._dev
@@ -666,6 +689,8 @@ class ServeController:
             for k in ("shield_lkg", "shield_radius",
                       "shield_streak", "shield_risk"):
                 skel["runner"].pop(k, None)
+        if "runner/shard_draws" not in store.leaf_keys(step):
+            skel["runner"].pop("shard_draws")   # an older checkpoint
         tree, step, x = store.restore(skel, step=step, host=True)
 
         ag = self.cfgr.agent
@@ -771,3 +796,8 @@ class ServeController:
         if ch:
             for k, v in ch.items():
                 setattr(runner.chaos, k, v)
+        shards = np.asarray(rt.get("shard_draws", np.zeros((), np.uint8)))
+        blk = runner._block
+        if shards.ndim == 2 and blk is not None and blk.rank < len(shards):
+            _set_gen_state(self.shadow_env._dev.draws.for_shard(blk.rank),
+                           shards[blk.rank])

@@ -5,8 +5,8 @@ on the CPU.
   async save, GC of old steps and of torn writes, latest / specific step,
   the missing-checkpoint error, the manifest's schema, and a policy's
   parameters and rmsprop state round-tripping mid-training (here on torch
-  tensors). The reference's reshard case waits for the LM mesh: the
-  port's ``shardings=`` raises and names ROADMAP queue 1, item 7.2.
+  tensors). The reference's reshard case: the port's ``shardings=``
+  keeps None leaves whole here (meshes in tests/test_torch_lm_mesh.py).
 * Against the reference's store: the same tree saved by both stores gives
   the same files byte for byte, and a checkpoint written by either one
   reads back bitwise through the other — f64, int64 and uint64 leaves
@@ -109,13 +109,18 @@ def test_restore_latest_and_specific(tmp_path):
 
 
 def test_restore_with_shardings_waits_for_the_mesh(tmp_path):
-    """The reference's elastic reshard-on-restore places leaves on a mesh;
-    one card has none, so the port refuses and names the ROADMAP item."""
+    """The reference's elastic reshard-on-restore: ``shardings=`` places
+    leaves on an LM mesh (tests/test_torch_lm_mesh.py restores a (2, 2)
+    checkpoint onto (4, 1)); a None leaf keeps the leaf whole, and numpy
+    leaves (``host=True``) cannot be placed."""
     store = CheckpointStore(tmp_path)
     t = {"w": torch.arange(16.0).reshape(4, 4)}
     store.save(3, t)
-    with pytest.raises(NotImplementedError, match=r"queue 1, item 7\.2"):
-        store.restore(t, shardings={"w": None})
+    placed, step, _ = store.restore(t, shardings={"w": None})
+    assert step == 3 and type(placed["w"]) is torch.Tensor
+    assert torch.equal(placed["w"], t["w"])
+    with pytest.raises(ValueError, match="host=True"):
+        store.restore(t, shardings={"w": None}, host=True)
     restored, step, _ = store.restore(t)
     assert step == 3 and torch.equal(restored["w"], t["w"])
 

@@ -285,24 +285,35 @@ def test_record_has_the_reference_keys_on_one_device(tmp_path):
 
 
 def test_meshes_and_expert_parallelism_raise_naming_item_7(tmp_path):
-    assert make_production_mesh().shape == {"data": 16, "model": 16}
-    multi = make_production_mesh(multi_pod=True)
+    """The production meshes are DeviceMeshes over a process group of
+    their size (the dry-run joins a ``fake`` group in a child for them);
+    described without one they keep the reference's axes and names.
+    Expert parallelism needs a mesh."""
+    from repro_torch.launch.mesh import PRODUCTION, Mesh, mesh_name
+
+    single = Mesh(*PRODUCTION[False])
+    assert single.shape == {"data": 16, "model": 16}
+    multi = Mesh(*PRODUCTION[True])
     assert (multi.axis_names, multi.device_count, multi.name) == (
         ("pod", "data", "model"), 512, "2x16x16")
-    local = make_local_mesh()
-    assert (local.shape, local.device_count, local.name) == (
-        {"data": 1, "model": 1}, 1, "1x1")
-    for kw in (dict(mesh=make_production_mesh()), dict(mesh=multi),
-               dict(mesh=make_local_mesh(2, 1)), dict(ep=True)):
-        with pytest.raises(NotImplementedError, match=r"item 7\.2"):
-            dryrun.run_cell("smollm_135m", "decode_32k", tmp_path, **kw)
+    assert mesh_name(Mesh((1, 1), ("data", "model"))) == "1x1"
+    for make in (make_production_mesh, lambda: make_local_mesh(2, 1)):
+        with pytest.raises(RuntimeError, match="process group"):
+            make()
+    with pytest.raises(ValueError, match="--ep"):
+        dryrun.run_cell("smollm_135m", "decode_32k", tmp_path, ep=True)
     rec = dryrun.run_cell("smollm_135m", "decode_32k", tmp_path, save=False,
-                          mesh=local, fsdp=False)
+                          fsdp=False)
     assert rec["mesh"] == "1x1"
-    for mesh in ("single", "multi", "both"):
-        assert dryrun.main(["--mesh", mesh, "--out", str(tmp_path)]) != 0
-    assert dryrun.main(["--ep", "--out", str(tmp_path)]) != 0
+    assert dryrun.main(["--ep", "--out", str(tmp_path)]) == 2
     assert not list(tmp_path.iterdir())
+    assert dryrun.main(["--mesh", "single", "--arch", "smollm_135m",
+                        "--shape", "decode_32k", "--out",
+                        str(tmp_path)]) == 0
+    rec = json.loads((tmp_path / "smollm_135m__decode_32k__16x16.json")
+                     .read_text())
+    assert (rec["mesh"], rec["chips"], rec["status"]) == ("16x16", 256, "ok")
+    assert rec["collective_bytes"] > 0 and rec["dominant"]
 
 
 def test_main_writes_one_file_a_cell(tmp_path, capsys):
@@ -344,7 +355,7 @@ def test_make_step_for_cell_dispatches_the_three_kinds():
     moments = tree_leaves([train.arg_specs[1]["mu"], train.arg_specs[1]["nu"]])
     assert {t.dtype for t in moments} == {torch.bfloat16}
     pre = make_step_for_cell(cfg, InputShape("p", 16, 4, "prefill"),
-                             device="meta", mesh=make_local_mesh(1, 1))
+                             device="meta", mesh=None)
     want = make_prefill_step(cfg, InputShape("p", 16, 4, "prefill"),
                              device="meta")
     assert pre.meta == want.meta
@@ -353,7 +364,12 @@ def test_make_step_for_cell_dispatches_the_three_kinds():
     assert dec.meta["split_k"] is False
     assert dec.meta["max_seq"] == make_decode_step(
         cfg, InputShape("d", 64, 4, "decode"), device="meta").meta["max_seq"]
-    for kw in (dict(mesh=make_production_mesh()), dict(ep=True)):
-        with pytest.raises(NotImplementedError, match=r"item 7\.2"):
+    # a mesh is a DeviceMesh (tests/test_torch_lm_mesh_dryrun.py runs the
+    # steps on one), not a description; expert parallelism needs one
+    from repro_torch.launch.mesh import Mesh
+
+    for kw, err in ((dict(mesh=Mesh((16, 16), ("data", "model"))),
+                     TypeError), (dict(ep=True), ValueError)):
+        with pytest.raises(err):
             make_step_for_cell(cfg, InputShape("d", 64, 4, "decode"),
                                device="meta", **kw)

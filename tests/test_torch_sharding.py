@@ -31,7 +31,7 @@ from repro.models import lm as rlm  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.distribution import sharding as sh  # noqa: E402
-from repro_torch.launch.mesh import Mesh, make_local_mesh  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 
 
@@ -145,7 +145,7 @@ def test_dp_axes_and_meshspec_match_reference():
         assert sh.dp_axes_for(batch, stub, ms_p) == \
             ref_sh.dp_axes_for(batch, stub, ms_r)
     assert sh.tp_size(stub, ms_p) == 16 and sh.dp_size(stub, ms_p) == 32
-    for mesh in (make_local_mesh(4, 2), Mesh((2, 16, 16),
+    for mesh in (Mesh((4, 2), ("data", "model")), Mesh((2, 16, 16),
                                              ("pod", "data", "model")),
                  _StubMesh(fleet=8)):
         got, want = sh.MeshSpec.for_mesh(mesh), ref_sh.MeshSpec.for_mesh(mesh)

@@ -221,9 +221,9 @@ def test_unported_paths_raise_instead_of_falling_back():
     assert ctl.cfgr.hspec.metric_names == list(tuner.selected_metrics)
     with pytest.raises(TypeError, match="DeviceMesh"):
         tuner.build_serve_controller(wls, mesh=("data",))
-    # the LM side's meshes still raise, naming their ROADMAP item
-    from repro_torch.distribution import make_train_step
+    # an LM mesh is a DeviceMesh over a process group of its size
+    # (tests/test_torch_lm_mesh.py); without one it is refused
     from repro_torch.launch.mesh import make_local_mesh
 
-    with pytest.raises(NotImplementedError, match=r"queue 1, item 7\.2"):
-        make_train_step(None, None, None, mesh=make_local_mesh(2, 1))
+    with pytest.raises(RuntimeError, match="process group"):
+        make_local_mesh(2, 1)

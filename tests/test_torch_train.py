@@ -485,7 +485,7 @@ def test_step_bundle_specs_and_device_rules():
         "tokens": ((4, 16), torch.int32), "labels": ((4, 16), torch.int32),
         "mask": ((4, 16), torch.float32)}
     assert opt_s["count"].dtype == torch.int32
-    with pytest.raises(NotImplementedError, match=r"item 7\.2"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make_train_step(cfg_p, opt, InputShape("t", 16, 4, "train"),
                         device="cpu", mesh=object())
     if not torch.cuda.is_available():
