@@ -32,6 +32,7 @@ from repro_torch.core.discretize import (DeviceLeverTable, LeverDiscretiser,
                                          LeverSpec, ShieldSpec, shield_update)
 from repro_torch.core.heatmap import HeatmapEncoder, HeatmapSpec
 from repro_torch.core.policy import ReinforceAgent, Trajectory
+from repro_torch.monitoring.tracing import span
 
 
 class MetricsWindow(Protocol):
@@ -614,15 +615,18 @@ class Configurator:
         ``StepRecord`` stream into ``history``, ``"summary"``/``"off"``
         skip it and return per-update convergence stats only. Requires the
         fused device loop. Returns the per-update stats dicts."""
-        runner, passes = self._fused_runner("epoch mega-scan")
-        stats_list, recs = runner.run_epoch(k, passes=passes,
-                                            records=records)
-        if recs:
-            # the update runs inside the epoch's body: no separable
-            # update_s (generation_s carries the epoch's wall)
-            per = len(recs) // max(len(stats_list), 1)
-            for i, stats in enumerate(stats_list):
-                self._finish_update(stats, recs[i * per:(i + 1) * per], 0.0)
+        with span("rt.configurator.run_epoch"):
+            with span("rt.configurator.checks"):
+                runner, passes = self._fused_runner("epoch mega-scan")
+            stats_list, recs = runner.run_epoch(k, passes=passes,
+                                                records=records)
+            if recs:
+                # the update runs inside the epoch's body: no separable
+                # update_s (generation_s carries the epoch's wall)
+                per = len(recs) // max(len(stats_list), 1)
+                for i, stats in enumerate(stats_list):
+                    self._finish_update(stats, recs[i * per:(i + 1) * per],
+                                        0.0)
         return stats_list
 
     def tune_megascan(self, n_updates: int, *, k: int = 8,

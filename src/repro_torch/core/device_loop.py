@@ -108,6 +108,7 @@ from repro_torch.engine.fleet_torch import (_bucket, build_step_window,
                                             workload_rate_grid)
 from repro_torch.engine.simcluster import (_LEVER_TO_PACKED, _PACKERS,
                                            service_terms_arrays)
+from repro_torch.monitoring.tracing import span
 from repro_torch.utils import txp
 
 #: epoch body calls (DESIGN.md §15): ``run_epoch(K)`` calls its captured
@@ -378,101 +379,117 @@ class DeviceEpisodeRunner:
         for t in range(S):
             sd = draws.step(t)
             # ---- encode: fleet-batch running range + heat-map grids ----
-            raw = per_node.permute(0, 2, 1)               # (N, M_sel, nodes)
-            lo = torch.minimum(lo, raw.amin(dim=(0, 2)))
-            hi = torch.maximum(hi, raw.amax(dim=(0, 2)))
-            if blk is not None:   # the fleet-global range across the shards
-                lo, hi = shd.range_reduce(lo, hi, blk.group)
-            span = torch.where(hi > lo, hi - lo, 1.0)
-            lo_eff = torch.where(torch.isfinite(lo), lo, 0.0)
-            normed = torch.clamp(torch.nan_to_num(
-                (raw - lo_eff[None, :, None]) / span[None, :, None]), 0.0, 1.0)
-            grids = Fn.pad(normed, (0, rc - nodes))
-            fracs = config_idx[:, ranked].to(torch.float32) / frac_den
-            states = torch.cat([grids.reshape(N, M_sel * rc), fracs],
-                               dim=1).to(torch.float32)
+            with span("rt.step.encode"):
+                raw = per_node.permute(0, 2, 1)           # (N, M_sel, nodes)
+                lo = torch.minimum(lo, raw.amin(dim=(0, 2)))
+                hi = torch.maximum(hi, raw.amax(dim=(0, 2)))
+                if blk is not None:   # the fleet-global range, all shards
+                    lo, hi = shd.range_reduce(lo, hi, blk.group)
+                width = torch.where(hi > lo, hi - lo, 1.0)
+                lo_eff = torch.where(torch.isfinite(lo), lo, 0.0)
+                normed = torch.clamp(torch.nan_to_num(
+                    (raw - lo_eff[None, :, None]) / width[None, :, None]),
+                    0.0, 1.0)
+                grids = Fn.pad(normed, (0, rc - nodes))
+                fracs = config_idx[:, ranked].to(torch.float32) / frac_den
+                states = torch.cat([grids.reshape(N, M_sel * rc), fracs],
+                                   dim=1).to(torch.float32)
 
             # ---- act (policy forward + f-gated sampling / argmax) ----
-            if sh_spec is not None:
-                # §16 trust-region mask before the pick; the unmasked
-                # counterfactual pick (same draws) feeds clamped_actions: a
-                # diversion is a step where the unshielded policy would have
-                # left the trust region
-                mask = table.shield_mask(config_idx, lkg_idx, radius, ranked,
-                                         xp=txp, n_valid=n_valid,
-                                         kind_code=kind_code)
-                a, a_free = _sample_actions(policy, states, sd, f, exploit,
-                                            greedy, mask=mask, unmasked=True)
-                sh_diverted = ~torch.gather(mask, 1, a_free[:, None])[:, 0]
-            else:
-                a = _sample_actions(policy, states, sd, f, exploit, greedy)
-            direction = 1 - 2 * (a % 2)
-            l_idx = ranked[a // 2]
+            with span("rt.step.act"):
+                if sh_spec is not None:
+                    # §16 trust-region mask before the pick; the unmasked
+                    # counterfactual pick (same draws) feeds clamped_actions:
+                    # a diversion is a step where the unshielded policy
+                    # would have left the trust region
+                    with span("rt.shield"):
+                        mask = table.shield_mask(
+                            config_idx, lkg_idx, radius, ranked, xp=txp,
+                            n_valid=n_valid, kind_code=kind_code)
+                    a, a_free = _sample_actions(policy, states, sd, f,
+                                                exploit, greedy, mask=mask,
+                                                unmasked=True)
+                    with span("rt.shield"):
+                        sh_diverted = ~torch.gather(mask, 1,
+                                                    a_free[:, None])[:, 0]
+                else:
+                    a = _sample_actions(policy, states, sd, f, exploit,
+                                        greedy)
+                direction = 1 - 2 * (a % 2)
+                l_idx = ranked[a // 2]
 
             # ---- integerised lever apply (the table's one implementation)
-            cur = config_idx[rows, l_idx]
-            new_bin = table.step_index(cur, l_idx, direction, xp=txp,
-                                       n_valid=n_valid, kind_code=kind_code)
-            if sh_spec is not None:
-                # hard trust-region clamp, then the risk/budget fallback: a
-                # cluster whose breach risk crossed the threshold (or whose
-                # episode budget is spent) deploys its whole LKG row
-                clamped = table.shield_clamp(
-                    new_bin, lkg_idx[rows, l_idx], radius, l_idx, xp=txp,
-                    n_valid=n_valid, kind_code=kind_code)
-                sh_clamped = sh_diverted | (clamped != new_bin)
-                fallback = ((risk > sh_spec.risk_threshold)
-                            | (budget_left <= 0))
-                config_idx[rows, l_idx] = clamped
-                config_idx = torch.where(fallback[:, None], lkg_idx,
-                                         config_idx)
-                new_bin = config_idx[rows, l_idx]
-            else:
-                config_idx[rows, l_idx] = new_bin
-            eff_idx = config_idx
-            if R_max:
-                # §12 deploy latency: the engine runs the config cluster i
-                # requested delays[i] steps ago; the encoder above still
-                # shows the requested knobs
-                hist = torch.cat([config_idx[None], hist[:-1]], dim=0)
-                eff_idx = hist[inp["delays"], rows]
-            cc = {kk: tabs[kk][eff_idx[:, li]] for kk, li in self._cc_pairs}
+            with span("rt.step.apply"):
+                cur = config_idx[rows, l_idx]
+                new_bin = table.step_index(cur, l_idx, direction, xp=txp,
+                                           n_valid=n_valid,
+                                           kind_code=kind_code)
+                if sh_spec is not None:
+                    # hard trust-region clamp, then the risk/budget
+                    # fallback: a cluster whose breach risk crossed the
+                    # threshold (or whose episode budget is spent) deploys
+                    # its whole LKG row
+                    with span("rt.shield"):
+                        clamped = table.shield_clamp(
+                            new_bin, lkg_idx[rows, l_idx], radius, l_idx,
+                            xp=txp, n_valid=n_valid, kind_code=kind_code)
+                        sh_clamped = sh_diverted | (clamped != new_bin)
+                        fallback = ((risk > sh_spec.risk_threshold)
+                                    | (budget_left <= 0))
+                        config_idx[rows, l_idx] = clamped
+                        config_idx = torch.where(fallback[:, None], lkg_idx,
+                                                 config_idx)
+                        new_bin = config_idx[rows, l_idx]
+                else:
+                    config_idx[rows, l_idx] = new_bin
+                eff_idx = config_idx
+                if R_max:
+                    # §12 deploy latency: the engine runs the config cluster
+                    # i requested delays[i] steps ago; the encoder above
+                    # still shows the requested knobs
+                    hist = torch.cat([config_idx[None], hist[:-1]], dim=0)
+                    eff_idx = hist[inp["delays"], rows]
+                cc = {kk: tabs[kk][eff_idx[:, li]]
+                      for kk, li in self._cc_pairs}
 
-            # ---- loading (Kafka buffers arrivals, paper §4.2) ----
-            rate_now, _ = workload_rate_grid(inp["wl"], clock)
-            z = sd.load(N)
-            load_s = (10.0 + 60.0 * self._reboot_f[l_idx]
-                      + 8.0 * self._rejit_f[l_idx]) \
-                * (1.0 + spec.noise * torch.abs(z))
-            backlog = backlog + rate_now * load_s
-            clock = clock + load_s
-            sfree = torch.clamp(sfree - load_s, min=0.0)
-            reconfigs = reconfigs + 1.0
+            with span("rt.step.loading"):
+                # ---- loading (Kafka buffers arrivals, paper §4.2) ----
+                rate_now, _ = workload_rate_grid(inp["wl"], clock)
+                z = sd.load(N)
+                load_s = (10.0 + 60.0 * self._reboot_f[l_idx]
+                          + 8.0 * self._rejit_f[l_idx]) \
+                    * (1.0 + spec.noise * torch.abs(z))
+                backlog = backlog + rate_now * load_s
+                clock = clock + load_s
+                sfree = torch.clamp(sfree - load_s, min=0.0)
+                reconfigs = reconfigs + 1.0
 
-            # ---- stabilisation wait from the service-term delta (rates at
-            # the post-load clock) ----
-            rate_st, size_st = workload_rate_grid(inp["wl"], clock)
-            s_new = service_terms_arrays(cc, inp["mc"], spec, env.chips,
-                                         rate_st, size_st, xp=txp)["service"]
-            prev = torch.where(last_service < 0.0, s_new, last_service)
-            rel = torch.abs(s_new - prev) / torch.clamp(prev, min=1e-6)
-            stab = torch.clamp(30.0 + 240.0 * rel, 30.0, 180.0)
-            last_service = s_new
+                # ---- stabilisation wait from the service-term delta (rates
+                # at the post-load clock) ----
+                rate_st, size_st = workload_rate_grid(inp["wl"], clock)
+                s_new = service_terms_arrays(cc, inp["mc"], spec, env.chips,
+                                             rate_st, size_st,
+                                             xp=txp)["service"]
+                prev = torch.where(last_service < 0.0, s_new, last_service)
+                rel = torch.abs(s_new - prev) / torch.clamp(prev, min=1e-6)
+                stab = torch.clamp(30.0 + 240.0 * rel, 30.0, 180.0)
+                last_service = s_new
 
             # ---- fused preroll + observation window + reward ----
-            (backlog, sfree, clock), stats = step_window(
-                sd.window(), backlog, sfree, clock, cc, inp["wl"], stab,
-                reconfigs, float(cfgr.window_s), ft=inp["ft"])
-            per_node = stats["per_node"]
-            if cfgr.reward_mode == "neg_p99":
-                reward = -stats["p99_ms"] / 1000.0
-            elif slo:
-                reward = (-stats["mean_ms"] / 1000.0
-                          - hinge_w * torch.clamp(stats["p99_ms"] - slo_ms,
-                                                  min=0.0) / 1000.0
-                          - breach_w * stats["breach_frac"])
-            else:
-                reward = -stats["mean_ms"] / 1000.0
+            with span("rt.step.window"):
+                (backlog, sfree, clock), stats = step_window(
+                    sd.window(), backlog, sfree, clock, cc, inp["wl"], stab,
+                    reconfigs, float(cfgr.window_s), ft=inp["ft"])
+                per_node = stats["per_node"]
+                if cfgr.reward_mode == "neg_p99":
+                    reward = -stats["p99_ms"] / 1000.0
+                elif slo:
+                    reward = (-stats["mean_ms"] / 1000.0
+                              - hinge_w * torch.clamp(
+                                  stats["p99_ms"] - slo_ms, min=0.0) / 1000.0
+                              - breach_w * stats["breach_frac"])
+                else:
+                    reward = -stats["mean_ms"] / 1000.0
             step_out = {"states": states, "actions": a, "rewards": reward,
                         "p99_ms": stats["p99_ms"], "clock_s": clock,
                         "load_s": load_s, "stab_s": stab, "lever": l_idx,
@@ -480,10 +497,11 @@ class DeviceEpisodeRunner:
             if slo:
                 step_out["breach_frac"] = stats["breach_frac"]
             if sh_spec is not None:
-                (lkg_idx, radius, streak, risk, budget_left,
-                 budget_out) = shield_update(
-                    stats["breach_frac"], lkg_idx, config_idx, radius, streak,
-                    risk, budget_left, sh_spec, xp=txp)
+                with span("rt.shield"):
+                    (lkg_idx, radius, streak, risk, budget_left,
+                     budget_out) = shield_update(
+                        stats["breach_frac"], lkg_idx, config_idx, radius,
+                        streak, risk, budget_left, sh_spec, xp=txp)
                 step_out["shield_clamped"] = sh_clamped
                 step_out["shield_fallback"] = fallback
                 step_out["budget_out"] = budget_out
@@ -654,67 +672,83 @@ class DeviceEpisodeRunner:
             raise ValueError(f"records={records!r} (full|summary|off)")
         if self._inflight or self._carry is not None:
             raise RuntimeError("run_epoch with episode batches in flight")
-        cfgr, env = self.cfgr, self.env
-        agent = cfgr.agent
-        N, S = env.n_clusters, cfgr.steps_per_episode
-        if explore:
-            w = min(max(agent.f_warmup_updates - agent.n_updates, 0), k)
-            segments = [(kk, ex) for kk, ex in ((w, False), (k - w, True))
-                        if kk > 0]
-        else:
-            segments = [(k, False)]
-        greedy = not explore
+        with span("rt.epoch"):
+            cfgr, env = self.cfgr, self.env
+            agent = cfgr.agent
+            N, S = env.n_clusters, cfgr.steps_per_episode
+            if explore:
+                w = min(max(agent.f_warmup_updates - agent.n_updates, 0), k)
+                segments = [(kk, ex) for kk, ex in ((w, False), (k - w, True))
+                            if kk > 0]
+            else:
+                segments = [(k, False)]
+            greedy = not explore
 
-        self._load_fresh()
-        self._epoch_t0 = time.perf_counter()
-        sh_spec = cfgr.shield
-        # shield runs ALSO need the pre-epoch indices in "full" mode: a
-        # fallback step reverts a whole row to LKG, which the per-lever
-        # record stream cannot express — final configs re-sync from indices
-        idx0 = (None if records == "full" and sh_spec is None
-                else self._bufs[0].cpu().numpy())
-        if records != "full":
-            shape = (len(self._table.specs), self._hw_B)
-            if self._counts is None or tuple(self._counts.shape) != shape:
-                self._counts = torch.zeros(shape, dtype=torch.int32,
-                                           device=self.device)
-            self._counts.zero_()
+            sh_spec = cfgr.shield
+            with span("rt.epoch.load"):
+                self._load_fresh()
+                self._epoch_t0 = time.perf_counter()
+                # shield runs ALSO need the pre-epoch indices in "full"
+                # mode: a fallback step reverts a whole row to LKG, which
+                # the per-lever record stream cannot express — final
+                # configs re-sync from indices
+                idx0 = (None if records == "full" and sh_spec is None
+                        else self._bufs[0].cpu().numpy())
+                if records != "full":
+                    shape = (len(self._table.specs), self._hw_B)
+                    if (self._counts is None
+                            or tuple(self._counts.shape) != shape):
+                        self._counts = torch.zeros(
+                            shape, dtype=torch.int32, device=self.device)
+                    self._counts.zero_()
 
-        ys_segs: list = []
-        for k_seg, exploit in segments:
-            prog = self._epoch_body(self._skey(exploit, greedy), passes,
-                                    records)
-            ys = []
-            for _ in range(k_seg):
-                EPOCH_DISPATCHES[0] += 1
-                ys.append({name: v.clone() for name, v in prog().items()})
-            ys_segs.append((k_seg, {name: torch.stack([y[name] for y in ys])
-                                    for name in ys[0]}))
-        _sync(self.device)
-        self.last_wall_s = time.perf_counter() - self._epoch_t0
-        agent.adopt_update(agent.params, agent.opt_state, k)
-        total_steps = k * passes * N * S
-        self.chaos.add_wall(self.last_wall_s)
-        carry, self._carry = self._carry, None
-        config_idx_f = self._adopt(carry)
+            ys_segs: list = []
+            for k_seg, exploit in segments:
+                with span("rt.epoch.program"):
+                    prog = self._epoch_body(self._skey(exploit, greedy),
+                                            passes, records)
+                ys = []
+                for _ in range(k_seg):
+                    EPOCH_DISPATCHES[0] += 1
+                    out = prog()
+                    with span("rt.epoch.outputs"):
+                        ys.append({name: v.clone()
+                                   for name, v in out.items()})
+                with span("rt.epoch.outputs"):
+                    ys_segs.append((k_seg, {
+                        name: torch.stack([y[name] for y in ys])
+                        for name in ys[0]}))
+            with span("rt.epoch.sync"):
+                _sync(self.device)
+            self.last_wall_s = time.perf_counter() - self._epoch_t0
+            with span("rt.epoch.adopt"):
+                agent.adopt_update(agent.params, agent.opt_state, k)
+                total_steps = k * passes * N * S
+                self.chaos.add_wall(self.last_wall_s)
+                carry, self._carry = self._carry, None
+                config_idx_f = self._adopt(carry)
 
-        gen_s = self.last_wall_s / max(total_steps, 1)
-        if records == "full":
-            stats_list, recs = self._epoch_full(ys_segs, N, S, passes,
-                                                gen_s)
-            if sh_spec is not None:
-                touched = np.zeros((N, self._table.n_levers), bool)
-                rows = np.arange(N)[:, None]
-                for k_seg, ys in ys_segs:
-                    lv = _np(ys["lever"]).reshape(k_seg * passes, N, S)
-                    for chunk in lv:
-                        touched[rows, chunk] = True
-                self._sync_configs(idx0, _np(config_idx_f), touched)
-        else:
-            stats_list = self._epoch_summary(ys_segs, self._counts, idx0,
-                                             config_idx_f, N, S, passes)
-            recs = []
-        cfgr._last_fleet_windows = None   # host-loop cache is stale now
+            gen_s = self.last_wall_s / max(total_steps, 1)
+            if records == "full":
+                with span("rt.epoch.full"):
+                    stats_list, recs = self._epoch_full(ys_segs, N, S,
+                                                        passes, gen_s)
+                    if sh_spec is not None:
+                        touched = np.zeros((N, self._table.n_levers), bool)
+                        rows = np.arange(N)[:, None]
+                        for k_seg, ys in ys_segs:
+                            lv = _np(ys["lever"]).reshape(k_seg * passes,
+                                                          N, S)
+                            for chunk in lv:
+                                touched[rows, chunk] = True
+                        self._sync_configs(idx0, _np(config_idx_f), touched)
+            else:
+                with span("rt.epoch.summary"):
+                    stats_list = self._epoch_summary(ys_segs, self._counts,
+                                                     idx0, config_idx_f, N, S,
+                                                     passes)
+                recs = []
+            cfgr._last_fleet_windows = None   # host-loop cache is stale now
         return stats_list, recs
 
     def _epoch_body(self, skey: tuple, passes: int, rec_mode: str) -> Program:
@@ -736,9 +770,10 @@ class DeviceEpisodeRunner:
                 name: torch.cat([g[name] for g in groups], dim=0)
                 for name in groups[0]}
             if rec_mode != "full":
-                flat = (b["lever"] * B + b["bin"]).reshape(-1)
-                self._counts.view(-1).index_add_(
-                    0, flat, torch.ones_like(flat, dtype=torch.int32))
+                with span("rt.records"):
+                    flat = (b["lever"] * B + b["bin"]).reshape(-1)
+                    self._counts.view(-1).index_add_(
+                        0, flat, torch.ones_like(flat, dtype=torch.int32))
             mask = torch.ones(b["actions"].shape, dtype=torch.float32,
                               device=self.device)
             loss, first = agent._update_in_place(
@@ -748,21 +783,23 @@ class DeviceEpisodeRunner:
                 y.update({name: v for name, v in b.items()
                           if name != "states"})
                 return y
-            y["reward_sum"] = b["rewards"].sum()
-            y["p99_max"] = b["p99_ms"].max()
-            if slo:
-                y["breach_windows"] = (b["breach_frac"] > 0.0).sum()
-                y["breach_frac_sum"] = b["breach_frac"].sum()
-            elif slo_ms > 0.0:
-                y["breach_windows"] = (b["p99_ms"] > slo_ms).sum()
-            if shield:
-                y["shield_clamped"] = b["shield_clamped"].sum()
-                y["shield_fallbacks"] = b["shield_fallback"].sum()
-                y["budget_exhaustions"] = b["budget_out"].any(dim=1).sum()
-            if rec_mode == "summary":
-                y["reward_mean"] = b["rewards"].mean(dim=1)
-                y["p99_mean"] = b["p99_ms"].mean(dim=1)
-                y["p99_last"] = b["p99_ms"][:, -1]
+            with span("rt.records"):
+                y["reward_sum"] = b["rewards"].sum()
+                y["p99_max"] = b["p99_ms"].max()
+                if slo:
+                    y["breach_windows"] = (b["breach_frac"] > 0.0).sum()
+                    y["breach_frac_sum"] = b["breach_frac"].sum()
+                elif slo_ms > 0.0:
+                    y["breach_windows"] = (b["p99_ms"] > slo_ms).sum()
+                if shield:
+                    y["shield_clamped"] = b["shield_clamped"].sum()
+                    y["shield_fallbacks"] = b["shield_fallback"].sum()
+                    y["budget_exhaustions"] = \
+                        b["budget_out"].any(dim=1).sum()
+                if rec_mode == "summary":
+                    y["reward_mean"] = b["rewards"].mean(dim=1)
+                    y["p99_mean"] = b["p99_ms"].mean(dim=1)
+                    y["p99_last"] = b["p99_ms"][:, -1]
             return y
 
         return self._program(("epoch", skey, passes, rec_mode), body)

@@ -21,6 +21,12 @@ On a CUDA device:
   memory and are overwritten by the next replay: callers copy what they
   keep.
 
+Each program has an index (``repro_torch.monitoring.tracing``): its eager
+calls run in the span ``rt.program#<index>``, its capture in
+``rt.capture#<index>`` and each replay in ``rt.replay#<index>``; the spans
+its ``fn`` enters while it is captured are recorded with the graph's nodes
+in the tracer's table, so a profile can name a replay's device rows.
+
 A failed capture raises; there is no eager fallback on the card. The
 ``fleet_tick`` and ``fleet_scan`` launches a graph records are added to
 each kernel's ``LAUNCHES`` at each replay, so a path's launch count reads
@@ -45,6 +51,7 @@ import torch
 from repro_torch.distribution import sharding as _sh
 from repro_torch.kernels import fleet_scan as _fs
 from repro_torch.kernels import fleet_tick as _ft
+from repro_torch.monitoring import tracing
 
 #: the window kernels a captured program may hold
 _KERNELS = (_ft, _fs)
@@ -78,18 +85,27 @@ class Program:
         self.scan_launches = 0
         #: fleet-mesh collectives the graph holds (added at every replay)
         self.collectives = 0
+        #: the program's key in the tracer's table, and its span names
+        self.index = tracing.program_index()
+        self._eager_span, self._capture_span, self._replay_span = (
+            f"rt.{kind}#{self.index}" for kind in ("program", "capture",
+                                                   "replay"))
         if self.device.type != "cuda" or eager is not None:
             CAPTURE_COUNTS[key] = CAPTURE_COUNTS.get(key, 0) + 1
 
     def __call__(self):
         self.calls += 1
         if self.device.type != "cuda" or self.eager is not None:
-            return self.fn()
+            with tracing.span(self._eager_span):
+                return self.fn()
         if self.calls == 1:
-            return self._warm_up()
+            with tracing.span(self._eager_span):
+                return self._warm_up()
         if self.graph is None:
-            self._capture()
-        self.graph.replay()
+            with tracing.span(self._capture_span):
+                self._capture()
+        with tracing.span(self._replay_span):
+            self.graph.replay()
         _ft.LAUNCHES += self.launches
         _fs.LAUNCHES += self.scan_launches
         _sh.COLLECTIVES += self.collectives
@@ -117,7 +133,9 @@ class Program:
         n0 = [k.CAPTURED for k in _KERNELS]
         c0 = _sh.CAPTURED
         with torch.cuda.graph(graph, capture_error_mode=self.capture_mode):
-            out = self.fn()
+            with tracing.recording(self.index,
+                                   tracing.capture_node_counter()):
+                out = self.fn()
         self.launches, self.scan_launches = (
             k.CAPTURED - n for k, n in zip(_KERNELS, n0))
         self.collectives = _sh.CAPTURED - c0

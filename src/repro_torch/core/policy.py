@@ -44,6 +44,7 @@ from torch.func import functional_call
 
 from repro_torch.core.graphs import Program
 from repro_torch.engine.draws import PhiloxDraws
+from repro_torch.monitoring.tracing import span
 from repro_torch.optim import rmsprop
 
 #: reference parameter name -> (module parameter name, transposed?)
@@ -386,11 +387,12 @@ class ReinforceAgent:
     def _update_in_place(self, states, actions, rewards, mask):
         """``_update_step`` with the new parameters and rmsprop state
         written into the agent's own buffers. Returns (loss, first)."""
-        own = self.params
-        new, opt_state, loss, first = _update_step(
-            self.policy, own, self.opt_state, states, actions, rewards, mask,
-            opt=self.opt, gamma=self.gamma, entropy_beta=self.entropy_beta)
-        self._write_state(new, opt_state)
+        with span("rt.update"):
+            new, opt_state, loss, first = _update_step(
+                self.policy, self.params, self.opt_state, states, actions,
+                rewards, mask, opt=self.opt, gamma=self.gamma,
+                entropy_beta=self.entropy_beta)
+            self._write_state(new, opt_state)
         return loss, first
 
     def _write_state(self, params: dict, opt_state: dict) -> None:

@@ -54,6 +54,7 @@ from repro_torch.engine.draws import PhiloxDraws
 from repro_torch.engine.simcluster import (_MAX_LAT_SAMPLES,
                                            _emission_constants, LazyPerNode,
                                            service_terms_arrays)
+from repro_torch.monitoring.tracing import span
 from repro_torch.utils import txp
 
 #: shape ladder for the padded tick length / emission-slot count (the
@@ -874,34 +875,40 @@ def build_step_window(core, sel_cols: tuple, T: int, E: int,
         rg, sg = workload_rate_grid(wl, times)
         f_slow = None
         if ft is not None:
-            f_slow, f_rate = fault_effect_grid(ft, times)
-            rg = rg * f_rate
+            with span("rt.window.faults"):
+                f_slow, f_rate = fault_effect_grid(ft, times)
+                rg = rg * f_rate
         if scan:
-            (backlog, sfree_rel), ys, n_s = _scan_core(
-                wdraws, T, backlog, sfree_rel, consts, rg, sg, tmask, spec,
-                f_slow)
+            with span("rt.window.core"):
+                (backlog, sfree_rel), ys, n_s = _scan_core(
+                    wdraws, T, backlog, sfree_rel, consts, rg, sg, tmask,
+                    spec, f_slow)
             mean_ms, p99, processed = _scan_summary(wdraws, T, ys, wmask,
                                                     n_s, T_b)
             stats5 = _analytic_stats5(ys[0], ys[1], T_b, n_s)
         else:
-            ((backlog, sfree_rel), ys, lane_sum_ms, tickq_ms, head_ms, n_s,
-             cnt) = _window_core(wdraws, T, S, backlog, sfree_rel, consts,
-                                 rg, sg, tmask, wmask, spec, f_slow)
+            with span("rt.window.core"):
+                ((backlog, sfree_rel), ys, lane_sum_ms, tickq_ms, head_ms,
+                 n_s, cnt) = _window_core(wdraws, T, S, backlog, sfree_rel,
+                                          consts, rg, sg, tmask, wmask, spec,
+                                          f_slow)
             mean_ms, p99, processed = _window_summary(ys, wmask, lane_sum_ms,
                                                       head_ms, cnt)
             stats5 = _lane_stats5(lane_sum_ms, tickq_ms, n_s)
         # ---- metric emission, selected columns only (device etick) ----
-        forced = n_win < ee
-        n_emit = n_win // ee + forced
-        etick = torch.where(forced[None, :],
-                            n_skip[None, :] + n_win[None, :] - 1,
-                            n_skip[None, :] + (e_ax + 1) * ee[None, :] - 1)
-        etick = torch.clamp(etick, 0, T - 1)
-        evalid = e_ax < n_emit[None, :]
-        per_node = emission(
-            wdraws, cc=cc, mc=mc_dev, F=F_sel, rg=rg, sg=sg, ys=ys,
-            reconfigs=reconfigs, etick=etick, evalid=evalid, stats5=stats5,
-            node_noise=node_noise)
+        with span("rt.window.emit"):
+            forced = n_win < ee
+            n_emit = n_win // ee + forced
+            etick = torch.where(forced[None, :],
+                                n_skip[None, :] + n_win[None, :] - 1,
+                                n_skip[None, :] + (e_ax + 1) * ee[None, :]
+                                - 1)
+            etick = torch.clamp(etick, 0, T - 1)
+            evalid = e_ax < n_emit[None, :]
+            per_node = emission(
+                wdraws, cc=cc, mc=mc_dev, F=F_sel, rg=rg, sg=sg, ys=ys,
+                reconfigs=reconfigs, etick=etick, evalid=evalid,
+                stats5=stats5, node_noise=node_noise)
         clock = clock + n_ticks.to(torch.float32) * T_b
         stats = {"mean_ms": mean_ms, "p99_ms": p99, "processed": processed,
                  "per_node": per_node}
