@@ -89,6 +89,7 @@ eagerly (``graph_reason`` says which).
 """
 from __future__ import annotations
 
+import operator
 import time
 from typing import Optional
 
@@ -115,6 +116,14 @@ from repro_torch.utils import txp
 #: body once per update — K graph launches an epoch, never O(K·S·ops) eager
 #: ones (the reference counts one jitted program per warm-up segment)
 EPOCH_DISPATCHES = [0]
+
+#: the batch prologue's static facts, derived again only when what they
+#: read changes: ``support_checked`` counts the support check's walks of
+#: the workload roster, ``support_reused`` the checks answered from the
+#: runner's memo of the same roster, ``tick_pack_skipped`` the tick budgets
+#: clamped to ``TICK_BUDGET`` without packing the fleet's configs
+PROLOGUE_COUNTS = {"support_checked": 0, "support_reused": 0,
+                   "tick_pack_skipped": 0}
 
 #: padded tick budget when ``batch_interval_s`` is in the action set (the
 #: episode can walk it low); clusters past (window+stab)/TICK_BUDGET see a
@@ -146,15 +155,17 @@ def build_packed_tables(table: DeviceLeverTable,
     return out
 
 
-def env_device_reason(env) -> Optional[str]:
+def env_device_reason(env, workload_reason=device_workload_reason
+                      ) -> Optional[str]:
     """The environment-level half of ``DeviceEpisodeRunner.supported`` —
-    usable before a configurator exists."""
+    usable before a configurator exists. ``workload_reason`` checks the
+    roster (the runner passes its memoised check)."""
     if getattr(env, "n_clusters", 0) < 1:
         return "serial TuningEnv (the fused loop is fleet-shaped)"
     if getattr(env, "backend", "numpy") != "torch":
         return (f"backend={getattr(env, 'backend', 'numpy')} "
                 "(needs torch)")
-    reason = device_workload_reason(env.workloads)
+    reason = workload_reason(env.workloads)
     if reason is not None:
         return f"workloads not device-packable ({reason})"
     return None
@@ -226,6 +237,8 @@ class DeviceEpisodeRunner:
         self._hw_T = 0
         self._hw_B = 0
         self._wl_dev: Optional[dict] = None
+        #: (the roster last checked, its ``device_workload_reason``)
+        self._roster_memo: Optional[tuple] = None
         self._ft_dev: Optional[dict] = None   # packed DeviceFaultTable (§12)
         self._delays = None                   # (N,) per-cluster deploy lag
         self._R_max = 0                       # deploy-ring depth
@@ -285,23 +298,42 @@ class DeviceEpisodeRunner:
     # ------------------------------------------------------------------ gates
     def supported(self) -> Optional[str]:
         """None when the fused loop can run; otherwise the reason."""
-        reason = env_device_reason(self.env)
+        reason = env_device_reason(self.env, self._workload_reason)
         if reason is not None:
             return reason
         if self.cfgr.reward_mode not in ("neg_mean", "neg_p99", "slo"):
             return f"reward_mode={self.cfgr.reward_mode} has no device statistic"
         return None
 
+    def _workload_reason(self, workloads) -> Optional[str]:
+        """``device_workload_reason`` of the roster, walked again only when
+        it holds other workload objects than the last walk's (compared by
+        identity, element for element; the memo holds them, so no id is
+        reused). ``_wl_dev`` is packed once: a replaced roster is checked,
+        not re-packed."""
+        memo = self._roster_memo
+        if (memo is not None and len(memo[0]) == len(workloads)
+                and all(map(operator.is_, memo[0], workloads))):
+            PROLOGUE_COUNTS["support_reused"] += 1
+            return memo[1]
+        PROLOGUE_COUNTS["support_checked"] += 1
+        reason = device_workload_reason(workloads)
+        self._roster_memo = (tuple(workloads), reason)
+        return reason
+
     # -------------------------------------------------------------- geometry
     def _tick_budget(self) -> tuple[int, int]:
         env, cfgr = self.env, self.cfgr
-        T_b = env.packed()["T_b"]
-        need = int(np.max(np.round(cfgr.window_s / T_b)
-                          + np.ceil(180.0 / T_b))) + 1
         if "batch_interval_s" in cfgr.levers:
             # the policy can walk the tick length mid-batch: CLAMP the
             # window to TICK_BUDGET instead of chasing ever-smaller T_b
+            # (so the configs' T_b is not read, nor packed)
             need = TICK_BUDGET
+            PROLOGUE_COUNTS["tick_pack_skipped"] += 1
+        else:
+            T_b = env.packed()["T_b"]
+            need = int(np.max(np.round(cfgr.window_s / T_b)
+                              + np.ceil(180.0 / T_b))) + 1
         T = max(_bucket(need), self._hw_T)
         self._hw_T = T
         E = _bucket(int(np.ceil(cfgr.window_s / 60.0)) + 1,
