@@ -121,9 +121,10 @@ EPOCH_DISPATCHES = [0]
 #: read changes: ``support_checked`` counts the support check's walks of
 #: the workload roster, ``support_reused`` the checks answered from the
 #: runner's memo of the same roster, ``tick_pack_skipped`` the tick budgets
-#: clamped to ``TICK_BUDGET`` without packing the fleet's configs
+#: clamped to ``TICK_BUDGET`` without packing the fleet's configs,
+#: ``tick_packed`` those read from the packed configs' tick lengths
 PROLOGUE_COUNTS = {"support_checked": 0, "support_reused": 0,
-                   "tick_pack_skipped": 0}
+                   "tick_pack_skipped": 0, "tick_packed": 0}
 
 #: padded tick budget when ``batch_interval_s`` is in the action set (the
 #: episode can walk it low); clusters past (window+stab)/TICK_BUDGET see a
@@ -332,6 +333,7 @@ class DeviceEpisodeRunner:
             PROLOGUE_COUNTS["tick_pack_skipped"] += 1
         else:
             T_b = env.packed()["T_b"]
+            PROLOGUE_COUNTS["tick_packed"] += 1
             need = int(np.max(np.round(cfgr.window_s / T_b)
                               + np.ceil(180.0 / T_b))) + 1
         T = max(_bucket(need), self._hw_T)
@@ -356,7 +358,8 @@ class DeviceEpisodeRunner:
         factor, which the captured batch bakes in; the env's resolved
         window impl, last, stands for the reference's pallas entry)."""
         cfgr = self.cfgr
-        T, E = self._tick_budget()
+        with span("rt.epoch.tick_budget"):
+            T, E = self._tick_budget()
         slo_sig = ((cfgr.slo_ms, cfgr.slo_hinge_w, cfgr.slo_breach_w)
                    if cfgr.reward_mode == "slo" else None)
         return (cfgr.steps_per_episode, T, E, self._sel_cols, exploit,

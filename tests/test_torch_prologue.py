@@ -8,7 +8,8 @@ only when what they read changes (the port's ``DeviceEpisodeRunner``):
   fresh configurator's check gives, and the reference's;
 * with ``batch_interval_s`` tuned the tick budget is clamped to
   ``TICK_BUDGET`` without packing the configs; without it the configs are
-  packed as before; ``(T, E)`` equals the reference's either way.
+  packed as before (``tick_packed`` counts those); ``(T, E)`` equals the
+  reference's either way.
 
 The bitwise epoch-versus-sequential tests (tests/test_torch_epoch.py) are
 the guard that the outputs are unchanged.
@@ -59,7 +60,8 @@ def _delta(before: dict) -> dict:
 def test_epochs_check_the_roster_once(levers):
     """Three ``run_epoch(2, "summary")``: one walk of the roster, two memo
     hits; the pack is skipped once a batch exactly when the interval is
-    tuned (the first epoch is all warm-up: one segment each)."""
+    tuned, and made once a batch otherwise (the first epoch is all
+    warm-up: one segment each)."""
     cfgr = _cfgr(_env(), levers)
     before = dict(PROLOGUE_COUNTS)
     for _ in range(3):
@@ -67,19 +69,21 @@ def test_epochs_check_the_roster_once(levers):
         assert len(stats) == 2
     tuned = "batch_interval_s" in levers
     assert _delta(before) == {"support_checked": 1, "support_reused": 2,
-                              "tick_pack_skipped": 3 if tuned else 0}
+                              "tick_pack_skipped": 3 if tuned else 0,
+                              "tick_packed": 0 if tuned else 3}
 
 
 def test_sequential_updates_reuse_the_check():
     """``run_update`` checks support every update; a roster in a new list
-    of the same workload objects is the same roster."""
+    of the same workload objects is the same roster. The interval is not
+    tuned, so each update's batch packs the configs for its ticks."""
     cfgr = _cfgr(_env())
     before = dict(PROLOGUE_COUNTS)
     cfgr.run_update()
     cfgr.env.workloads = list(cfgr.env.workloads)
     cfgr.run_update()
     assert _delta(before) == {"support_checked": 1, "support_reused": 1,
-                              "tick_pack_skipped": 0}
+                              "tick_pack_skipped": 0, "tick_packed": 2}
 
 
 def test_replaced_workload_is_checked_again():
@@ -102,7 +106,7 @@ def test_replaced_workload_is_checked_again():
     env.workloads[2] = original
     assert cfgr.device_loop_reason() is None
     assert _delta(before) == {"support_checked": 3, "support_reused": 1,
-                              "tick_pack_skipped": 0}
+                              "tick_pack_skipped": 0, "tick_packed": 0}
 
     ref_env = RefFleetEnv.heterogeneous(4, seed=0, mix=MIX, backend="pallas")
     ref_env.workloads[2] = RefIoT(seed=3)
@@ -145,6 +149,7 @@ def test_tick_budget_matches_reference(levers):
     tuned = "batch_interval_s" in levers
     assert (env._packed is None) == tuned
     assert _delta(before)["tick_pack_skipped"] == int(tuned)
+    assert _delta(before)["tick_packed"] == int(not tuned)
     # the high-water mark holds the budget when the configs' ticks lengthen
     for c, rc in zip(env.configs, ref_env.configs):
         c["batch_interval_s"] = rc["batch_interval_s"] = 60.0
