@@ -427,8 +427,9 @@ def _time_ms(fn, reps: int = 100, warmup: int = 5) -> float:
 
 def _kernel_inputs(N: int, T: int, S: int, seed: int, dev):
     """Operands at one (N, T, S) point: real packed constants of a
-    heterogeneous fleet, seeded noise, a non-trivial fault multiplier and a
-    window mask with a stabilisation preroll."""
+    heterogeneous fleet, seeded draw words (uint32 values in int64, as the
+    draw source returns them), a non-trivial fault multiplier and a window
+    mask with a stabilisation preroll."""
     from repro_torch.engine import FleetEnv
     from repro_torch.kernels.fleet_tick import pack_tick_consts
 
@@ -441,6 +442,8 @@ def _kernel_inputs(N: int, T: int, S: int, seed: int, dev):
           for k, v in env.mc.items()}
     rng = np.random.default_rng(seed)
     t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    bits = lambda shape: torch.as_tensor(rng.integers(0, 2 ** 32, shape),
+                                         dtype=torch.int64, device=dev)
     n_ticks = rng.integers(T // 2, T + 1, N)
     n_skip = rng.integers(0, T // 4 + 1, N)
     t_ax = np.arange(T)[:, None]
@@ -449,12 +452,9 @@ def _kernel_inputs(N: int, T: int, S: int, seed: int, dev):
         consts=pack_tick_consts(cc, mc, env.spec, env.chips).contiguous(),
         rate=t(rng.uniform(5e3, 6e4, (T, N))),
         size=t(rng.uniform(0.001, 5.0, (T, N))),
-        z=t(rng.standard_normal((T, N))),
-        u_strag=t(rng.random((T, N))), u_raw=t(rng.random((T, N))),
-        u_fail=t(rng.random((T, N))),
+        tick_bits=bits((T, 2, N)),
         active=t(t_ax < n_ticks[None, :]),
-        u_wait=t(rng.random((T, S, N))),
-        z2a=t(np.abs(rng.standard_normal((T, S, N)))),
+        lane_bits=bits((T, S, N)),
         fmult=t(np.where(rng.random((T, N)) < 0.1,
                          rng.uniform(1.0, 4.0, (T, N)), 1.0)),
         wmask=t((t_ax < n_ticks[None, :]) & (t_ax >= n_skip[None, :])))
@@ -513,13 +513,19 @@ def phase_kernels(dev, facts: str) -> dict:
         geo = ft.launch_geometry(N, T, S, K)
         reps = 100 if geo["head"] == "registers" else 5  # these take ms
         ms, host_ms = _graph_ms(run, reps=reps), _time_ms(run, reps=reps)
+        # what the kernel's own decode replaces: the eager rows that decoded
+        # the same words before it took them raw
+        decode_ms = _graph_ms(lambda: ft.decode_draws(ops["tick_bits"],
+                                                      ops["lane_bits"]),
+                              reps=reps)
         plain_ms = _time_ms(   # ~1k torch ops a tick: fewer reps when long
             lambda: ft.fleet_tick_window_ref(*args, **kw, p99_k=p99_k),
             reps=min(100, max(3, 4800 // T)), warmup=2)
         nbytes, nops = ft.window_cost(T, S, K, N, fmult=True)
         bound_ms, by = _bound(nbytes, nops, F32_OPS_S)
         print(f"  N={N} T={T} S={S}: kernel device {ms * 1e3:.3f} us (host "
-              f"loop {host_ms * 1e3:.3f} us), plain {plain_ms * 1e3:.1f} us, "
+              f"loop {host_ms * 1e3:.3f} us; the eager decode it replaces "
+              f"{decode_ms * 1e3:.3f} us), plain {plain_ms * 1e3:.1f} us, "
               f"bound {bound_ms * 1e3:.3f} us by {by} ({nbytes / 1e6:.2f} MB, "
               f"{nops / 1e6:.1f} Mop), {bound_ms / ms:.4f} of the bound; "
               f"{geo['blocks']} blocks of {geo['threads']} threads, "
@@ -527,6 +533,7 @@ def phase_kernels(dev, facts: str) -> dict:
               f"[{facts}]")
         if main is None:
             main = {"max_abs_err": worst, "ms": ms, "ms_host_loop": host_ms,
+                    "decode_ms": decode_ms,
                     "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": by}
     return main
@@ -2546,11 +2553,14 @@ ESTIMATOR_TOL = {"mean_ms": 0.10, "p99_ms": 0.15}
 
 def _scan_inputs(N: int, T: int, seed: int, dev, fmult: bool) -> tuple:
     """fleet_scan's operands at (N, T): phase 3's (real packed constants,
-    seeded noise, a ragged ``active``), without the lane tiles."""
+    seeded noise, a ragged ``active``), its tick words decoded as the scan
+    route decodes them, without the lane words."""
+    from repro_torch.engine.fleet_torch import tick_noise
+
     ops, kw = _kernel_inputs(N, T, 1, seed=seed, dev=dev)
-    names = ("state", "consts", "rate", "size", "z", "u_strag", "u_raw",
-             "u_fail", "active")
-    args = [ops[k] for k in names] + [ops["fmult"] if fmult else None]
+    args = [ops["state"], ops["consts"], ops["rate"], ops["size"],
+            *tick_noise(ops["tick_bits"]), ops["active"],
+            ops["fmult"] if fmult else None]
     return args, kw
 
 

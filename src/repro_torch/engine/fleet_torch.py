@@ -20,7 +20,8 @@ the engine's ``window_impl``:
   the probe, ``pallas`` meaning ``"kernel"``.
 
 Around the kernel, plain torch ops on the card do what the reference's
-jitted program did around its kernel or scan: the 16-bit RNG transforms,
+jitted program did around its kernel or scan: the 16-bit RNG transforms
+(but the ``fleet_tick`` kernel's, which it does itself from the raw words),
 the in-trace workload rate grid, the window mean/p99 and the metric
 emission.
 
@@ -298,11 +299,10 @@ class _Emission:
         return per_node
 
 
-def _tick_draws(wdraws, T: int, N: int) -> tuple:
-    """The window's tick draws, two uint32 a (tick, cluster): the arrival
-    normal z and the straggler / slow / failure uniforms, each a
-    contiguous (T, N) f32 tensor."""
-    tick = wdraws.tick_bits(T, N)
+def tick_noise(tick: torch.Tensor) -> tuple:
+    """The tick draws' two uint32 a (tick, cluster), (T, 2, N), decoded:
+    the arrival normal z and the straggler / slow / failure uniforms, each
+    a contiguous (T, N) f32 tensor."""
     u0, l0 = split16(tick[:, 0])
     u1, l1 = split16(tick[:, 1])
     return (norm16(u0).contiguous(), l0.contiguous(), u1.contiguous(),
@@ -317,19 +317,19 @@ def _tick_kw(spec) -> dict:
 
 def _window_core(wdraws, T, S, backlog, sfree_rel, consts, rg, sg, tmask,
                  wmask, spec, fmult=None):
-    """Draw the window's tick and lane noise and run the ``fleet_tick``
-    kernel (``fmult``: the contiguous f32 (T, N) chaos service
-    multiplier, or None).
+    """Draw the window's tick and lane words and run the ``fleet_tick``
+    kernel, which decodes them (``fmult``: the contiguous f32 (T, N) chaos
+    service multiplier, or None).
     Returns the carry, ys (7 × (T, N)), the per-tick lane sums and
     quantiles in ms, the head in ms, n_s and the valid-lane count."""
     from repro_torch.kernels.fleet_tick import window_recurrence
 
     N = backlog.shape[0]
-    z, u_strag, u_raw, u_fail = _tick_draws(wdraws, T, N)
-    u_wait, z2a = split_lane_bits(wdraws.lane_bits(T, S, N))
+    tick_bits = wdraws.tick_bits(T, N)
+    lane_bits = wdraws.lane_bits(T, S, N)
     (backlog, sfree_rel), ys, kstats, head = window_recurrence(
-        backlog, sfree_rel, consts, rg.contiguous(), sg.contiguous(), z,
-        u_strag, u_raw, u_fail, tmask.to(torch.float32), u_wait, z2a, fmult,
+        backlog, sfree_rel, consts, rg.contiguous(), sg.contiguous(),
+        tick_bits, tmask.to(torch.float32), lane_bits, fmult,
         wmask.to(torch.float32), p99_k=p99_depth(T, S), **_tick_kw(spec))
     n_s = torch.clamp(ys[2].to(torch.int32), 1, S)              # (T, N)
     cnt = (n_s * wmask).sum(dim=0)                              # (N,)
@@ -364,7 +364,7 @@ def _scan_core(wdraws, T, backlog, sfree_rel, consts, rg, sg, tmask, spec,
     from repro_torch.kernels.fleet_scan import fleet_scan
 
     N = backlog.shape[0]
-    z, u_strag, u_raw, u_fail = _tick_draws(wdraws, T, N)
+    z, u_strag, u_raw, u_fail = tick_noise(wdraws.tick_bits(T, N))
     state, ys = fleet_scan(
         torch.stack([backlog, sfree_rel]), consts, rg.contiguous(),
         sg.contiguous(), z, u_strag, u_raw, u_fail, tmask.to(torch.float32),
@@ -937,9 +937,11 @@ def _probe_window_fns(T: int, N: int, device: torch.device):
     """The two window implementations' divergent halves at (T, N) on
     ``device``: the ``fleet_tick`` kernel with its head/mean reductions, and
     the ``fleet_scan`` kernel with the analytic mean and the sampled-lane
-    p99. The tick draws, emission and summary gathers are shared by the
-    real paths, so the comparison leaves them out. Each takes (draws,
-    state, consts, rate, size) and returns (state', mean, p99)."""
+    p99. Each draws and decodes its noise as its real path does (the
+    kernel its raw words itself, the scan its tick words eagerly); the
+    emission and summary gathers are shared by the real paths, so the
+    comparison leaves them out. Each takes (draws, state, consts, rate,
+    size) and returns (state', mean, p99)."""
     from repro_torch.kernels.fleet_scan import fleet_scan
     from repro_torch.kernels.fleet_tick import fleet_tick_window
 
@@ -950,11 +952,10 @@ def _probe_window_fns(T: int, N: int, device: torch.device):
     wmask = torch.ones((T, N), dtype=torch.bool, device=device)
 
     def kern(draws, state, consts, rate, size):
-        z, u_s, u_r, u_f = _tick_draws(draws, T, N)
-        u_wait, z2a = split_lane_bits(draws.lane_bits(T, S, N))
+        tick_bits = draws.tick_bits(T, N)
         state_out, ys, stats, head = fleet_tick_window(
-            state, consts, rate, size, z, u_s, u_r, u_f, active, u_wait, z2a,
-            p99_k=p99_depth(T, S), **kw)
+            state, consts, rate, size, tick_bits, active,
+            draws.lane_bits(T, S, N), p99_k=p99_depth(T, S), **kw)
         cnt = torch.clamp(ys[2].to(torch.int32), 1, S).sum(dim=0)
         mean = stats[0].sum(dim=0) / torch.clamp(cnt, min=1)
         p99 = _lerp_quantile(torch.flip(head.T, dims=(-1,)), cnt, 99.0,
@@ -962,7 +963,7 @@ def _probe_window_fns(T: int, N: int, device: torch.device):
         return state_out, mean, p99
 
     def scan(draws, state, consts, rate, size):
-        z, u_s, u_r, u_f = _tick_draws(draws, T, N)
+        z, u_s, u_r, u_f = tick_noise(draws.tick_bits(T, N))
         state_out, ys = fleet_scan(state, consts, rate, size, z, u_s, u_r,
                                    u_f, active, **kw)
         n_s = torch.clamp(ys[2].to(torch.int32), 1, _MAX_LAT_SAMPLES)

@@ -4,12 +4,15 @@
 //
 // Replaces the TPU kernel `repro.kernels.fleet_tick.fleet_tick_window`
 // (pl.pallas_call of `_tick_window_kernel`): same inputs, same outputs, same
-// (rows, T, N) layouts, same arithmetic. The random draws stay inputs.
+// (rows, T, N) layouts, same arithmetic. The random draws come in as the
+// raw Philox words the draw source returns (uint32 values held in int64):
+// the kernel decodes them itself, with the eager decode's arithmetic.
 //
 // Bound on an H100 (N=1024, T=48, S=32, K=32): one launch moves
 // 4*N*(15 + 21*T + 2*T*S + K) bytes ~ 16.9 MB (state in and out, the C_USED
-// coefficient rows it reads, the (T, N) and (T, S, N) inputs, the outputs),
-// ~5 us at 3.35 TB/s; its ~1k compare/arithmetic ops per (tick, cluster)
+// coefficient rows it reads, the (T, N) grids, the (T, 2, N) tick words and
+// (T, S, N) lane words at 8 bytes each, the outputs), ~5 us at 3.35 TB/s;
+// its ~1k compare/arithmetic ops per (tick, cluster)
 // are ~0.8 us at 67 TFLOP/s f32, so memory bounds it. What a launch cannot
 // avoid is the chain of T dependent ticks per cluster.
 //
@@ -17,14 +20,26 @@
 // - Geometry. A cluster takes L = min(S, 32) lanes (several clusters share a
 //   warp when S < 32), each lane holding NS = S / L of the tick's lane
 //   values; the head ++ lanes merge holds R = (K + S) / L values a lane. A
-//   block takes a tile of CPB = 8 adjacent clusters (CPB L threads), so
+//   block takes a tile of CPB = 8 adjacent clusters (CPB L threads, and the
+//   decode warps), so
 //   N=1024 runs 128 blocks. The Python wrapper's `launch_geometry` computes
 //   all of it; the launcher checks it against its own instantiations.
-// - Staging. The (T, N) and (T, S, N) operands are contiguous in N: each
-//   tick the block copies its tile (9 rows of 8 clusters, and 2 x S rows of
-//   8 clusters: one 32-byte sector a row) into shared memory with 4-byte
-//   cp.async, NST = 4 ticks ahead of the tick it computes, so the loads of
-//   the T-tick chain overlap its compute. One barrier a tick.
+// - Staging. The (T, N), (T, 2, N) and (T, S, N) operands are contiguous in
+//   N: each tick the block copies its tile (5 grid rows of 8 clusters, one
+//   32-byte sector each; the 2 tick-word rows and S lane-word rows of 8
+//   clusters, two sectors each, of which the low 32-bit word of each int64)
+//   into shared memory with 4-byte cp.async, NST = 5 ticks ahead of the tick
+//   it computes, so the loads of the T-tick chain overlap its compute. One
+//   barrier a tick.
+// - Decode. Each word is two 16-bit halves, u = (half + 0.5) / 65536, and a
+//   normal is sqrt(2) erfinv(2u - 1): exactly `split16` and `norm16` of
+//   engine/fleet_torch.py (every step exact but erfinvf, which torch's CUDA
+//   erfinv calls). Decode warps after the compute threads (one per 8 lanes
+//   a tick, at most 4: two lane words a thread, four at S = 64, and the
+//   first warp's 16 tick words) copy the words and decode tick t + 1's into
+//   shared memory while the CPB L compute threads run tick t: the decode
+//   runs beside the chain, on other warps, and the compute threads read
+//   decoded draws as they read the grids.
 // - The tick. The scalar queueing recurrence runs on every lane of the
 //   cluster (the same values, no broadcast needed). The lane sum is an xor
 //   shuffle tree with offsets 1, 2, 4, ..., exactly the reference `_sum0`'s
@@ -60,21 +75,23 @@ namespace {
 // read (the array may be padded beyond them)
 enum { C_TB, C_MAXB, C_ACOMP, C_CCOLL, C_BMEM, C_KVP, C_OVH, C_SLOWCAP,
        C_BACKUP, C_FAIL, C_INFLIGHT, C_USED };
-// the (T, N) operands, in the order they are staged; wmask and fmult may be
+// the (T, N) grids staged each tick, in order; wmask and fmult may be
 // absent (null)
-enum { G_RATE, G_SIZE, G_Z, G_USTRAG, G_URAW, G_UFAIL, G_ACTIVE, G_WMASK,
-       G_FMULT, NG };
+enum { G_RATE, G_SIZE, G_ACTIVE, G_WMASK, G_FMULT, NG };
+// a tick's decoded draws: the tick rows, then u_wait and z2a
+enum { D_Z, D_USTRAG, D_URAW, D_UFAIL, ND };
 
 constexpr float TOKENS_PER_MB = 16.0f;
 constexpr int CPB = 8;   // clusters a block: one 32-byte sector of a row
-constexpr int NST = 4;   // ticks staged at once
+constexpr int NST = 5;   // ticks staged at once
+constexpr int NDEC = 2;  // ticks of decoded draws held at once
 constexpr int HG = 8;    // head values a lane loads at once (R = 0)
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Args {
   const float* grid[NG];
-  const float* u_wait;
-  const float* z2a;
+  const int64_t* tick_bits;    // (T, 2, N) words in [0, 2^32)
+  const int64_t* lane_bits;    // (T, S, N) words in [0, 2^32)
   const float* state;
   const float* consts;
   float* state_out;
@@ -86,10 +103,19 @@ struct Args {
   float noise, retention_s, straggler_prob, slo, slo_span;
 };
 
-// floats of one staged tick: the grids, then u_wait and z2a as [S][CPB + 1]
-// (the padding column spreads a cluster's lanes over the banks)
+// 4-byte words of one staged tick: the grid rows, then the draw words,
+// the 2 tick words and the S lane words of each cluster, as [2 + S][CPB]
 __host__ __device__ constexpr int stage_floats(int S) {
-  return NG * CPB + 2 * S * (CPB + 1);
+  return (NG + 2 + S) * CPB;
+}
+// the decode warps' threads: a warp per 8 lanes a tick, at most 4
+__host__ __device__ constexpr int decode_threads(int S) {
+  return 32 * (S >= 32 ? 4 : S / 8);
+}
+// floats of one tick's decoded draws: the tick rows, then u_wait and z2a as
+// [S][CPB + 1] (the padding column spreads a cluster's lanes over the banks)
+__host__ __device__ constexpr int decoded_floats(int S) {
+  return ND * CPB + 2 * S * (CPB + 1);
 }
 
 // floats of one cluster's head in memory (R = 0), for P = K + S: head
@@ -112,7 +138,7 @@ __device__ __forceinline__ int count_at_or_below(const float* a, int n, int m,
 }
 
 // 4 bytes global -> shared; pred false writes zero and reads nothing
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool pred) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
@@ -127,32 +153,50 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// the eager decode (engine/fleet_torch.py): split16's halves and norm16
+__device__ __forceinline__ float hi16(uint32_t w) {
+  return ((float)(w >> 16) + 0.5f) / 65536.0f;
+}
+__device__ __forceinline__ float lo16(uint32_t w) {
+  return ((float)(w & 0xFFFFu) + 0.5f) / 65536.0f;
+}
+__device__ __forceinline__ float norm16(float u) {
+  return 1.41421356f * erfinvf(2.0f * u - 1.0f);
+}
+
 // R > 0: the head ++ lanes merge in R registers a lane (K + S = R L);
 // R = 0: the head in memory, merged by rank (see the header), P = K + S
 template <int L, int NS, int R>
-__global__ void __launch_bounds__(CPB * L)
+__global__ void __launch_bounds__(CPB * L + decode_threads(NS * L))
 fleet_tick_warp_kernel(Args a, int P) {
   constexpr int S = NS * L;
   constexpr int KR = R > 0 ? R - NS : 0;  // K = KR L head values in registers
   constexpr int RV = R > 0 ? R : NS;      // values a lane holds
   constexpr int CPW = 32 / L;       // clusters a warp
-  constexpr int LDL = CPB + 1;      // a staged lane row
+  constexpr int LDL = CPB + 1;      // a decoded lane row
   constexpr int STAGE = stage_floats(S);
-  constexpr int THREADS = CPB * L;
+  constexpr int DSTAGE = decoded_floats(S);
+  constexpr int THREADS = CPB * L;  // compute threads; decode warps follow
+  constexpr int DEC = decode_threads(S);
+  constexpr int LI = S * CPB / DEC;  // lane words a decode thread
   static_assert(NS >= 1 && (R == 0 || KR >= 1) && (L & (L - 1)) == 0 &&
-                L <= 32, "");
+                L <= 32 && THREADS % 32 == 0 && LI * DEC == S * CPB &&
+                DEC >= 2 * CPB, "");
   extern __shared__ float smem[];
+  float* const dec = smem + NST * STAGE;  // NDEC ticks of decoded draws
 
   const int tid = threadIdx.x, lane = tid & 31;
+  const bool decoder = tid >= THREADS;
+  const int dl = tid - THREADS;     // a decode thread's index
   const int l = lane & (L - 1);     // this lane's place in its cluster
   const int base = lane - l;        // the cluster's first lane
   const int c = (tid >> 5) * CPW + lane / L;  // cluster in the tile
   const int N = a.N, T = a.T;
   const int n0 = blockIdx.x * CPB, n = n0 + c;
-  const bool live = n < N;
+  const bool live = !decoder && n < N;
 
-  // this thread's copies of the grid rows each tick: item i = grid i / CPB,
-  // cluster i % CPB (the pointer chosen once, by constant indices)
+  // a compute thread's copies of the grid rows each tick: item i = grid
+  // i / CPB, cluster i % CPB (the pointer chosen once, by constant indices)
   constexpr int GI = (NG * CPB + THREADS - 1) / THREADS;
   const float* gsrc[GI];
 #pragma unroll
@@ -162,22 +206,66 @@ fleet_tick_warp_kernel(Args a, int P) {
     for (int g = 0; g < NG; ++g)
       if ((tid + m * THREADS) / CPB == g) gsrc[m] = a.grid[g];
   }
+  // a decode thread's words each tick, the low 32-bit word of each int64:
+  // lane words i = dl + j DEC, j < LI (lane i / CPB, cluster i % CPB), and
+  // below 2 CPB the tick word dl (word dl / CPB, cluster dl % CPB); staged
+  // as [2 + S][CPB] after the grids
+  const uint32_t* tick_words = reinterpret_cast<const uint32_t*>(a.tick_bits);
+  const uint32_t* lane_words = reinterpret_cast<const uint32_t*>(a.lane_bits);
   auto stage = [&](int t) {
     float* st = smem + (t % NST) * STAGE;
+    if (!decoder) {
 #pragma unroll
-    for (int m = 0; m < GI; ++m) {
-      const int i = tid + m * THREADS, cc = i % CPB;
-      const bool in = n0 + cc < N;
-      if (gsrc[m] != nullptr)
-        cp_async4(st + i, gsrc[m] + (in ? (size_t)t * N + n0 + cc : 0), in);
+      for (int m = 0; m < GI; ++m) {
+        const int i = tid + m * THREADS, cc = i % CPB;
+        const bool in = n0 + cc < N;
+        if (gsrc[m] != nullptr)
+          cp_async4(st + i, gsrc[m] + (in ? (size_t)t * N + n0 + cc : 0), in);
+      }
+      return;
     }
-    for (int i = tid; i < 2 * S * CPB; i += THREADS) {
-      const int w = i / (S * CPB), s = (i / CPB) % S, cc = i % CPB;
+#pragma unroll
+    for (int j = 0; j < LI; ++j) {
+      const int i = dl + j * DEC, cc = i % CPB;
       const bool in = n0 + cc < N;
-      cp_async4(st + NG * CPB + (w * S + s) * LDL + cc,
-                (w ? a.z2a : a.u_wait) +
-                    (in ? ((size_t)t * S + s) * N + n0 + cc : 0),
+      cp_async4(st + (NG + 2) * CPB + i,
+                lane_words +
+                    (in ? 2 * (((size_t)t * S + i / CPB) * N + n0 + cc) : 0),
                 in);
+    }
+    if (dl < 2 * CPB) {
+      const int cc = dl % CPB;
+      const bool in = n0 + cc < N;
+      cp_async4(st + NG * CPB + dl,
+                tick_words +
+                    (in ? 2 * (((size_t)t * 2 + dl / CPB) * N + n0 + cc) : 0),
+                in);
+    }
+  };
+  // a decode thread: tick t's words, its own copies, decoded into their
+  // slot of `dec` (a lane's wait from its word's high half, its jitter from
+  // the low half; z and the straggler uniform from tick word 0, the slow
+  // and failure uniforms from tick word 1)
+  auto decode = [&](int t) {
+    const uint32_t* sw =
+        reinterpret_cast<const uint32_t*>(smem + (t % NST) * STAGE) +
+        NG * CPB;
+    float* d = dec + (t % NDEC) * DSTAGE;
+#pragma unroll
+    for (int j = 0; j < LI; ++j) {
+      const int i = dl + j * DEC, s = i / CPB, cc = i % CPB;
+      const uint32_t w = sw[2 * CPB + i];
+      d[ND * CPB + s * LDL + cc] = hi16(w);
+      d[ND * CPB + (S + s) * LDL + cc] = fabsf(norm16(lo16(w)));
+    }
+    if (dl < CPB) {
+      const uint32_t w = sw[dl];
+      d[D_Z * CPB + dl] = norm16(hi16(w));
+      d[D_USTRAG * CPB + dl] = lo16(w);
+    } else if (dl < 2 * CPB) {
+      const uint32_t w = sw[dl];
+      d[D_URAW * CPB + dl - CPB] = hi16(w);
+      d[D_UFAIL * CPB + dl - CPB] = lo16(w);
     }
   };
 #pragma unroll
@@ -212,10 +300,10 @@ fleet_tick_warp_kernel(Args a, int P) {
   // `nxt`, the tick's lanes ascending in `lb`
   const int K = P - S;
   float *cur = nullptr, *nxt = nullptr, *lb = nullptr;
-  if (R == 0) {
+  if (R == 0 && !decoder) {
     cur = a.head_ws != nullptr
               ? a.head_ws + (size_t)(blockIdx.x * CPB + c) * 2 * P
-              : smem + NST * STAGE + c * head_floats(P, L);
+              : dec + NDEC * DSTAGE + c * head_floats(P, L);
     lb = cur + K;
     nxt = cur + P;
     for (int e = l; e < K; e += L) cur[e] = -INFINITY;
@@ -223,17 +311,30 @@ fleet_tick_warp_kernel(Args a, int P) {
 
   const float q50 = (float)0.50, q95 = (float)0.95, q99 = (float)0.99;
 
+  if (decoder) {
+    cp_async_wait<NST - 2>();  // tick 0's words are in
+    decode(0);
+  }
   for (int t = 0; t < T; ++t) {
-    cp_async_wait<NST - 2>();
-    __syncthreads();  // tick t is staged; tick t - 1's stage is free
+    if (!decoder) cp_async_wait<NST - 2>();  // tick t's grids are in
+    // tick t's grids and decoded draws are in; tick t - 1's stage and
+    // decoded draws are free
+    __syncthreads();
     if (t + NST - 1 < T) stage(t + NST - 1);
     cp_async_commit();
+    if (decoder) {
+      // tick t + 1's words are in: decode them while tick t computes
+      cp_async_wait<NST - 2>();
+      if (t + 1 < T) decode(t + 1);
+      continue;
+    }
     const float* st = smem + (t % NST) * STAGE;
+    const float* dd = dec + (t % NDEC) * DSTAGE;
     const size_t tn = (size_t)t * N + n;
 
     // ---- the queueing recurrence (reference `_tick_step`) ----
     const float rate = st[G_RATE * CPB + c];
-    const float arrivals = rate * T_b * (1.0f + noise * st[G_Z * CPB + c]);
+    const float arrivals = rate * T_b * (1.0f + noise * dd[D_Z * CPB + c]);
     const float age = backlog / fmaxf(rate, 1.0f);
     float blg = backlog + fmaxf(arrivals, 0.0f);
     blg = fminf(blg, rate * retention_s);              // Kafka retention
@@ -242,10 +343,10 @@ fleet_tick_warp_kernel(Args a, int P) {
     const float mem_frac = fminf(tokens * b_mem + kvp, 1.5f);
     const float pen = 1.0f + 2.0f * fmaxf(mem_frac - 1.0f, 0.0f);
     float service = ovh + tokens * a_comp * pen + tokens * c_coll;
-    const bool smask = st[G_USTRAG * CPB + c] < straggler_prob;
-    const float raw = slo + slo_span * st[G_URAW * CPB + c];
+    const bool smask = dd[D_USTRAG * CPB + c] < straggler_prob;
+    const float raw = slo + slo_span * dd[D_URAW * CPB + c];
     float slow = smask ? (backup != 0.0f ? 1.1f : fminf(raw, slow_cap)) : 1.0f;
-    const bool fmask = st[G_UFAIL * CPB + c] < fail_frac;
+    const bool fmask = dd[D_UFAIL * CPB + c] < fail_frac;
     slow = fmask ? slow * 2.0f : slow;
     slow = slow * (has_fmult ? st[G_FMULT * CPB + c] : 1.0f);
     service = service * slow;
@@ -277,8 +378,8 @@ fleet_tick_warp_kernel(Args a, int P) {
 #pragma unroll
     for (int rr = 0; rr < NS; ++rr) {
       const int s = rr * L + l;
-      const float uw = st[NG * CPB + s * LDL + c];
-      const float z2 = st[NG * CPB + (S + s) * LDL + c];
+      const float uw = dd[ND * CPB + s * LDL + c];
+      const float z2 = dd[ND * CPB + (S + s) * LDL + c];
       const float lat = uw * T_b + qd + service * (1.0f + 0.1f * z2);
       const bool valid = s < n_s && win;
       v[KR + rr] = valid ? lat : -INFINITY;
@@ -437,7 +538,8 @@ fleet_tick_warp_kernel(Args a, int P) {
 template <int L, int NS, int R>
 int launch(const Args& a, int P, int blocks, int smem, cudaStream_t stream) {
   auto kern = fleet_tick_warp_kernel<L, NS, R>;
-  int want = NST * stage_floats(NS * L) * (int)sizeof(float);
+  int want = (NST * stage_floats(NS * L) + NDEC * decoded_floats(NS * L)) *
+             (int)sizeof(float);
   if (R == 0 && a.head_ws == nullptr)
     want += CPB * head_floats(P, L) * (int)sizeof(float);
   if (smem != want) return (int)cudaErrorInvalidValue;
@@ -446,7 +548,7 @@ int launch(const Args& a, int P, int blocks, int smem, cudaStream_t stream) {
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kern<<<blocks, CPB * L, smem, stream>>>(a, P);
+  kern<<<blocks, CPB * L + decode_threads(NS * L), smem, stream>>>(a, P);
   return (int)cudaGetLastError();
 }
 
@@ -483,10 +585,9 @@ extern "C" int fleet_tick_consts_used() { return C_USED; }
 // shared memory disagrees with the kernel's, returns cudaErrorInvalidValue.
 extern "C" int fleet_tick_window_launch(
     const float* state, const float* consts, const float* rate,
-    const float* size, const float* z, const float* u_strag,
-    const float* u_raw, const float* u_fail, const float* active,
-    const float* wmask, const float* fmult, const float* u_wait,
-    const float* z2a, float* state_out, float* ys, float* stats, float* head,
+    const float* size, const int64_t* tick_bits, const float* active,
+    const float* wmask, const float* fmult, const int64_t* lane_bits,
+    float* state_out, float* ys, float* stats, float* head,
     float* head_ws, int N, int T, int L, int ns, int r, int blocks, int smem,
     float noise, float retention_s, float straggler_prob, float slo,
     float slo_span, void* stream) {
@@ -494,8 +595,8 @@ extern "C" int fleet_tick_window_launch(
       (r & (r - 1)) != 0 || (r <= MAX_R && head_ws != nullptr))
     return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
-  Args a{{rate, size, z, u_strag, u_raw, u_fail, active, wmask, fmult},
-         u_wait, z2a, state, consts, state_out, ys, stats, head, head_ws,
+  Args a{{rate, size, active, wmask, fmult}, tick_bits, lane_bits, state,
+         consts, state_out, ys, stats, head, head_ws,
          N, T, noise, retention_s, straggler_prob, slo, slo_span};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (L * 10 + ns) {

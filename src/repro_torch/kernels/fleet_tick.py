@@ -3,9 +3,12 @@ plus its latency-lane statistics, for N clusters at once (DESIGN.md §9, §14).
 
 Replaces the TPU kernel ``repro.kernels.fleet_tick.fleet_tick_window``
 (``pl.pallas_call`` of ``_tick_window_kernel``) with a CUDA C++ kernel
-written by hand for Hopper, ``csrc/fleet_tick.cu``: the same contract —
-same inputs, same outputs, same layouts — with the random draws kept as
-inputs.
+written by hand for Hopper, ``csrc/fleet_tick.cu``: the same outputs and
+layouts, with the random draws taken as the raw words the draw source
+returns (``PhiloxDraws.tick_bits`` (T, 2, N) and ``lane_bits`` (T, S, N):
+uint32 values held in int64). The kernel's decode warps decode them with the
+engine's own arithmetic (``repro_torch.engine.fleet_torch.split16`` /
+``norm16``); the plain version decodes them with those helpers first.
 
 * ``fleet_tick_window`` is the wrapper. On a CUDA tensor it checks dtype,
   contiguity and shapes, allocates the outputs with ``torch.empty``, launches
@@ -15,10 +18,11 @@ inputs.
   making it: the call counts in ``CAPTURED``, and the graph's owner
   (``repro_torch.core.graphs.Program``) adds the launches a graph holds to
   ``LAUNCHES`` at every replay.
-* ``fleet_tick_window_ref`` is the plain PyTorch version: the tick loop in
-  torch ops, the lanes sorted with ``torch.sort`` (exact, so the order
-  statistics equal the kernel's bitonic network value for value) and the
-  lane sum in the reference's adjacent-pair order.
+* ``fleet_tick_window_ref`` is the plain PyTorch version: the words decoded
+  (``decode_draws``), the tick loop in torch ops, the lanes sorted with
+  ``torch.sort`` (exact, so the order statistics equal the kernel's bitonic
+  network value for value) and the lane sum in the reference's
+  adjacent-pair order.
 
 Bound on an H100 at the main path's shape (N=1024, T=48, S=32, K=32): one
 launch moves ~16.9 MB (``window_cost``), ~5 us at 3.35 TB/s; its ~1k ops per
@@ -27,8 +31,10 @@ kernel puts a cluster's S lanes across the lanes of a warp (several
 clusters a warp when S < 32): shuffle-tree lane sum, shuffle bitonic sort,
 the head merged in registers (by rank, in shared or global memory, once
 K + S passes 32 values a lane, as windows of ~3300 ticks make it), a block per tile of
-8 adjacent clusters whose (T, N) and (T, S, N) rows are staged through
-shared memory a few ticks ahead (the source's header has the details).
+8 adjacent clusters whose (T, N) rows and draw words are staged through
+shared memory a few ticks ahead, a tick's words decoded by a warp of their
+own while the tick before it computes (the source's header has the
+details).
 ``launch_geometry`` computes the launch from (N, T, S, K) and refuses what
 the kernel is not built for.
 
@@ -42,6 +48,7 @@ import ctypes
 
 import torch
 
+from repro_torch.engine.fleet_torch import split_lane_bits, tick_noise
 from repro_torch.engine.simcluster import PEAK_FLOPS, TOKENS_PER_MB
 from repro_torch.kernels import build as kbuild
 
@@ -59,9 +66,13 @@ LAUNCHES = 0
 CAPTURED = 0
 
 SOURCE = "fleet_tick.cu"
-#: clusters a block takes (a tile: one 32-byte sector of every row), ticks
-#: staged at once, and the (T, N) grids staged each tick
-TILE_CLUSTERS, STAGES, GRIDS = 8, 4, 9
+#: clusters a block takes (a tile: one 32-byte sector of every f32 row), ticks
+#: staged at once, and the (T, N) grids staged each tick beside the draws'
+#: 2 + S words a cluster
+TILE_CLUSTERS, STAGES, GRIDS = 8, 5, 5
+#: ticks of decoded draws a block holds (4 tick rows and 2 S lane rows a
+#: cluster)
+DECODED = 2
 #: lanes per tick the kernel is built for (``window_lanes`` on CUDA gives
 #: 8 to 64), and the most head ++ lanes values one warp lane holds in
 #: registers (past it the head lives in memory, merged by rank)
@@ -122,19 +133,26 @@ def pack_tick_consts(cc: dict, mc: dict, spec, chips: int):
     return xp.stack(rows).to(torch.float32)
 
 
+def decode_threads(S: int) -> int:
+    """Threads of a block's decode warps: a warp per 8 lanes a tick, at
+    most 4 (two lane words a thread, four at S = 64)."""
+    return 32 * min(S // 8, 4)
+
+
 def launch_geometry(N: int, T: int, S: int, K: int) -> dict:
     """The kernel's launch for N clusters, T ticks, S lanes and a K-entry
     head, or a ValueError for what it is not built for. A cluster takes
     ``lanes`` = min(S, 32) warp lanes (``clusters_per_warp`` of them share a
     warp), each holding ``lane_values`` = S / lanes lane values and
     ``values_per_lane`` = (K + S) / lanes values of the head merge; a block
-    takes ``TILE_CLUSTERS`` clusters (``threads`` = 8 · lanes) and stages
-    ``STAGES`` ticks of their rows. Up to ``MAX_VALUES_PER_LANE`` the merge
-    runs in registers (``head`` "registers"); past it each cluster keeps
-    two K-float head buffers and its S sorted lanes, 2 (K + S) floats
-    (padded by ``lanes``), in shared memory ("shared") or, when the tile's
-    would take more than a block may have, in a global workspace of
-    ``workspace_floats`` ("global").
+    takes ``TILE_CLUSTERS`` clusters (``threads`` = 8 · lanes and the
+    ``decode_threads``), stages ``STAGES`` ticks of their rows and words
+    and holds ``DECODED`` ticks of decoded draws. Up to
+    ``MAX_VALUES_PER_LANE`` the merge runs in registers (``head``
+    "registers"); past it each cluster keeps two K-float head buffers and
+    its S sorted lanes, 2 (K + S) floats (padded by ``lanes``), in shared
+    memory ("shared") or, when the tile's would take more than a block may
+    have, in a global workspace of ``workspace_floats`` ("global").
     ``smem_bytes`` is the block's dynamic shared memory. S must be in
     ``LANE_COUNTS`` and K + S a power of two."""
     if S not in LANE_COUNTS:
@@ -148,7 +166,8 @@ def launch_geometry(N: int, T: int, S: int, K: int) -> dict:
         raise ValueError(f"fleet_tick: N={N}, T={T}")
     lanes = min(S, 32)
     blocks = -(-N // TILE_CLUSTERS)
-    smem = STAGES * (GRIDS * TILE_CLUSTERS + 2 * S * (TILE_CLUSTERS + 1)) * 4
+    smem = (STAGES * (GRIDS + 2 + S) * TILE_CLUSTERS
+            + DECODED * (4 * TILE_CLUSTERS + 2 * S * (TILE_CLUSTERS + 1))) * 4
     head, ws = "registers", 0
     if P // lanes > MAX_VALUES_PER_LANE:
         heads = TILE_CLUSTERS * (2 * P + lanes) * 4
@@ -158,18 +177,21 @@ def launch_geometry(N: int, T: int, S: int, K: int) -> dict:
             head, ws = "global", blocks * TILE_CLUSTERS * 2 * P
     return dict(lanes=lanes, clusters_per_warp=32 // lanes,
                 lane_values=S // lanes, values_per_lane=P // lanes,
-                threads=TILE_CLUSTERS * lanes, blocks=blocks,
-                smem_bytes=smem, head=head, workspace_floats=ws)
+                threads=TILE_CLUSTERS * lanes + decode_threads(S),
+                blocks=blocks, smem_bytes=smem, head=head,
+                workspace_floats=ws)
 
 
 def window_cost(T: int, S: int, K: int, N: int, fmult: bool = True):
     """(bytes, ops) one window must move and compute: each input read once
     (state 2, the CONSTS_USED coefficient rows the kernel reads — not the
-    padding, eight or nine (T, N) grids, two (T, S, N) lane tiles), each
-    output written once (state 2, ys 7T, stats 5T, head K), all
-    f32; ops count the tick recurrence (~40), the lane formula and sum
-    (~6 per lane), the bitonic sort (S·log S·(log S+1)/4 compare-exchanges)
-    and merge ((K+S)/2·log(K+S)), two min/max ops per exchange."""
+    padding, four or five f32 (T, N) grids, the (T, 2, N) int64 tick words
+    as four f32 grids' bytes and the (T, S, N) int64 lane words as two f32
+    lane tiles'), each output written once (state 2, ys 7T, stats 5T, head
+    K), in 4-byte words; ops count the tick recurrence (~40), the lane
+    formula and sum (~6 per lane), the bitonic sort (S·log S·(log S+1)/4
+    compare-exchanges) and merge ((K+S)/2·log(K+S)), two min/max ops per
+    exchange."""
     grids = 9 if fmult else 8
     words = (2 + CONSTS_USED + grids * T + 2 * T * S) + (2 + 12 * T + K)
     lg = S.bit_length() - 1
@@ -252,12 +274,32 @@ def _lane_stats(uw, z2, T_b, qd, service, batch, wm, S):
     return (lane_sum, q_at(50.0), q_at(95.0), q_at(99.0), srt[-1]), srt
 
 
-def fleet_tick_window_ref(state, consts, rate, size, z, u_strag, u_raw,
-                          u_fail, active, u_wait, z2a, fmult=None, wmask=None,
-                          *, noise, retention_s, straggler_prob, slo, shi,
-                          p99_k=2):
+def decode_draws(tick_bits, lane_bits):
+    """The window's draw words decoded as the kernel decodes them: (z,
+    u_strag, u_raw, u_fail) (T, N) from the tick words, (u_wait, z2a)
+    (T, S, N) from the lane words."""
+    return (*tick_noise(tick_bits), *split_lane_bits(lane_bits))
+
+
+def fleet_tick_window_ref(state, consts, rate, size, tick_bits, active,
+                          lane_bits, fmult=None, wmask=None, *, noise,
+                          retention_s, straggler_prob, slo, shi, p99_k=2):
     """The plain version of ``fleet_tick_window`` (same signature and
-    outputs), on any device."""
+    outputs), on any device: the words decoded, then ``window_ref``."""
+    z, u_strag, u_raw, u_fail, u_wait, z2a = decode_draws(tick_bits,
+                                                          lane_bits)
+    return window_ref(state, consts, rate, size, z, u_strag, u_raw, u_fail,
+                      active, u_wait, z2a, fmult, wmask, noise=noise,
+                      retention_s=retention_s, straggler_prob=straggler_prob,
+                      slo=slo, shi=shi, p99_k=p99_k)
+
+
+def window_ref(state, consts, rate, size, z, u_strag, u_raw, u_fail, active,
+               u_wait, z2a, fmult=None, wmask=None, *, noise, retention_s,
+               straggler_prob, slo, shi, p99_k=2):
+    """The plain window on decoded draws: z the arrival normals and u_* the
+    uniforms, (T, N); u_wait the wait uniforms and z2a the |normal| jitters,
+    (T, S, N) — the reference kernel's operands."""
     T, S, N = u_wait.shape
     K = head_budget(S, p99_k)
     if fmult is None:
@@ -301,16 +343,16 @@ def _library():
                                f"coefficient rows, pack_tick_consts packs "
                                f"{CONSTS_USED}")
         fn = lib.fleet_tick_window_launch
-        fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
                        + [ctypes.c_float] * 5 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
-def _check(name, x, shape, device):
-    if x.dtype != torch.float32:
-        raise TypeError(f"fleet_tick: {name} must be float32, got {x.dtype}")
+def _check(name, x, shape, device, dtype=torch.float32):
+    if x.dtype != dtype:
+        raise TypeError(f"fleet_tick: {name} must be {dtype}, got {x.dtype}")
     if tuple(x.shape) != shape:
         raise ValueError(f"fleet_tick: {name} has shape {tuple(x.shape)}, "
                          f"expected {shape}")
@@ -320,19 +362,23 @@ def _check(name, x, shape, device):
         raise ValueError(f"fleet_tick: {name} must be contiguous")
 
 
-def fleet_tick_window(state, consts, rate, size, z, u_strag, u_raw, u_fail,
-                      active, u_wait, z2a, fmult=None, wmask=None, *, noise,
+def fleet_tick_window(state, consts, rate, size, tick_bits, active,
+                      lane_bits, fmult=None, wmask=None, *, noise,
                       retention_s, straggler_prob, slo, shi, p99_k=2):
     """Run one window's fused tick recurrence + lane statistics.
 
     state (2, N) [backlog, server_free_rel]; consts (CONSTS_ROWS, N) from
-    ``pack_tick_consts``; rate/size/z/u_*/active (T, N); u_wait/z2a
-    (T, S, N); ``fmult`` an optional (T, N) chaos service multiplier
-    (all-ones when None); ``wmask`` the (T, N) window mask gating which
-    ticks' lanes feed the statistics (``active`` when None). ``p99_k`` is
-    the caller's p99 interpolation depth; the head is sized by
-    ``head_budget``. On a CUDA tensor S and K+S must be what
-    ``launch_geometry`` takes.
+    ``pack_tick_consts``; rate/size/active (T, N) f32; ``tick_bits``
+    (T, 2, N) and ``lane_bits`` (T, S, N) int64 draw words, each a uint32
+    value (``PhiloxDraws.tick_bits`` / ``lane_bits``; decoded as
+    ``decode_draws`` does: the arrival normal and straggler uniform from
+    word 0, the slow and failure uniforms from word 1, a lane's wait
+    uniform and |normal| jitter from its word); ``fmult`` an optional
+    (T, N) chaos service multiplier (all-ones when None); ``wmask`` the
+    (T, N) window mask gating which ticks' lanes feed the statistics
+    (``active`` when None). ``p99_k`` is the caller's p99 interpolation
+    depth; the head is sized by ``head_budget``. On a CUDA tensor S and K+S
+    must be what ``launch_geometry`` takes.
 
     Returns (state' (2, N), ys (7, T, N), stats (5, T, N), head (K, N)):
     ys rows = service, queue_delay, batch, processed, straggler, failure,
@@ -342,22 +388,22 @@ def fleet_tick_window(state, consts, rate, size, z, u_strag, u_raw, u_fail,
     kw = dict(noise=noise, retention_s=retention_s,
               straggler_prob=straggler_prob, slo=slo, shi=shi)
     if not state.is_cuda:
-        return fleet_tick_window_ref(state, consts, rate, size, z, u_strag,
-                                     u_raw, u_fail, active, u_wait, z2a,
-                                     fmult, wmask, p99_k=p99_k, **kw)
-    T, S, N = u_wait.shape
+        return fleet_tick_window_ref(state, consts, rate, size, tick_bits,
+                                     active, lane_bits, fmult, wmask,
+                                     p99_k=p99_k, **kw)
+    T, S, N = lane_bits.shape
     K = head_budget(S, p99_k)
     geo = launch_geometry(N, T, S, K)
     dev = state.device
     _check("state", state, (2, N), dev)
     _check("consts", consts, (CONSTS_ROWS, N), dev)
-    grids = dict(rate=rate, size=size, z=z, u_strag=u_strag, u_raw=u_raw,
-                 u_fail=u_fail, active=active, wmask=wmask, fmult=fmult)
+    grids = dict(rate=rate, size=size, active=active, wmask=wmask,
+                 fmult=fmult)
     for name, x in grids.items():
         if x is not None:
             _check(name, x, (T, N), dev)
-    _check("u_wait", u_wait, (T, S, N), dev)
-    _check("z2a", z2a, (T, S, N), dev)
+    _check("tick_bits", tick_bits, (T, 2, N), dev, torch.int64)
+    _check("lane_bits", lane_bits, (T, S, N), dev, torch.int64)
     lib = _library()
     state_out = torch.empty((2, N), dtype=torch.float32, device=dev)
     ys = torch.empty((7, T, N), dtype=torch.float32, device=dev)
@@ -369,10 +415,10 @@ def fleet_tick_window(state, consts, rate, size, z, u_strag, u_raw, u_fail,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fleet_tick_window_launch(
-            ptr(state), ptr(consts), ptr(rate), ptr(size), ptr(z),
-            ptr(u_strag), ptr(u_raw), ptr(u_fail), ptr(active), ptr(wmask),
-            ptr(fmult), ptr(u_wait), ptr(z2a), ptr(state_out), ptr(ys),
-            ptr(stats), ptr(head), ptr(ws), N, T, geo["lanes"], geo["lane_values"],
+            ptr(state), ptr(consts), ptr(rate), ptr(size), ptr(tick_bits),
+            ptr(active), ptr(wmask), ptr(fmult), ptr(lane_bits),
+            ptr(state_out), ptr(ys), ptr(stats), ptr(head), ptr(ws), N, T,
+            geo["lanes"], geo["lane_values"],
             geo["values_per_lane"], geo["blocks"], geo["smem_bytes"], noise,
             retention_s, straggler_prob, slo, shi - slo, stream)
     if rc != 0:
@@ -384,10 +430,9 @@ def fleet_tick_window(state, consts, rate, size, z, u_strag, u_raw, u_fail,
     return state_out, ys, stats, head
 
 
-def window_recurrence(backlog, sfree_rel, consts, rate, size, z, u_strag,
-                      u_raw, u_fail, active, u_wait, z2a, fmult=None,
-                      wmask=None, *, noise, retention_s, straggler_prob,
-                      slo, shi, p99_k=2):
+def window_recurrence(backlog, sfree_rel, consts, rate, size, tick_bits,
+                      active, lane_bits, fmult=None, wmask=None, *, noise,
+                      retention_s, straggler_prob, slo, shi, p99_k=2):
     """The fused window with the tick scan's carry contract:
 
         (backlog, sfree_rel) -> (backlog', sfree_rel'),
@@ -395,8 +440,8 @@ def window_recurrence(backlog, sfree_rel, consts, rate, size, z, u_strag,
          backlog_after), stats (5, T, N) seconds, head (K, N) seconds
     """
     state_out, ys, stats, head = fleet_tick_window(
-        torch.stack([backlog, sfree_rel]), consts, rate, size, z, u_strag,
-        u_raw, u_fail, active, u_wait, z2a, fmult, wmask, noise=noise,
+        torch.stack([backlog, sfree_rel]), consts, rate, size, tick_bits,
+        active, lane_bits, fmult, wmask, noise=noise,
         retention_s=retention_s, straggler_prob=straggler_prob, slo=slo,
         shi=shi, p99_k=p99_k)
     return (state_out[0], state_out[1]), tuple(ys), stats, head

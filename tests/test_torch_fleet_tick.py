@@ -1,6 +1,8 @@
 """``repro_torch.kernels.fleet_tick``: the plain version against the
 reference TPU kernel's tiers on identical numpy inputs, and (on a card) the
-CUDA kernel against the plain version.
+CUDA kernel against the plain version. The port takes the draws as raw
+words (uint32 values in int64); the reference takes them decoded, so it is
+handed the words' decode by the port's own helpers (``decode_draws``).
 
 Tolerance: rtol 1e-5 / atol 1e-5 (f32). Both sides run the same f32
 formulas in the same order, sort exactly (min/max networks vs torch.sort)
@@ -45,8 +47,8 @@ def _one_thread():
 
 def _inputs(T, N, S, seed=0, fmult=False, preroll=False):
     """Operands at one (T, N, S) point as numpy: real packed constants of a
-    heterogeneous fleet (the port's copy of the lever packing), seeded noise,
-    an optional fault multiplier and an optional window mask with a
+    heterogeneous fleet (the port's copy of the lever packing), seeded draw
+    words, an optional fault multiplier and an optional window mask with a
     stabilisation preroll and ragged ends."""
     from repro_torch.engine import FleetEnv
 
@@ -58,6 +60,10 @@ def _inputs(T, N, S, seed=0, fmult=False, preroll=False):
     consts = ft.pack_tick_consts(cc, mc, env.spec, env.chips).numpy()
     rng = np.random.default_rng(seed)
     f = lambda a: np.asarray(a, np.float32)
+    # the words come from a stream of their own, so the other operands are
+    # the same draws of ``rng`` at every point whatever the words' shapes
+    words = np.random.default_rng([seed, 1])
+    bits = lambda shape: words.integers(0, 2 ** 32, shape, dtype=np.int64)
     t_ax = np.arange(T)[:, None]
     n_ticks = rng.integers(max(T // 2, 1), T + 1, N)
     ops = dict(
@@ -65,12 +71,9 @@ def _inputs(T, N, S, seed=0, fmult=False, preroll=False):
         consts=consts,
         rate=f(rng.uniform(5e3, 6e4, (T, N))),
         size=f(rng.uniform(0.001, 5.0, (T, N))),
-        z=f(rng.standard_normal((T, N))),
-        u_strag=f(rng.random((T, N))), u_raw=f(rng.random((T, N))),
-        u_fail=f(rng.random((T, N))),
+        tick_bits=bits((T, 2, N)),
         active=f(t_ax < n_ticks[None, :]),
-        u_wait=f(rng.random((T, S, N))),
-        z2a=f(np.abs(rng.standard_normal((T, S, N)))),
+        lane_bits=bits((T, S, N)),
         fmult=f(np.where(rng.random((T, N)) < 0.2,
                          rng.uniform(1.0, 4.0, (T, N)), 1.0)) if fmult else None,
         wmask=f((t_ax < n_ticks[None, :])
@@ -106,6 +109,21 @@ def _torch_args(ops):
             for v in ops.values()]
 
 
+def _decoded(ops):
+    """The reference kernel's operands (state, consts, rate, size, z,
+    u_strag, u_raw, u_fail, active, u_wait, z2a, fmult, wmask): the words
+    decoded by the port's helpers."""
+    z, us, ur, uf, uw, z2 = ft.decode_draws(torch.from_numpy(ops["tick_bits"]),
+                                            torch.from_numpy(ops["lane_bits"]))
+    return [ops["state"], ops["consts"], ops["rate"], ops["size"],
+            *(x.numpy() for x in (z, us, ur, uf)), ops["active"],
+            uw.numpy(), z2.numpy(), ops["fmult"], ops["wmask"]]
+
+
+def _jnp_args(ops):
+    return [None if v is None else jnp.asarray(v) for v in _decoded(ops)]
+
+
 @needs_reference
 @pytest.mark.parametrize("T,N,S,p99_k,fmult,preroll", [
     (48, 16, 32, 18, False, False),   # the fused step's shape (K = S)
@@ -116,9 +134,8 @@ def _torch_args(ops):
 ])
 def test_plain_matches_reference_xla_tier(T, N, S, p99_k, fmult, preroll):
     ops, kw = _inputs(T, N, S, seed=T + N, fmult=fmult, preroll=preroll)
-    ref = ref_ft.fleet_tick_window(
-        *[None if v is None else jnp.asarray(v) for v in ops.values()],
-        **kw, p99_k=p99_k, mode="xla")
+    ref = ref_ft.fleet_tick_window(*_jnp_args(ops), **kw, p99_k=p99_k,
+                                   mode="xla")
     got = ft.fleet_tick_window(*_torch_args(ops), **kw, p99_k=p99_k)
     assert got[3].shape[0] == ft.head_budget(S, p99_k) == ref[3].shape[0]
     _assert_close(got, ref, f"T={T} N={N} S={S}")
@@ -128,9 +145,8 @@ def test_plain_matches_reference_xla_tier(T, N, S, p99_k, fmult, preroll):
 def test_plain_matches_reference_interpret_tier():
     """The literal Pallas kernel body, run by the interpreter."""
     ops, kw = _inputs(10, 8, 16, seed=1, fmult=True, preroll=True)
-    ref = ref_ft.fleet_tick_window(
-        *[jnp.asarray(v) for v in ops.values()], **kw, p99_k=4, block_n=8,
-        mode="interpret")
+    ref = ref_ft.fleet_tick_window(*_jnp_args(ops), **kw, p99_k=4, block_n=8,
+                                   mode="interpret")
     got = ft.fleet_tick_window(*_torch_args(ops), **kw, p99_k=4)
     _assert_close(got, ref, "interpret")
 
@@ -164,8 +180,10 @@ def test_helpers_and_shape_checks():
     x = torch.arange(16.0).reshape(8, 2)
     assert torch.equal(ft._sum0(x), x.sum(0))
     nbytes, _ = ft.window_cost(48, 32, 32, 1024)
-    # state in/out, the 11 coefficient rows the kernel reads, 9 (T, N)
-    # grids, 2 (T, S, N) lane tiles, ys 7T, stats 5T, head K
+    # state in/out, the 11 coefficient rows the kernel reads, 5 (T, N)
+    # grids and the (T, 2, N) int64 tick words (the bytes of 4 f32 grids),
+    # the (T, S, N) int64 lane words (of 2 f32 lane tiles), ys 7T, stats
+    # 5T, head K
     assert ft.CONSTS_USED == 11
     assert nbytes == 4 * 1024 * (15 + 21 * 48 + 2 * 48 * 32 + 32)
     # the plain path counts no kernel launches
@@ -181,14 +199,14 @@ def test_helpers_and_shape_checks():
     # ticks (16 head-merge values a lane), one of 3328 ticks (past 32
     # values a lane: the head in shared memory), and a head too long for
     # the tile's shared memory (in global memory)
-    (1024, 48, 32, 18, (32, 1, 1, 2, 256, 128, 10368, "registers", 0)),
-    (1024, 24, 64, 18, (32, 1, 2, 4, 256, 128, 19584, "registers", 0)),
-    (1000, 192, 8, 18, (8, 4, 1, 4, 64, 125, 3456, "registers", 0)),
-    (777, 32, 16, 40, (16, 2, 1, 4, 128, 98, 5760, "registers", 0)),
-    (1024, 768, 8, 64, (8, 4, 1, 16, 64, 128, 3456, "registers", 0)),
-    (1024, 3328, 8, 269, (8, 4, 1, 64, 64, 128, 36480, "shared", 0)),
+    (1024, 48, 32, 18, (32, 1, 1, 2, 384, 128, 11104, "registers", 0)),
+    (1024, 24, 64, 18, (32, 1, 2, 4, 384, 128, 20832, "registers", 0)),
+    (1000, 192, 8, 18, (8, 4, 1, 4, 96, 125, 3808, "registers", 0)),
+    (777, 32, 16, 40, (16, 2, 1, 4, 192, 98, 6240, "registers", 0)),
+    (1024, 768, 8, 64, (8, 4, 1, 16, 96, 128, 3808, "registers", 0)),
+    (1024, 3328, 8, 269, (8, 4, 1, 64, 96, 128, 36832, "shared", 0)),
     (1000, 16, 8, 8000,
-     (8, 4, 1, 1024, 64, 125, 3456, "global", 125 * 8 * 2 * 8192)),
+     (8, 4, 1, 1024, 96, 125, 3808, "global", 125 * 8 * 2 * 8192)),
 ], ids=["fused-step", "observe", "long-ragged", "k-above-s", "long-window",
         "memory-head", "global-head"])
 def test_launch_geometry_at_the_chip_check_shapes(N, T, S, p99_k, geo):
@@ -240,7 +258,8 @@ def test_launch_geometry_places_the_head_by_its_length(S, K, head):
     N = 1000
     geo = ft.launch_geometry(N, 8, S, K)
     lanes, P = min(S, 32), K + S
-    staging = ft.STAGES * (ft.GRIDS * 8 + 2 * S * 9) * 4
+    staging = (ft.STAGES * (ft.GRIDS + 2 + S) * 8
+               + ft.DECODED * (4 * 8 + 2 * S * 9)) * 4
     assert geo["values_per_lane"] == P // lanes
     assert geo["head"] == head
     if head == "registers":
@@ -287,6 +306,82 @@ def test_launch_geometry_covers_the_lane_counts_the_port_uses():
     assert min(heads["global"]) > 25_000
 
 
+#: (T, S, p99_k) of chip_smoke.py's phase-3 shapes (None: the port's own
+#: depth; cell 1's window (192, 8, K = 24) is the long ragged one) and of
+#: cell 3's window (1024, 8, K = 120)
+WORD_SHAPES = [(48, 32, None), (24, 64, None), (192, 8, None),
+               (32, 16, 40), (768, 8, None), (3328, 8, None), (16, 8, 8000),
+               (1024, 8, None)]
+WORD_IDS = ["fused-step", "observe", "long-ragged-cell1", "k-above-s",
+            "long-window", "memory-head", "global-head", "cell3"]
+
+
+def _phase_args(ops, tick_bits, lane_bits):
+    args = _torch_args(ops)
+    args[4], args[6] = tick_bits, lane_bits
+    return args
+
+
+@pytest.mark.parametrize("fmult", [False, True], ids=["plain", "fmult"])
+@pytest.mark.parametrize("T,S,p99_k", WORD_SHAPES, ids=WORD_IDS)
+def test_plain_on_words_is_bitwise_the_decode_then_plain(T, S, p99_k, fmult):
+    """The plain version on the draw source's raw words equals, bit for bit,
+    the words decoded by the window's eager helpers (``tick_noise``,
+    ``split_lane_bits``) and then run through the plain window on the
+    decoded operands, at N = 8."""
+    from repro_torch.engine.draws import PhiloxDraws
+    from repro_torch.engine.fleet_torch import (p99_depth, split_lane_bits,
+                                                tick_noise)
+
+    N = 8
+    p99_k = p99_depth(T, S) if p99_k is None else p99_k
+    ops, kw = _inputs(T, N, S, seed=T + S, fmult=fmult, preroll=True)
+    words, eager = PhiloxDraws(T * S, "cpu"), PhiloxDraws(T * S, "cpu")
+    args = _phase_args(ops, words.tick_bits(T, N), words.lane_bits(T, S, N))
+    got = ft.fleet_tick_window(*args, **kw, p99_k=p99_k)
+    z, us, ur, uf = tick_noise(eager.tick_bits(T, N))
+    uw, z2 = split_lane_bits(eager.lane_bits(T, S, N))
+    want = ft.window_ref(*args[:4], z, us, ur, uf, args[5], uw, z2,
+                         *args[7:], **kw, p99_k=p99_k)
+    assert got[3].shape[0] == ft.head_budget(S, p99_k)
+    for name, a, b in zip(NAMES, got, want):
+        assert torch.equal(a.isnan(), b.isnan()), name
+        assert torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)), name
+
+
+def test_window_draws_the_stream_as_two_direct_calls():
+    """``_window_core`` takes its noise as one ``tick_bits`` and one
+    ``lane_bits`` call, in that order: a window leaves the generator where
+    the two direct calls leave it, and its outputs are the plain window's
+    on those calls' words."""
+    import types
+
+    from repro_torch.engine.draws import PhiloxDraws
+    from repro_torch.engine.fleet_torch import _window_core, p99_depth
+
+    T, N, S = 24, 6, 8
+    ops, kw = _inputs(T, N, S, seed=3, fmult=True, preroll=True)
+    spec = types.SimpleNamespace(noise=kw["noise"],
+                                 retention_s=kw["retention_s"],
+                                 straggler_prob=kw["straggler_prob"],
+                                 straggler_slow=(kw["slo"], kw["shi"]))
+    args = _torch_args(ops)
+    state, consts, rate, size, active = (args[0], args[1], args[2], args[3],
+                                         args[5])
+    fmult, wmask = args[7], args[8] > 0
+    window, direct = PhiloxDraws(5, "cpu"), PhiloxDraws(5, "cpu")
+    (backlog, sfree), ys, *_ = _window_core(
+        window, T, S, state[0], state[1], consts, rate, size, active > 0,
+        wmask, spec, fmult)
+    tick_bits, lane_bits = direct.tick_bits(T, N), direct.lane_bits(T, S, N)
+    assert torch.equal(window.get_state(), direct.get_state())
+    want = ft.fleet_tick_window(state, consts, rate, size, tick_bits, active,
+                                lane_bits, fmult, wmask.to(torch.float32),
+                                **kw, p99_k=p99_depth(T, S))
+    assert torch.equal(torch.stack([backlog, sfree]), want[0])
+    assert torch.equal(torch.stack(ys), want[1])
+
+
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_version_on_the_card():
     """Builds ``csrc/fleet_tick.cu`` with nvcc and holds the kernel against
@@ -326,3 +421,55 @@ def test_cuda_kernel_matches_plain_version_on_the_card():
             assert torch.equal(a.isnan(), b.isnan()), (name, T, N, S)
             assert torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)), \
                 (name, T, N, S, geo["head"])
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_decodes_words_bitwise_at_the_cells_shapes():
+    """The kernel's own decode on the card: at cell 3's launch (N = 1024,
+    T = 1024, S = 8, K = 120), whose lane words hold every code of each
+    16-bit half (so ``erfinvf``'s tails are compared), at cell 1's window
+    with the fault multiplier (192, 8, K = 24), and at a long window whose
+    head is merged in memory (3328, 8, R = 0), the kernel on raw words is
+    bitwise the plain version, which decodes them with torch's own ops; and
+    a captured graph's replay of cell 3's launch is bitwise its eager
+    call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.engine.fleet_torch import p99_depth
+
+    for T, S, fmult, head in ((1024, 8, False, "registers"),
+                              (192, 8, True, "registers"),
+                              (3328, 8, True, "shared")):
+        N, p99_k = 1024, p99_depth(T, S)
+        geo = ft.launch_geometry(N, T, S, ft.head_budget(S, p99_k))
+        assert geo["head"] == head, geo
+        ops, kw = _inputs(T, N, S, seed=T, fmult=fmult, preroll=True)
+        args = [None if v is None else torch.from_numpy(v.copy()).cuda()
+                for v in ops.values()]
+        if T == 1024:
+            lanes = args[6]
+            for half in (lanes >> 16, lanes & 0xFFFF):
+                assert int((torch.bincount(half.flatten(), minlength=65536)
+                            > 0).sum()) == 65536
+        got = ft.fleet_tick_window(*args, **kw, p99_k=p99_k)
+        ref = ft.fleet_tick_window_ref(*args, **kw, p99_k=p99_k)
+        torch.cuda.synchronize()
+        for name, a, b in zip(NAMES, got, ref):
+            assert torch.equal(a.isnan(), b.isnan()), (name, T)
+            assert torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)), \
+                (name, T, head)
+        if T != 1024:
+            continue
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ft.fleet_tick_window(*args, **kw, p99_k=p99_k)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = ft.fleet_tick_window(*args, **kw, p99_k=p99_k)
+        graph.replay()
+        torch.cuda.synchronize()
+        for name, a, b in zip(NAMES, out, got):
+            assert torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)), \
+                ("replay", name)
